@@ -1,0 +1,6 @@
+"""Architecture configs of the port: the published shapes served so far
+(``qwen1.5-0.5b``) and the tiny pool, each registered under its id."""
+from repro_torch.configs import (  # noqa: F401
+    qwen1_5_0_5b,
+    tiny_pool,
+)

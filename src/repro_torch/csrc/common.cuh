@@ -1,0 +1,62 @@
+// Shared helpers of the port's hand-written attention kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+// The TPU kernels mask with this finite value instead of -inf, so a row whose
+// keys are all masked keeps finite running statistics (exp(0) = 1 is then
+// zeroed by the mask) and never produces NaN.
+#define REPRO_NEG_INF (-1e30f)
+
+// Element types a wrapper may pass; the codes match the Python side.
+enum ReproDtype { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+// Round to nearest even, as PyTorch's float -> bfloat16 cast does.
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One 16-byte global load: 4 floats or 8 bfloat16 values.
+template <typename T> struct Vec {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+__device__ __forceinline__ uint4 load_vec(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Widen one 16-byte vector of T to fp32 and store it at dst[0 .. N).
+__device__ __forceinline__ void store_widened(float* dst, uint4 raw, float) {
+  const float* f = reinterpret_cast<const float*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dst[j] = f[j];
+}
+__device__ __forceinline__ void store_widened(float* dst, uint4 raw, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    dst[2 * j] = f.x;
+    dst[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}

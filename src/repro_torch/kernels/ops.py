@@ -1,0 +1,38 @@
+"""Kernel dispatch layer of the port: the tensor's device picks the path.
+
+Models call these entry points only.  A CPU tensor takes the kernel's plain
+PyTorch version; a CUDA tensor launches the hand-written CUDA kernel, whose
+wrapper raises on what it cannot take.  Nothing here catches an error and
+falls back: on the card the kernels run or the call fails.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
+
+__all__ = ["flash_attention", "paged_attention"]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    q_block: int = 512, kv_block: int = 1024, causal_skip: bool = True):
+    """q: (B, S, H, D); k/v: (B, S, Hk, D) -> (B, S, H, D).
+
+    The tile sizes and ``causal_skip`` shape the plain version only; the
+    kernel picks its own tiles and always skips hidden KV tiles.
+    """
+    if q.device.type == "cpu":
+        return _flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                            q_block=q_block, kv_block=kv_block,
+                                            causal_skip=causal_skip)
+    return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def paged_attention(q, k_pool, v_pool, table, lengths):
+    """q: (B, 1, H, D); k_pool/v_pool: (P, page, Hk, D); table: (B, n_pages)
+    int32 physical page indices (entries >= P are unmapped sentinels);
+    lengths: (B,) int32 valid KV lengths -> (B, 1, H, D)."""
+    if q.device.type == "cpu":
+        return _paged.paged_attention_plain(q, k_pool, v_pool, table, lengths)
+    return _paged.paged_attention_cuda(q, k_pool, v_pool, table, lengths)

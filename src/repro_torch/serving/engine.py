@@ -1,0 +1,383 @@
+"""Serving engine of the port: slot-based continuous batching over a paged KV
+cache, greedy decoding.
+
+Counterpart of the JAX package's ``serving/engine.py`` in its paged mode
+(``ServingEngine(paged=True)``), and bit-for-bit the same host logic:
+
+* **Batched admission** (``_admit_batch``): every request admitted in one
+  serving tick is padded to a power-of-two length bucket (at least 16, then
+  a page multiple), prefilled in one ``Model.prefill`` call, and its pages
+  are written into the pools by ``_insert_pages``.  Siblings that share the
+  batch prompt's prefix map their tables onto the owner's pages (refcount
+  bumps, no second copy).
+* **Page maintenance** (``_prepare_paged``): before each decode dispatch every
+  active slot's table grows to cover its next ``decode_block`` writes, and
+  any still-shared page in that range is copied-on-write (``_fork_pages``).
+* **Fused K-step decode** (``_decode_k_paged``): ``decode_block`` greedy
+  steps run back to back with the per-slot state (last token, active mask,
+  emitted count) on the device, and the host reads the results once per K.
+
+The contiguous KV layout, sampled decoding and the stepwise reference driver
+are not ported yet: ``paged=False`` and a non-greedy ``GenerationConfig``
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Model
+from repro_torch.serving.generation import GenerationConfig
+from repro_torch.serving.kvpool import PagedCacheManager
+
+
+@dataclass
+class Request:
+    rid: int
+    tokens: list[int]
+    max_new: int = 32
+    out_tokens: list[int] = field(default_factory=list)
+    done: bool = False
+    enqueued_at: float = field(default_factory=time.time)
+    started_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    on_tokens: Optional[Callable[[list[int], bool], None]] = None
+    # ^ streaming hook: called once per host dispatch that appended to
+    #   out_tokens — the prefill's first token at admission, then each fused
+    #   decode block.  Args: the freshly appended token ids and whether the
+    #   request is done.  Called from the serving thread; sinks must not block.
+    gen: Optional[GenerationConfig] = None
+    # ^ generation knobs; None means greedy with the legacy ``max_new``.
+
+
+class ServingEngine:
+    """Continuous-batching engine for one model on one device.
+
+    ``decode_block`` is K, the number of tokens generated per host dispatch;
+    greedy outputs are the same for every K.  The KV cache is paged:
+    per-layer pools of ``page_size``-token pages plus host-side per-slot
+    block tables (:class:`PagedCacheManager`).  ``share_prefix=False`` keeps
+    paging but gives every slot private pages.
+
+    ``device`` defaults to ``"cuda"`` and raises when no card is present;
+    ``model`` must live on the same device.
+    """
+
+    def __init__(self, model: Model, *, max_slots: int = 8, max_len: int = 1024,
+                 decode_block: int = 8, paged: bool = True, page_size: int = 16,
+                 share_prefix: bool = True, eos_id: int = ByteTokenizer.eos,
+                 pad_id: int = ByteTokenizer.pad, device="cuda"):
+        if not paged:
+            raise NotImplementedError("the contiguous KV layout is not ported yet; "
+                                      "use paged=True")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model is on {model.device}, engine on {self.device}")
+        self.model = model
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.decode_block = max(1, int(decode_block))
+        self.page_size = int(page_size)
+        self.share_prefix = bool(share_prefix)
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.kv = PagedCacheManager(max_slots, max_len, self.page_size)
+        self.cache = model.init_paged_cache(self.kv.alloc.n_pages, self.page_size, max_slots)
+        self.slot_req: list[Optional[Request]] = [None] * max_slots
+        self.tok = ByteTokenizer()
+        self.n_decode_calls = 0             # host→device decode dispatches
+        self.n_decode_steps = 0             # device decode steps they executed
+        self.n_prefill_calls = 0            # admission prefill dispatches
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def _bucket_len(self, n: int) -> int:
+        """Pad prompt lengths to power-of-two buckets (at least 16)."""
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.max_len)
+
+    def _bucket_count(self, n: int) -> int:
+        """Pad admission batch sizes to power-of-two buckets (≤ max_slots)."""
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, self.max_slots)
+
+    def _sibling_share_pages(self, owner: list[int], sib: list[int]) -> int:
+        """How many of the owner's prompt pages a sibling admitted in the
+        same batch may point at: page j is shareable iff the prompts agree on
+        every position of it the sibling will ever read unmasked.  A sibling
+        that is a prefix of the owner shares even the final partial page (its
+        first decode append CoW-forks it); past a divergence the floor
+        applies."""
+        common = 0
+        for a, b in zip(owner, sib):
+            if a != b:
+                break
+            common += 1
+        if common == len(sib):
+            return -(-common // self.page_size)
+        return common // self.page_size
+
+    def _insert_pages(self, rows: dict, slots: np.ndarray, dst_pages: np.ndarray) -> None:
+        """Write freshly prefilled rows into the page pools.
+
+        ``rows`` K/V are ``(n_layers, B, Lp, Hk, hd)`` with ``Lp`` a page
+        multiple; logical page j of row b lands at physical page
+        ``dst_pages[b, j]``.  Sentinel entries (>= n_pages: padding rows of the
+        admission bucket, and shared prefix pages the owner row writes) are
+        masked out here on the host — JAX drops them in the scatter.  ``len``
+        is set for the live rows (slot < max_slots) only.
+        """
+        ps = self.page_size
+        n_layers, B, Lp = rows["k"].shape[:3]
+        flat = dst_pages.reshape(-1)
+        keep = np.nonzero(flat < self.kv.alloc.n_pages)[0]
+        src_idx = self._to_device(keep)
+        dst_idx = self._to_device(flat[keep].astype(np.int64))
+        for name in ("k", "v"):
+            pool = self.cache[name]
+            src = rows[name].reshape(n_layers, B * (Lp // ps), ps, *rows[name].shape[3:])
+            pool[:, dst_idx] = src[:, src_idx].to(pool.dtype)
+        live = np.nonzero(slots < self.max_slots)[0]
+        self.cache["len"][self._to_device(slots[live].astype(np.int64))] = \
+            rows["len"][self._to_device(live)]
+
+    def _fork_pages(self, src_pages: list[int], dst_pages: list[int]) -> None:
+        """Copy-on-write device copy: physical page ``src[i]`` → ``dst[i]`` in
+        every layer's pools.  (JAX pads the list to a size bucket to bound
+        jit variants and drops the pads; eager PyTorch needs no padding.)"""
+        src = self._to_device(np.asarray(src_pages, np.int64))
+        dst = self._to_device(np.asarray(dst_pages, np.int64))
+        for name in ("k", "v"):
+            pool = self.cache[name]
+            pool[:, dst] = pool[:, src]
+
+    def _admit_batch(self, reqs: list[Request], slots: list[int]):
+        """Admit ``reqs`` into ``slots`` with ONE prefill + ONE insert.
+
+        Prompts pad to a shared length bucket rounded up to a page multiple;
+        the batch count pads to a power-of-two bucket.  The owner (first
+        request) allocates all its prompt pages; every sibling points its
+        table at the owner's common-prefix pages and allocates only the pages
+        past it.  Causal attention makes each row's prefix K/V identical, so
+        which row's bytes land in a shared page is immaterial.
+        """
+        for r in reqs:
+            self._gen_of(r)             # refuses sampled requests
+        B = self._bucket_count(len(reqs))
+        L = self._bucket_len(max(len(r.tokens) for r in reqs))
+        ps = self.page_size
+        Lp = -(-L // ps) * ps
+        seqs = [r.tokens for r in reqs] + [[self.pad_id]] * (B - len(reqs))
+        tokens, lengths = self.tok.pad_batch(seqs, Lp)
+        dst = np.full((B, Lp // ps), self.kv.alloc.n_pages, np.int32)
+        owner_pages: list[int] = []
+        for idx, (req, slot) in enumerate(zip(reqs, slots)):
+            n_need = -(-len(req.tokens) // ps)
+            if idx == 0:
+                pages = self.kv.alloc.alloc_n(n_need)
+                owner_pages = pages
+                dst[idx, :n_need] = pages
+            else:
+                n_sh = 0
+                if self.share_prefix:
+                    n_sh = min(self._sibling_share_pages(reqs[0].tokens, req.tokens),
+                               n_need, len(owner_pages))
+                pages = [self.kv.alloc.share(p) for p in owner_pages[:n_sh]]
+                priv = self.kv.alloc.alloc_n(n_need - n_sh)
+                dst[idx, n_sh:n_need] = priv
+                pages = pages + priv
+            self.kv.map_slot(slot, pages)
+        logits, rows = self.model.prefill(self._to_device(tokens),
+                                          lengths=self._to_device(lengths))
+        self.n_prefill_calls += 1
+        slot_arr = np.full(B, self.max_slots, dtype=np.int32)
+        slot_arr[: len(reqs)] = slots
+        self._insert_pages(rows, slot_arr, dst)
+        # argmax takes the first maximum, as jnp.argmax does
+        first = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        now = time.time()
+        for req, slot, f in zip(reqs, slots, first):
+            self.slot_req[slot] = req
+            req.started_at = now
+            req.finished_at = None      # clear stale timing on re-admission
+            req.done = False
+            req.out_tokens.append(int(f))
+            if int(f) == self.eos_id:
+                self._retire(slot)
+            if req.on_tokens is not None:
+                req.on_tokens([int(f)], req.done)
+
+    def _admit_free(self, queue: list[Request]):
+        """Fill every free slot from the queue (FCFS, slot-index order); an
+        EOS-at-prefill retirement frees its slot for the next round."""
+        while queue:
+            free = [i for i, r in enumerate(self.slot_req) if r is None]
+            if not free:
+                return
+            n = min(len(free), len(queue))
+            self._admit_batch([queue.pop(0) for _ in range(n)], free[:n])
+
+    def _retire(self, slot: int):
+        req = self.slot_req[slot]
+        if req is not None:
+            req.done = True
+            req.finished_at = time.time()
+        self.slot_req[slot] = None
+        # drop the slot's table references; only pages no sibling still
+        # shares actually return to the free list
+        self.kv.release_slot(slot)
+
+    def _active_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is not None]
+
+    @staticmethod
+    def _gen_of(req: Request) -> GenerationConfig:
+        """Effective generation config: the request's, or a greedy one from
+        the legacy ``max_new`` field.  Sampled decoding is not ported yet."""
+        gen = req.gen if req.gen is not None else GenerationConfig(max_new=req.max_new)
+        if not gen.greedy:
+            raise NotImplementedError(f"request {req.rid}: sampled decoding "
+                                      f"(temperature {gen.temperature}) is not ported yet")
+        return gen
+
+    def _slot_state(self):
+        """Host view of the device decode state, rebuilt from the requests
+        each fused call — the host bookkeeping stays authoritative."""
+        last = np.zeros(self.max_slots, dtype=np.int32)
+        act = np.zeros(self.max_slots, dtype=bool)
+        n_out = np.zeros(self.max_slots, dtype=np.int32)
+        limit = np.ones(self.max_slots, dtype=np.int32)
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            last[i] = req.out_tokens[-1]
+            act[i] = True
+            n_out[i] = len(req.out_tokens)
+            limit[i] = min(self._gen_of(req).max_new,
+                           self.max_len - 1 - len(req.tokens))
+        return last, act, n_out, limit
+
+    def _prepare_paged(self, active: list[int], horizon: int):
+        """Page maintenance before one decode dispatch: grow every active
+        slot's table to cover its next ``decode_block`` writes, CoW-fork any
+        still-shared page in that write range (one copy for the whole tick),
+        and upload the table sliced to the horizon's column count — the
+        slice bounds per-step attention cost."""
+        ps = self.page_size
+        cap = self.kv.pages_per_slot * ps
+        src: list[int] = []
+        dst: list[int] = []
+        for i in active:
+            req = self.slot_req[i]
+            ln = len(req.tokens) + len(req.out_tokens)
+            end = min(ln + self.decode_block, cap)
+            self.kv.extend_slot(i, -(-end // ps))
+            s, d = self.kv.fork_for_write(i, ln, end)
+            src += s
+            dst += d
+        if src:
+            self._fork_pages(src, dst)
+        n_cols = min(self.kv.pages_per_slot, -(-horizon // ps))
+        return self._to_device(self.kv.table[:, :n_cols])
+
+    def _decode_k_paged(self, table, last, active, n_out, limit):
+        """``decode_block`` greedy decode steps back to back.
+
+        Device state per slot: ``last`` (next input token), ``active`` (still
+        generating), ``n_out`` (tokens emitted, prefill's first included),
+        ``limit`` (min(max_new, max_len−1−prompt)).  The pools are updated in
+        place (JAX donates them to the scan).  Returns the final active mask,
+        the (K, max_slots) token block and its validity mask (``valid[k, i]``
+        ⇔ slot i was active entering step k), all still on the device.
+        Inactive slots decode garbage into pages no live table maps.
+        """
+        toks, valid = [], []
+        act, n = active, n_out
+        for _ in range(self.decode_block):
+            logits = self.model.decode_step(last[:, None], self.cache, table)
+            nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
+            n = n + act.to(torch.int32)
+            done = act & ((nxt == self.eos_id) | (n >= limit))
+            last = torch.where(act, nxt, last)
+            toks.append(nxt)
+            valid.append(act)
+            act = act & ~done
+        return act, torch.stack(toks), torch.stack(valid)
+
+    def kv_occupancy(self) -> dict:
+        """KV memory telemetry: live and peak *mapped* bytes — distinct
+        physical pages times per-page bytes summed across layers (the drop
+        page is not counted)."""
+        occ = self.kv.occupancy()
+        page_bytes = 2 * self.cache["k"][:, 0].numel() * self.cache["k"].element_size()
+        occ.update(paged=True, page_bytes=page_bytes,
+                   kv_bytes=occ["pages_used"] * page_bytes,
+                   peak_kv_bytes=occ["peak_pages"] * page_bytes)
+        return occ
+
+    # ------------------------------------------------------------------
+    def serve(self, requests: list[Request]) -> list[Request]:
+        """Run all requests to completion with continuous batching: one
+        batched admission per tick, then one fused dispatch of up to
+        ``decode_block`` tokens for every active slot, with one device→host
+        copy of its results."""
+        queue = list(requests)
+        while queue or self._active_slots():
+            self._admit_free(queue)
+            active = self._active_slots()
+            if not active:
+                continue
+            last, act, n_out, limit = self._slot_state()
+            live = max(len(self.slot_req[i].tokens) + len(self.slot_req[i].out_tokens)
+                       for i in active)
+            horizon = min(self.max_len, self._bucket_len(live + self.decode_block))
+            table = self._prepare_paged(active, horizon)
+            act_f, toks, valid = self._decode_k_paged(
+                table, self._to_device(last), self._to_device(act),
+                self._to_device(n_out), self._to_device(limit))
+            self.n_decode_calls += 1
+            self.n_decode_steps += self.decode_block
+            K, S = toks.shape
+            host = torch.cat([toks.reshape(-1), valid.reshape(-1).to(torch.int32),
+                              act_f.to(torch.int32)]).cpu().numpy()
+            toks = host[:K * S].reshape(K, S)
+            valid = host[K * S:2 * K * S].reshape(K, S).astype(bool)
+            act_f = host[2 * K * S:].astype(bool)
+            for i in active:
+                req = self.slot_req[i]
+                block = [int(t) for t in toks[valid[:, i], i]]
+                req.out_tokens.extend(block)
+                if not act_f[i]:
+                    self._retire(i)
+                if req.on_tokens is not None:
+                    req.on_tokens(block, req.done)
+        return requests
+
+    # convenience --------------------------------------------------------
+    def generate_text(self, prompts: list[str], max_new: int = 32,
+                      gen: Optional[GenerationConfig] = None) -> list[str]:
+        """``gen`` supersedes ``max_new`` when given."""
+        if gen is not None:
+            max_new = gen.max_new
+        reqs = [Request(rid=i, tokens=self.tok.encode(p), max_new=max_new, gen=gen)
+                for i, p in enumerate(prompts)]
+        self.serve(reqs)
+        outs = []
+        for r in reqs:
+            ids = r.out_tokens
+            if self.eos_id in ids:
+                ids = ids[: ids.index(self.eos_id)]
+            outs.append(self.tok.decode(ids))
+        return outs
