@@ -6,26 +6,38 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit, as nvidia-smi reports them.
-2. Build: both CUDA kernels compiled by nvcc from ``src/repro_torch/csrc``.
+2. Build: the four CUDA kernels compiled by nvcc from ``src/repro_torch/csrc``,
+   one nvcc per source, all started together.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
    at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32) and at a
    ragged GQA/window shape; paged decode at B=8, page 16 with shared pages,
-   a forked page, sentinel columns and one all-sentinel (retired) row.
-4. Serving: full-width Qwen1.5-0.5B in bf16, random weights from the port's
-   seeded ``Model.init``, 16 batch-prompted requests through
-   ``ServingEngine`` (paged); the launch counts of both kernels over this run
-   must be > 0, and no plain version may see a CUDA tensor.  The kernels are
-   then timed, and held against their plain versions, on inputs recorded
-   from this run (the shapes the main path gives them).
-5. Whole-path parity in fp32: the same requests served through the kernels
-   and, with every kernel call swapped below for its plain version, without
-   them; prefill logits must agree within 1e-3 and the greedy token streams
-   must be identical.
+   a forked page, sentinel columns and one all-sentinel (retired) row;
+   contiguous decode at B=8, H=Hk=16, D=64 with ragged lengths (0 and Smax
+   included) on a horizon view of a longer cache, and a GQA case; WKV6 at
+   H=40, D=64, T in {1, 37, 512} with RWKV6's own decay range and a carried
+   state, also held against the token-by-token oracle in fp32.
+4. Three main paths, each driven with every launch count set to 0 just
+   before it and read just after; on each, every kernel it runs must have
+   launched and no plain version may see a CUDA tensor:
+   a. paged serving: full-width Qwen1.5-0.5B in bf16, random weights from
+      the port's seeded ``Model.init``, 16 batch-prompted requests through
+      ``ServingEngine(paged=True)`` (flash prefill, paged decode);
+   b. contiguous serving: the same model and requests through
+      ``ServingEngine(paged=False)`` (flash prefill, contiguous decode);
+   c. full-width RWKV6-3B in bf16, random weights: ``Model.prefill`` of 4
+      prompts of 512 token ids, then 32 greedy ``decode_step``s (WKV6 at
+      every layer of every step, at least 32 × 33 launches).
+   Each kernel is then timed, and held against its plain version, on
+   inputs recorded from its path (the shapes the main path gives it).
+5. Parity in fp32, kernels against plain versions: both serving paths
+   (prefill logits within 1e-3, identical greedy streams) and RWKV6-3B
+   (prefill logits within 1e-3, identical greedy streams over 32 steps).
 
 The line before the last is a JSON object with one entry per kernel (time,
 launches, bound, plain and library times); the last line is
-``{"ok": true, "device": {...}}``.  Needs a CUDA device and the repository's
-``src/`` beside this file.
+``{"ok": true, "device": {...}}``.  Details go to
+``chiprun_out/chip_smoke_results.json``.  Needs a CUDA device and the
+repository's ``src/`` beside this file.
 """
 import contextlib
 import dataclasses
@@ -45,6 +57,7 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # as tests/test_kernels.py
+WKV_ORACLE_TOL = 2e-4          # chunked vs token-by-token fp32, as tests/test_kernels.py
 LOGIT_TOL = 1e-3
 SEED = 0
 DEVICE = "cuda:0"
@@ -109,6 +122,38 @@ def paged_work(q, k_pool, table, lengths):
     return n_bytes, 4 * D * H * n_visible
 
 
+def decode_work(q, k, lengths):
+    """Bytes and FLOPs one contiguous decode call needs for this data: each
+    row's K/V below its length read once, q read and out written once, plus
+    the lengths; 4·D FLOPs per (query head, visible position)."""
+    B, _, H, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    n_visible = int(lengths.clamp(max=S).sum())
+    n_bytes = q.element_size() * (2 * B * H * D + 2 * n_visible * Hk * D) + 4 * B
+    return n_bytes, 4 * D * H * n_visible
+
+
+def wkv6_work(r, state):
+    """Bytes and FLOPs one WKV6 call needs: r, k, v read and out written in
+    the model dtype, w read in fp32, u read, the fp32 state read (unless it
+    starts at zero, ``state`` None) and written; ~5·D² FLOPs per token and
+    head (r·S, the bonus term and S ← w⊙S + kᵀv), done in fp32."""
+    B, T, H, D = r.shape
+    e = r.element_size()
+    n_state = B * H * D * D * (1 if state is None else 2)
+    n_bytes = 4 * B * T * H * D * e + 4 * B * T * H * D + H * D * e + 4 * n_state
+    return n_bytes, 5 * D * D * B * T * H
+
+
+def horizon_view(t, max_len):
+    """``t`` (B, S, ...) copied to the start of a (B, max_len, ...) buffer and
+    returned as the view ``buf[:, :S]``: the strided layout the contiguous
+    engine hands the decode kernel."""
+    buf = torch.zeros((t.shape[0], max_len, *t.shape[2:]), dtype=t.dtype, device=t.device)
+    buf[:, :t.shape[1]] = t
+    return buf[:, :t.shape[1]]
+
+
 def serving_requests():
     """The serving workload: 16 batch prompts of 6 arithmetic queries behind
     one shared preamble (about 185 tokens each), 64 new tokens each; batch 1
@@ -127,12 +172,36 @@ def serving_requests():
     return [Request(rid=i, tokens=fmt.format(qs), max_new=64) for i, qs in enumerate(batches)]
 
 
-def serving_engine(model, device):
-    """The engine the serving phase runs: 8 slots, max_len 1024, K = 8, page 16."""
+SERVE_MAX_LEN = 1024
+
+
+def serving_engine(model, device, paged=True):
+    """The engine the serving phases run: 8 slots, max_len 1024, K = 8, and
+    (paged) page 16."""
     from repro_torch.serving.engine import ServingEngine
 
-    return ServingEngine(model, max_slots=8, max_len=1024, decode_block=8, paged=True,
-                         page_size=16, device=device)
+    return ServingEngine(model, max_slots=8, max_len=SERVE_MAX_LEN, decode_block=8,
+                         paged=paged, page_size=16, device=device)
+
+
+def rwkv_prompts(vocab, B=4, T=512):
+    """The RWKV6 phase's prompts: B rows of T token ids drawn from a numpy
+    seed over the vocab."""
+    rng = np.random.default_rng(SEED + 1)
+    return torch.from_numpy(rng.integers(0, vocab, (B, T)).astype(np.int32))
+
+
+def greedy_rwkv(model, tokens, steps=32):
+    """Prefill ``tokens`` and take ``steps`` greedy ``decode_step``s on the
+    recurrent cache.  Returns (prefill logits, (B, steps + 1) token ids)."""
+    logits, cache = model.prefill(tokens)
+    first = logits
+    out = [logits[:, 0].argmax(dim=-1).to(torch.int32)]
+    for _ in range(steps):
+        logits = model.decode_step(out[-1][:, None], cache)
+        check(bool(torch.isfinite(logits).all()), "RWKV6 decode logits are not finite")
+        out.append(logits[:, 0].argmax(dim=-1).to(torch.int32))
+    return first, torch.stack(out, dim=1).cpu()
 
 
 @contextlib.contextmanager
@@ -157,19 +226,32 @@ def recording(module, name, keep):
         setattr(module, name, orig)
 
 
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
               file=sys.stderr)
         return 1
     from repro_torch.config import get_arch
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import rwkv6_scan as wkv6_mod
     from repro_torch.models.transformer import Model
 
-    flash_kernel, flash_plain = flash_mod.flash_attention_cuda, flash_mod.flash_attention_plain
-    paged_kernel, paged_plain = paged_mod.paged_attention_cuda, paged_mod.paged_attention_plain
+    # name -> (module, kernel wrapper, plain version); ops.<name> dispatches
+    kern = {"flash_attention": (flash_mod, "flash_attention_cuda", "flash_attention_plain"),
+            "paged_attention": (paged_mod, "paged_attention_cuda", "paged_attention_plain"),
+            "decode_attention": (decode_mod, "decode_attention_cuda", "decode_attention_plain"),
+            "wkv6": (wkv6_mod, "wkv6_cuda", "wkv6_plain")}
+    kernel = {n: getattr(m, c) for n, (m, c, _) in kern.items()}
+    plain = {n: getattr(m, p) for n, (m, _, p) in kern.items()}
+    flash_kernel, flash_plain = kernel["flash_attention"], plain["flash_attention"]
+    paged_kernel, paged_plain = kernel["paged_attention"], plain["paged_attention"]
+    decode_kernel, decode_plain = kernel["decode_attention"], plain["decode_attention"]
+    wkv6_kernel, wkv6_plain = kernel["wkv6"], plain["wkv6"]
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False        # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -280,67 +362,189 @@ def main() -> int:
     paged_case("ragged-gqa", paged_inputs(torch.float32, B=5, ps=8, H=8, Hk=2, D=32,
                                           max_len=100))
 
-    # ---- 4. serving full-width Qwen1.5-0.5B in bf16 ----------------------
+    def decode_case(label, B, S, H, Hk, D, dtype, max_len):
+        """Ragged lengths with an empty row (zeros) and a full one, on a
+        horizon view k[:, :S] of a (B, max_len) cache."""
+        q = randn(B, 1, H, D, dtype=dtype)
+        k = horizon_view(randn(B, S, Hk, D, dtype=dtype), max_len)
+        v = horizon_view(randn(B, S, Hk, D, dtype=dtype), max_len)
+        lengths = torch.from_numpy(np.random.default_rng(SEED + B).integers(
+            1, S + 1, B).astype(np.int32)).to(dev)
+        lengths[0], lengths[-1] = 0, S
+        got = decode_kernel(q, k, v, lengths)
+        want = decode_plain(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= TOL[dtype], f"decode {label}: max abs err {err:.3g} > {TOL[dtype]}")
+        check(bool(got[0].eq(0).all()), f"decode {label}: a length-0 row is not zero")
+        ms = timed_ms(lambda: decode_kernel(q, k, v, lengths), 50, flush)
+        plain_ms = timed_ms(lambda: decode_plain(q, k, v, lengths), 10, flush)
+        print(f"[kernels] decode {label} B={B} S={S}/{max_len} H={H} Hk={Hk} D={D} "
+              f"{str(dtype)[6:]}: max|err| {err:.3g} (tol {TOL[dtype]}), kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+        results["cases"].append(dict(kernel="decode_attention", label=label, B=B, S=S,
+                                     max_len=max_len, H=H, Hk=Hk, D=D, dtype=str(dtype),
+                                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        decode_case("qwen-heads-horizon", 8, 512, 16, 16, 64, dtype, 1024)
+    decode_case("ragged-gqa", 3, 77, 8, 2, 32, torch.float32, 100)
+    decode_case("gqa-split", 2, 70, 20, 2, 64, torch.bfloat16, 80)
+
+    def wkv6_inputs(B, T, H, D, dtype):
+        """r/k/v ~ N(0, 1), RWKV6's own decay range exp(−exp(U(−0.5, 0.5))),
+        u ~ U(−0.5, 0.5) and a carried state."""
+        r, k, v = (randn(B, T, H, D, dtype=dtype) for _ in range(3))
+        w_raw = torch.rand((B, T, H, D), generator=gen, device=dev) - 0.5
+        u = (torch.rand((H, D), generator=gen, device=dev) - 0.5).to(dtype)
+        return r, k, v, torch.exp(-torch.exp(w_raw)), u, 0.3 * randn(B, H, D, D,
+                                                                      dtype=torch.float32)
+
+    def wkv6_err(got, want):
+        """Max |got − want| and whether it is within TOL·(1 + |want|): the
+        outputs run to tens, so the dtype's tolerance is taken relative
+        above one, as ``assert_allclose(atol=rtol=TOL)`` takes it."""
+        d = (got.float() - want.float()).abs()
+        return d.max().item(), (d / (1 + want.float().abs())).max().item()
+
+    def wkv6_case(B, T, H, D, dtype):
+        args = wkv6_inputs(B, T, H, D, dtype)
+        out, st = wkv6_kernel(*args)
+        out_p, st_p = wkv6_plain(*args)
+        torch.cuda.synchronize()
+        err, rel = wkv6_err(out, out_p)
+        s_err, s_rel = wkv6_err(st, st_p)
+        tol = TOL[dtype]
+        check(rel <= tol and s_rel <= TOL[torch.float32],
+              f"wkv6 T={T} {dtype}: kernel vs plain {err:.3g} (scaled {rel:.3g}), state "
+              f"{s_err:.3g} (scaled {s_rel:.3g})")
+        line = dict(kernel="wkv6", B=B, T=T, H=H, D=D, dtype=str(dtype), max_abs_err=err,
+                    scaled_err=rel, state_err=s_err, out_max=out_p.float().abs().max().item())
+        if dtype == torch.float32:
+            out_r, st_r = ref.wkv6_ref(*args)
+            o_err, o_rel = wkv6_err(out, out_r)
+            so_err, so_rel = wkv6_err(st, st_r)
+            check(o_rel <= WKV_ORACLE_TOL and so_rel <= WKV_ORACLE_TOL,
+                  f"wkv6 T={T}: kernel vs oracle {o_err:.3g}, state {so_err:.3g}")
+            line.update(oracle_err=o_err, oracle_state_err=so_err)
+        line["ms"] = timed_ms(lambda: wkv6_kernel(*args), 20, flush)
+        line["plain_ms"] = timed_ms(lambda: wkv6_plain(*args), 3, flush)
+        print(f"[kernels] wkv6 B={B} T={T} H={H} D={D} {str(dtype)[6:]}: max|err| {err:.3g} "
+              f"(scaled {rel:.3g}, tol {tol}), state {s_err:.3g}, oracle "
+              f"{line.get('oracle_err', '-')}, kernel {line['ms']:.4f} ms, plain "
+              f"{line['plain_ms']:.4f} ms")
+        results["cases"].append(line)
+
+    for T in (1, 37, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            wkv6_case(4, T, 40, 64, dtype)
+    wkv6_case(2, 45, 3, 16, torch.float32)
+
+    # ---- 4. the main paths -----------------------------------------------
+    plain_on_cuda = {"n": 0}
+
+    def guard(fn):
+        def wrapper(x, *args, **kwargs):
+            plain_on_cuda["n"] += x.is_cuda
+            return fn(x, *args, **kwargs)
+        return wrapper
+
+    @contextlib.contextmanager
+    def main_path(label, expect):
+        """Launch counts to 0 before the path, read after; every kernel of
+        ``expect`` must have launched and no plain version may see a CUDA
+        tensor."""
+        for fn in kernel.values():
+            fn.launches = 0
+        plain_on_cuda["n"] = 0
+        for n, (m, _, p) in kern.items():
+            setattr(m, p, guard(plain[n]))
+        counts = {}
+        try:
+            torch.cuda.synchronize()
+            yield counts
+            torch.cuda.synchronize()
+        finally:
+            for n, (m, _, p) in kern.items():
+                setattr(m, p, plain[n])
+        counts.update({n: fn.launches for n, fn in kernel.items()})
+        print(f"[{label}] launches {counts}; plain calls on CUDA tensors {plain_on_cuda['n']}")
+        check(all(counts[n] > 0 for n in expect), f"{label}: a kernel never launched: {counts}")
+        check(plain_on_cuda["n"] == 0, f"{label}: a plain version ran on CUDA tensors")
+        results.setdefault("launches", {})[label] = dict(counts)
+
     cfg = get_arch("qwen1.5-0.5b")
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {model.param_count() / 1e9:.3f} B parameters in "
           f"{str(model.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
-    engine = serving_engine(model, dev)
-    reqs = serving_requests()
-    plain_on_cuda = {"n": 0}
+    n_per_dispatch = cfg.n_layers * 8
 
-    def guard(fn):
-        def wrapper(q, *args, **kwargs):
-            plain_on_cuda["n"] += q.is_cuda
-            return fn(q, *args, **kwargs)
-        return wrapper
-
-    n_per_dispatch = cfg.n_layers * engine.decode_block
-    flash_mod.flash_attention_cuda.launches = 0
-    paged_mod.paged_attention_cuda.launches = 0
-    flash_mod.flash_attention_plain = guard(flash_plain)
-    paged_mod.paged_attention_plain = guard(paged_plain)
-    try:
-        with recording(ops, "flash_attention", {0}) as flash_calls, \
-                recording(ops, "paged_attention", {3 * n_per_dispatch}) as paged_calls:
-            torch.cuda.synchronize()
+    def serve(label, paged, record):
+        engine, reqs = serving_engine(model, dev, paged=paged), serving_requests()
+        with main_path(label, ("flash_attention", record)) as counts, \
+                recording(ops, "flash_attention", {0}) as flash_calls, \
+                recording(ops, record, {3 * n_per_dispatch}) as decode_calls:
             t0 = time.perf_counter()
             engine.serve(reqs)
             torch.cuda.synchronize()
             serve_s = time.perf_counter() - t0
-    finally:
-        flash_mod.flash_attention_plain = flash_plain
-        paged_mod.paged_attention_plain = paged_plain
-    launches = {"flash_attention": flash_kernel.launches, "paged_attention": paged_kernel.launches}
-    n_done = sum(r.done for r in reqs)
-    n_tok = sum(len(r.out_tokens) for r in reqs)
-    occ = engine.kv_occupancy()
-    print(f"[serve] {n_done}/{len(reqs)} requests, {n_tok} tokens in {serve_s:.3f}s: "
-          f"{n_tok / serve_s:.1f} tokens/s; prompts {min(len(r.tokens) for r in reqs)}-"
-          f"{max(len(r.tokens) for r in reqs)} tokens; {engine.n_prefill_calls} prefills, "
-          f"{engine.n_decode_calls} decode dispatches")
-    print(f"[serve] kv: peak {occ['peak_pages']} of {occ['n_pages']} pages "
-          f"({occ['peak_kv_bytes'] / 2**20:.1f} MiB), {occ['prefix_shares']} prefix shares, "
-          f"{occ['cow_forks']} CoW forks; launches {launches}; plain calls on CUDA tensors "
-          f"{plain_on_cuda['n']}")
-    check(n_done == len(reqs), f"served {n_done}/{len(reqs)} requests")
-    check(all(len(r.out_tokens) >= 1 for r in reqs), "a request produced no token")
-    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-    check(plain_on_cuda["n"] == 0, "a plain version ran on CUDA tensors in the main path")
+        n_done = sum(r.done for r in reqs)
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        occ = engine.kv_occupancy()
+        print(f"[{label}] {n_done}/{len(reqs)} requests, {n_tok} tokens in {serve_s:.3f}s: "
+              f"{n_tok / serve_s:.1f} tokens/s; prompts {min(len(r.tokens) for r in reqs)}-"
+              f"{max(len(r.tokens) for r in reqs)} tokens; {engine.n_prefill_calls} prefills, "
+              f"{engine.n_decode_calls} decode dispatches; kv peak "
+              f"{occ['peak_kv_bytes'] / 2**20:.1f} MiB")
+        check(n_done == len(reqs), f"{label}: served {n_done}/{len(reqs)} requests")
+        check(all(len(r.out_tokens) >= 1 for r in reqs), f"{label}: a request produced no token")
+        check(0 in flash_calls and decode_calls, f"{label}: main-path inputs were not recorded")
+        results[label] = dict(requests=n_done, tokens=n_tok, seconds=serve_s,
+                              tokens_per_s=n_tok / serve_s, launches=counts,
+                              launches_per_request={k: v / n_done for k, v in counts.items()},
+                              kv=occ, prefills=engine.n_prefill_calls,
+                              decode_dispatches=engine.n_decode_calls)
+        return occ, counts, flash_calls[0], next(iter(decode_calls.values()))
+
+    occ, paged_counts, flash_call, paged_call = serve("paged", True, "paged_attention")
     check(occ["prefix_shares"] > 0 and occ["cow_forks"] > 0,
           "prefix sharing or copy-on-write never engaged")
-    check(0 in flash_calls and paged_calls, "main-path kernel inputs were not recorded")
-    results["serve"] = dict(requests=n_done, tokens=n_tok, seconds=serve_s,
-                            tokens_per_s=n_tok / serve_s, launches=launches,
-                            launches_per_request={k: v / n_done for k, v in launches.items()},
-                            kv=occ, prefills=engine.n_prefill_calls,
-                            decode_dispatches=engine.n_decode_calls)
+    _, contig_counts, _, decode_call = serve("contiguous", False, "decode_attention")
+    del model
+    torch.cuda.empty_cache()
 
-    # the kernels on the inputs the main path gave them
+    rcfg = get_arch("rwkv6-3b")
+    t0 = time.perf_counter()
+    rmodel = Model(rcfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"[rwkv6] {rcfg.name}: {rmodel.param_count() / 1e9:.3f} B parameters in "
+          f"{str(rmodel.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
+    prompts = rwkv_prompts(rcfg.vocab_size).to(dev)
+    n_steps = 32
+    with main_path("rwkv6", ("wkv6",)) as rwkv_counts, \
+            recording(ops, "wkv6", {0, rcfg.n_layers}) as wkv6_calls:
+        t0 = time.perf_counter()
+        r_logits, r_streams = greedy_rwkv(rmodel, prompts, n_steps)
+        rwkv_s = time.perf_counter() - t0
+    check(rwkv_counts["wkv6"] >= rcfg.n_layers * (n_steps + 1),
+          f"rwkv6: {rwkv_counts['wkv6']} WKV6 launches < {rcfg.n_layers} x {n_steps + 1}")
+    want_shape = (prompts.shape[0], 1, rmodel.vocab_padded)
+    check(tuple(r_logits.shape) == want_shape and bool(torch.isfinite(r_logits).all()),
+          f"rwkv6: prefill logits {tuple(r_logits.shape)} not finite of {want_shape}")
+    check(bool(((r_streams >= 0) & (r_streams < rcfg.vocab_size)).all()),
+          "rwkv6: a token id out of the vocab")
+    print(f"[rwkv6] prefill 4x{prompts.shape[1]} + {n_steps} greedy steps in {rwkv_s:.3f}s "
+          f"({4 * n_steps / rwkv_s:.1f} decode tokens/s incl. prefill)")
+    results["rwkv6"] = dict(seconds=rwkv_s, launches=rwkv_counts, steps=n_steps,
+                            prompt_shape=list(prompts.shape))
+    del rmodel
+    torch.cuda.empty_cache()
+
+    # the kernels on the inputs the main paths gave them
     entries = []
-    (fq, fk, fv), fkw = flash_calls[0]
+    (fq, fk, fv), fkw = flash_call
     fkw = {"causal": fkw.get("causal", True), "window": fkw.get("window")}
     f_out = flash_kernel(fq, fk, fv, **fkw)
     f_err = (f_out.float() - flash_plain(fq, fk, fv, **fkw).float()).abs().max().item()
@@ -351,13 +555,13 @@ def main() -> int:
     entries.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:124",
-        launches=launches["flash_attention"], max_abs_err=f_err,
+        launches=paged_counts["flash_attention"], max_abs_err=f_err, atol=TOL[fq.dtype], rtol=0.0,
         ms=timed_ms(lambda: flash_kernel(fq, fk, fv, **fkw), 20, flush),
         plain_ms=timed_ms(lambda: flash_plain(fq, fk, fv, **fkw), 5, flush),
         bound_ms=f_bound, bound_by=f_by,
         library_ms=timed_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20, flush),
         shape=dict(q=list(fq.shape), k=list(fk.shape), dtype=str(fq.dtype))))
-    (pargs, _), = paged_calls.values()
+    pargs, _ = paged_call
     p_err = (paged_kernel(*pargs).float() - paged_plain(*pargs).float()).abs().max().item()
     check(p_err <= TOL[pargs[0].dtype], f"paged on main-path inputs: max abs err {p_err:.3g}")
     p_bound, p_by = bound_ms(*paged_work(pargs[0], pargs[1], pargs[3], pargs[4]),
@@ -365,37 +569,109 @@ def main() -> int:
     entries.append(dict(
         name="paged_attention", route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:116",
-        launches=launches["paged_attention"], max_abs_err=p_err,
+        launches=paged_counts["paged_attention"], max_abs_err=p_err, atol=TOL[pargs[0].dtype],
+        rtol=0.0,
         ms=timed_ms(lambda: paged_kernel(*pargs), 50, flush),
         plain_ms=timed_ms(lambda: paged_plain(*pargs), 10, flush),
         bound_ms=p_bound, bound_by=p_by, library_ms=None,
         shape=dict(q=list(pargs[0].shape), pool=list(pargs[1].shape),
                    table=list(pargs[3].shape), lengths=pargs[4].tolist(),
                    dtype=str(pargs[0].dtype))))
+    (dq, dk, dv, dlen), _ = decode_call
+    dk, dv = horizon_view(dk, SERVE_MAX_LEN), horizon_view(dv, SERVE_MAX_LEN)
+    d_err = (decode_kernel(dq, dk, dv, dlen).float()
+             - decode_plain(dq, dk, dv, dlen).float()).abs().max().item()
+    check(d_err <= TOL[dq.dtype], f"decode on main-path inputs: max abs err {d_err:.3g}")
+    # the library yardstick: SDPA over (B, H, S, D) with the length mask
+    G = dq.shape[2] // dk.shape[2]
+    sq = dq.transpose(1, 2).contiguous()
+    sk, sv = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() for x in (dk, dv))
+    smask = (torch.arange(dk.shape[1], device=dev)[None, :] < dlen[:, None])[:, None, None, :]
+    d_bound, d_by = bound_ms(*decode_work(dq, dk, dlen), dq.dtype)
+    entries.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:83",
+        launches=contig_counts["decode_attention"], max_abs_err=d_err, atol=TOL[dq.dtype],
+        rtol=0.0,
+        ms=timed_ms(lambda: decode_kernel(dq, dk, dv, dlen), 50, flush),
+        plain_ms=timed_ms(lambda: decode_plain(dq, dk, dv, dlen), 10, flush),
+        bound_ms=d_bound, bound_by=d_by,
+        library_ms=timed_ms(lambda: sdpa(sq, sk, sv, attn_mask=smask), 50, flush),
+        shape=dict(q=list(dq.shape), k=list(dk.shape), k_stride=list(dk.stride()),
+                   lengths=dlen.tolist(), dtype=str(dq.dtype))))
+    wkv6_extra = {}
+    for idx, label in ((rcfg.n_layers, "decode"), (0, "prefill")):
+        wargs, _ = wkv6_calls[idx]
+        w_out, w_st = wkv6_kernel(*wargs)
+        w_out_p, w_st_p = wkv6_plain(*wargs)
+        w_err, w_rel = wkv6_err(w_out, w_out_p)
+        w_serr, w_srel = wkv6_err(w_st, w_st_p)
+        check(w_rel <= TOL[wargs[0].dtype] and w_srel <= TOL[torch.float32],
+              f"wkv6 on main-path {label} inputs: {w_err:.3g} (scaled {w_rel:.3g}), state "
+              f"{w_serr:.3g}")
+        w_bound, w_by = bound_ms(*wkv6_work(wargs[0], wargs[5]), torch.float32)
+        wkv6_extra[label] = dict(
+            max_abs_err=w_err, scaled_err=w_rel, state_err=w_serr, atol=TOL[wargs[0].dtype],
+            rtol=TOL[wargs[0].dtype],
+            ms=timed_ms(lambda: wkv6_kernel(*wargs), 20, flush),
+            plain_ms=timed_ms(lambda: wkv6_plain(*wargs), 3 if label == "prefill" else 10,
+                              flush),
+            bound_ms=w_bound, bound_by=w_by,
+            shape=dict(r=list(wargs[0].shape), dtype=str(wargs[0].dtype)))
+    wp = wkv6_extra["prefill"]
+    entries.append(dict(
+        name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:94", launches=rwkv_counts["wkv6"],
+        max_abs_err=wp["max_abs_err"], atol=wp["atol"], rtol=wp["rtol"], ms=wp["ms"],
+        plain_ms=wp["plain_ms"],
+        bound_ms=wp["bound_ms"], bound_by=wp["bound_by"], library_ms=None,
+        shape=wp["shape"], decode_step=wkv6_extra["decode"]))
     for e in entries:
         print(f"[main-path] {e['name']} {e['shape']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} "
               f"ms by {e['bound_by']}), plain {e['plain_ms']:.4f} ms, library {e['library_ms']}, "
               f"max|err| {e['max_abs_err']:.3g}, {e['launches']} launches")
+    wd = wkv6_extra["decode"]
+    print(f"[main-path] wkv6 decode step {wd['shape']}: {wd['ms']:.4f} ms (bound "
+          f"{wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain {wd['plain_ms']:.4f} ms, "
+          f"max|err| {wd['max_abs_err']:.3g}")
 
-    del model, engine
-    torch.cuda.empty_cache()
-
-    # ---- 5. whole-path parity in fp32: kernels vs plain versions ---------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    model32 = Model(cfg32, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
-
+    # ---- 5. parity in fp32: kernels vs plain versions ---------------------
     @contextlib.contextmanager
-    def plain_attention():
-        """Swap the model's attention calls for the plain versions — the
-        reference leg, made here and visibly, never inside the package."""
-        saved = ops.flash_attention, ops.paged_attention
-        ops.flash_attention = flash_plain
-        ops.paged_attention = paged_plain
+    def plain_kernels():
+        """Swap every ops entry point for its plain version — the reference
+        leg, made here and visibly, never inside the package."""
+        saved = {n: getattr(ops, n) for n in kern}
+        for n in kern:
+            setattr(ops, n, plain[n])
+        before = sum(fn.launches for fn in kernel.values())
         try:
             yield
         finally:
-            ops.flash_attention, ops.paged_attention = saved
+            for n, fn in saved.items():
+                setattr(ops, n, fn)
+        check(sum(fn.launches for fn in kernel.values()) == before,
+              "a kernel launched inside the plain leg")
 
+    def parity(label, run):
+        before = sum(fn.launches for fn in kernel.values())
+        logits_k, streams_k = run()
+        check(sum(fn.launches for fn in kernel.values()) > before,
+              f"{label}: fp32 run launched no kernel")
+        with plain_kernels():
+            logits_p, streams_p = run()
+        logit_err = (logits_k - logits_p).abs().max().item()
+        same = sum(a == b for a, b in zip(streams_k, streams_p))
+        print(f"[parity] {label} fp32 prefill logits max|kernel - plain| {logit_err:.3g} "
+              f"(tol {LOGIT_TOL}); greedy streams identical {same}/{len(streams_k)} "
+              f"({sum(map(len, streams_k))} tokens)")
+        check(logit_err <= LOGIT_TOL, f"{label}: fp32 prefill logits differ by {logit_err:.3g}")
+        check(same == len(streams_k), f"{label}: fp32 greedy streams differ")
+        results.setdefault("parity", {})[label] = dict(logit_err=logit_err, identical=same,
+                                                       n=len(streams_k))
+
+    model32 = Model(dataclasses.replace(cfg, dtype="float32"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
     probe = serving_engine(model32, dev)
     first = serving_requests()[:8]
     L = probe._bucket_len(max(len(r.tokens) for r in first))
@@ -403,36 +679,37 @@ def main() -> int:
     tokens, lengths = torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev)
     del probe
 
-    def serve_fp32():
-        logits, _ = model32.prefill(tokens, lengths=lengths)
-        eng, rs = serving_engine(model32, dev), serving_requests()
-        eng.serve(rs)
-        torch.cuda.synchronize()
-        return logits, [r.out_tokens for r in rs]
+    def serve_fp32(paged):
+        def run():
+            logits, _ = model32.prefill(tokens, lengths=lengths)
+            eng, rs = serving_engine(model32, dev, paged=paged), serving_requests()
+            eng.serve(rs)
+            torch.cuda.synchronize()
+            return logits, [r.out_tokens for r in rs]
+        return run
 
-    before = flash_kernel.launches + paged_kernel.launches
-    logits_k, streams_k = serve_fp32()
-    check(flash_kernel.launches + paged_kernel.launches > before, "fp32 run launched no kernel")
-    before = flash_kernel.launches + paged_kernel.launches
-    with plain_attention():
-        logits_p, streams_p = serve_fp32()
-    check(flash_kernel.launches + paged_kernel.launches == before,
-          "a kernel launched inside the plain leg")
-    logit_err = (logits_k - logits_p).abs().max().item()
-    same = sum(a == b for a, b in zip(streams_k, streams_p))
-    print(f"[parity] fp32 prefill logits max|kernel - plain| {logit_err:.3g} (tol {LOGIT_TOL}); "
-          f"greedy streams identical {same}/{len(streams_k)} "
-          f"({sum(map(len, streams_k))} tokens)")
-    check(logit_err <= LOGIT_TOL, f"fp32 prefill logits differ by {logit_err:.3g}")
-    check(same == len(streams_k), "fp32 greedy streams differ between kernels and plain")
-    results["parity"] = dict(logit_err=logit_err, identical=same, n=len(streams_k))
+    parity("paged", serve_fp32(True))
+    parity("contiguous", serve_fp32(False))
+    del model32
+    torch.cuda.empty_cache()
+    rmodel32 = Model(dataclasses.replace(rcfg, dtype="float32"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+
+    def rwkv_fp32():
+        logits, streams = greedy_rwkv(rmodel32, prompts, n_steps)
+        return logits, streams.tolist()
+
+    parity("rwkv6", rwkv_fp32)
+    del rmodel32
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     results["kernels"] = entries
     (out_dir / "chip_smoke_results.json").write_text(json.dumps(results, indent=1))
-    print(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shape"}
-                                  for e in entries]}))
+    # |kernel − plain| ≤ atol + rtol·|plain| is the check each entry passed
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "atol", "rtol",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,10 +9,12 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rwkv6_scan as _wkv6
 
-__all__ = ["flash_attention", "paged_attention"]
+__all__ = ["flash_attention", "decode_attention", "paged_attention", "wkv6"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -29,6 +31,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     return _flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
+def decode_attention(q, k, v, lengths):
+    """q: (B, 1, H, D); k/v: (B, Smax, Hk, D), possibly a strided slice of a
+    longer cache; lengths: (B,) int32 valid KV lengths -> (B, 1, H, D)."""
+    if q.device.type == "cpu":
+        return _decode.decode_attention_plain(q, k, v, lengths)
+    return _decode.decode_attention_cuda(q, k, v, lengths)
+
+
 def paged_attention(q, k_pool, v_pool, table, lengths):
     """q: (B, 1, H, D); k_pool/v_pool: (P, page, Hk, D); table: (B, n_pages)
     int32 physical page indices (entries >= P are unmapped sentinels);
@@ -36,3 +46,12 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     if q.device.type == "cpu":
         return _paged.paged_attention_plain(q, k_pool, v_pool, table, lengths)
     return _paged.paged_attention_cuda(q, k_pool, v_pool, table, lengths)
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """RWKV6 recurrence.  r/k/v: (B, T, H, D); w: (B, T, H, D) float32
+    decays; u: (H, D); state: (B, H, D, D) float32 or None.  Returns
+    ``(out in r's dtype, final state float32)``."""
+    if r.device.type == "cpu":
+        return _wkv6.wkv6_plain(r, k, v, w, u, state)
+    return _wkv6.wkv6_cuda(r, k, v, w, u, state)

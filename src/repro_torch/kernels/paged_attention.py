@@ -11,42 +11,16 @@ reference the kernel is held against on the card.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import decode_attention_plain
 
-__all__ = ["paged_attention_cuda", "paged_attention_plain", "decode_attention_plain",
-           "HEAD_DIMS"]
+__all__ = ["paged_attention_cuda", "paged_attention_plain", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64)                  # the kernel's compiled head widths
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def decode_attention_plain(q, k, v, lengths, mask=None):
-    """q: (B, 1, H, D); k/v: (B, Smax, Hk, D); lengths: (B,) -> (B, 1, H, D).
-
-    Explicit max/exp/sum softmax in fp32 over the keys ``< lengths``, as
-    ``_decode_jnp``; ``mask`` (B, Smax), when given, further restricts the
-    keys a row may see.  A row with no visible key gives zeros.
-    """
-    B, _, H, D = q.shape
-    Hk = k.shape[2]
-    G = H // Hk
-    scale = 1.0 / math.sqrt(D)
-    qg = q[:, 0].float().reshape(B, Hk, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
-    valid = torch.arange(k.shape[1], device=q.device)[None, :] < lengths[:, None]
-    if mask is not None:
-        valid = valid & mask
-    valid = valid[:, None, None, :]
-    s = torch.where(valid, s, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    num = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    den = p.sum(dim=-1, keepdim=True)
-    return (num / den.clamp_min(1e-30)).reshape(B, 1, H, D).to(q.dtype)
 
 
 def paged_attention_plain(q, k_pool, v_pool, table, lengths):

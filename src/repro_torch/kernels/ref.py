@@ -1,6 +1,7 @@
-"""Naive PyTorch oracles for the port's attention kernels.
+"""Naive PyTorch oracles for the port's kernels.
 
-Deliberately naive (they materialize the full score matrix): they define
+Deliberately naive (they materialize the full score matrix or step the
+recurrence token by token): they define
 *correctness*, as the JAX package's ``kernels/ref.py`` does there, and the
 tests hold them against those.  ``ops`` holds the tiled plain versions the
 model runs on the CPU, and the CUDA kernels run on the card.
@@ -11,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["mha_ref", "decode_attention_ref"]
+__all__ = ["mha_ref", "decode_attention_ref", "wkv6_ref"]
 
 
 def _expand_kv(x, groups: int):
@@ -55,3 +56,25 @@ def decode_attention_ref(q, k, v, lengths):
     scores = torch.where(valid, scores, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, w, u, state=None):
+    """RWKV6 WKV recurrence, token by token (exact oracle).
+
+    r/k/v/w: (B, T, H, D); u: (H, D); state: (B, H, D, D).
+      o_t = r_t · (S_{t-1} + diag(u) k_tᵀ v_t)
+      S_t = diag(w_t) S_{t-1} + k_tᵀ v_t
+    Returns (out (B, T, H, D) fp32, final state fp32).
+    """
+    B, T, H, D = r.shape
+    if state is None:
+        state = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    S = state.float()
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]               # (B, H, D, D)
+        outs.append(torch.einsum("bhd,bhde->bhe", r[:, t], S + u[None, :, :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(outs, dim=1), S

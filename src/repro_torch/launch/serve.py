@@ -1,16 +1,18 @@
 """Serving launcher of the port: the ``engine`` subcommand.
 
-Brings up one paged continuous-batching engine for an architecture and
-serves a batched-prompt workload, as the JAX package's ``serve engine``
+Brings up one continuous-batching engine (paged, or with ``--contiguous``
+the contiguous KV layout) for an architecture and serves a batched-prompt
+workload, as the JAX package's ``serve engine``
 does, with the same flags and the same rule that a config of more than 5e7
 parameters is served at its ``reduced()`` size::
 
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-m --requests 12
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-s --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --contiguous --device cpu
 
 Weights are random, drawn by ``Model.init`` from a seeded generator.  The
 run is on the card unless ``--device cpu`` is given.  Flags of paths not
-ported yet (``--contiguous``, sampling, ``--draft-member``) raise
+ported yet (sampling, ``--draft-member``) raise
 ``NotImplementedError``; the ``online`` and ``http`` modes are not ported.
 """
 import argparse
@@ -30,7 +32,7 @@ def engine_main(argv):
     ap.add_argument("--decode-block", type=int, default=8,
                     help="tokens generated per fused decode dispatch")
     ap.add_argument("--contiguous", action="store_true",
-                    help="use the contiguous KV layout (not ported yet)")
+                    help="use the contiguous KV layout instead of the paged one")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page in the paged layout")
     ap.add_argument("--reduced", action="store_true",
@@ -99,9 +101,12 @@ def engine_main(argv):
     print(f"{cfg.name}: served {done}/{len(reqs)} requests "
           f"({out_toks} tokens) in {dt:.1f}s via {args.slots} slots on {model.device}")
     occ = engine.kv_occupancy()
-    print(f"  kv pages: {occ['pages_used']}/{occ['n_pages']} live "
-          f"(peak {occ['peak_pages']}), {occ['prefix_shares']} prefix "
-          f"shares, {occ['cow_forks']} CoW forks")
+    if occ["paged"]:
+        print(f"  kv pages: {occ['pages_used']}/{occ['n_pages']} live "
+              f"(peak {occ['peak_pages']}), {occ['prefix_shares']} prefix "
+              f"shares, {occ['cow_forks']} CoW forks")
+    else:
+        print(f"  kv: contiguous, {occ['kv_bytes'] / 2**20:.1f} MiB committed")
     for r in reqs[:3]:
         print(f"  req{r.rid}: prompt {len(r.tokens)} toks -> "
               f"{tok.decode(r.out_tokens)[:48]!r}")

@@ -1,10 +1,12 @@
 """Attention block of the port: GQA with RoPE and optional QKV bias, the
-full-sequence (prefill) path and the paged single-token decode path.
+full-sequence (prefill) path and the single-token decode path over a paged
+or a contiguous KV cache.
 
 Counterpart of the JAX package's ``models/attention.py`` (``attention_full``
-and the paged branch of ``attention_decode``).  Prefill attention goes through
-``ops.flash_attention`` and decode through ``ops.paged_attention``; on the card
-both are the hand-written CUDA kernels.
+and the paged and contiguous branches of ``attention_decode``).  Prefill
+attention goes through ``ops.flash_attention``, decode through
+``ops.paged_attention`` or ``ops.decode_attention``; on the card all three
+are the hand-written CUDA kernels.
 """
 from __future__ import annotations
 
@@ -55,33 +57,57 @@ def attention_full(p: Attention, cfg: ModelConfig, x, rope, *,
     return p.o(out.reshape(B, S, H * hd)), (k, v)
 
 
-def attention_decode(p: Attention, cfg: ModelConfig, x, k_pool, v_pool, pos, table, rope):
-    """One-token decode against a paged KV cache.
+def attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, table, rope,
+                     *, window=None):
+    """One-token decode against a paged (``table`` given) or a contiguous
+    (``table=None``) KV cache.
 
-    x: (B, 1, d); k_pool/v_pool: this layer's ``(P + 1, page_size, Hk, hd)``
-    pools, whose last page is the drop page; pos: (B,) int32 current
-    positions; table: (B, n_cols) int32 physical pages (entries >= P are
-    unmapped); rope: the RoPE tables of ``pos`` (``layers.rope_tables``), or
-    None.  The new K/V is written into the pools in place — JAX donates
-    the cache to the decode jit and updates it in place; here the pools are
-    simply mutated.  A write whose page is unmapped (a retired slot's table is
-    all sentinels, or ``pos`` ran past the table) would be dropped by JAX's
-    ``mode="drop"`` scatter; here it is routed to the drop page, which no
-    table maps and no read sees.  Returns the attention output (B, 1, d).
+    x: (B, 1, d); pos: (B,) int32 current positions; rope: the RoPE tables
+    of ``pos`` (``layers.rope_tables``), or None.  The new K/V is written
+    into the cache in place — JAX donates the cache to the decode jit and
+    updates it in place; here the tensors are simply mutated.  Returns the
+    attention output (B, 1, d).
+
+    Paged: k_cache/v_cache are this layer's ``(P + 1, page_size, Hk, hd)``
+    pools, whose last page is the drop page; table: (B, n_cols) int32
+    physical pages (entries >= P are unmapped).  A write whose page is
+    unmapped (a retired slot's table is all sentinels, or ``pos`` ran past
+    the table) would be dropped by JAX's ``mode="drop"`` scatter; here it is
+    routed to the drop page, which no table maps and no read sees.
+
+    Contiguous: k_cache/v_cache are this layer's ``(B, S_buf, Hk, hd)``
+    buffers, possibly a horizon slice ``[:, :S_buf]`` of a longer cache (a
+    view, so writes land in the cache itself).  Row b writes at ``pos[b]``
+    and attends its first ``min(pos[b] + 1, S_buf)`` positions.  A write at
+    ``pos >= S_buf`` (a retired slot's garbage stream running past the
+    horizon) is dropped by JAX's scatter and would raise in PyTorch; here
+    such a row writes back the value its clamped index already holds, which
+    leaves the cache as it was.  Ring buffers (``window``) come with the
+    hybrid family and raise ``NotImplementedError``.
     """
+    if window is not None:
+        raise NotImplementedError("sliding-window (ring) KV caches are not ported yet")
     B = x.shape[0]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    P, ps = k_pool.shape[0] - 1, k_pool.shape[1]
-    n_cols = table.shape[1]
     q = apply_rope(_heads(p.q(x), H, hd), rope)
-    k_new = apply_rope(_heads(p.k(x), Hk, hd), rope)
-    v_new = _heads(p.v(x), Hk, hd)
+    k_new = apply_rope(_heads(p.k(x), Hk, hd), rope)[:, 0].to(k_cache.dtype)
+    v_new = _heads(p.v(x), Hk, hd)[:, 0].to(v_cache.dtype)
     pos64 = pos.long()
-    page = pos64 // ps
     rows = torch.arange(B, device=x.device)
-    phys = torch.where(page < n_cols, table[rows, page.clamp(max=n_cols - 1)].long(), P)
-    phys = phys.clamp(max=P)                      # any sentinel lands on the drop page
-    k_pool[phys, pos64 % ps] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[phys, pos64 % ps] = v_new[:, 0].to(v_pool.dtype)
-    out = ops.paged_attention(q, k_pool[:P], v_pool[:P], table, pos + 1)
+    if table is not None:
+        P, ps = k_cache.shape[0] - 1, k_cache.shape[1]
+        n_cols = table.shape[1]
+        page = pos64 // ps
+        phys = torch.where(page < n_cols, table[rows, page.clamp(max=n_cols - 1)].long(), P)
+        phys = phys.clamp(max=P)                  # any sentinel lands on the drop page
+        k_cache[phys, pos64 % ps] = k_new
+        v_cache[phys, pos64 % ps] = v_new
+        out = ops.paged_attention(q, k_cache[:P], v_cache[:P], table, pos + 1)
+    else:
+        S_buf = k_cache.shape[1]
+        inside = (pos64 < S_buf)[:, None, None]
+        at = pos64.clamp(max=S_buf - 1)
+        k_cache[rows, at] = torch.where(inside, k_new, k_cache[rows, at])
+        v_cache[rows, at] = torch.where(inside, v_new, v_cache[rows, at])
+        out = ops.decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S_buf))
     return p.o(out.reshape(B, 1, H * hd))

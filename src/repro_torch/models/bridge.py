@@ -6,7 +6,9 @@ tree paths, or a ``save_pytree`` ``arrays.npz`` (see :func:`load_npz`) — no
 JAX is needed to read any of them.  The mapping:
 
 * ``blocks/b0/<leaf>`` leaves are layer-stacked (axis 0 = layer, the scan
-  axis of the JAX model) and are unstacked into ``blocks.<i>.<leaf>``;
+  axis of the JAX model) and are unstacked into ``blocks.<i>.<leaf>`` —
+  attention blocks' ``attn.*``/``mlp.*`` and RWKV6 blocks' ``tm.*``/``cm.*``
+  alike (``tm.mix_b`` keeps its (5, rank, d) and ``tm.u`` its (H, hd));
 * every other leaf keeps its path with ``/`` turned into ``.``;
 * weights keep the ``(d_in, d_out)`` layout of ``apply_dense`` — the port
   applies ``x @ w`` — so no leaf is transposed; ``embed`` and ``lm_head``
@@ -67,7 +69,7 @@ def state_from_jax(params, cfg: ModelConfig, device="cpu") -> dict[str, torch.Te
             for i in range(cfg.n_layers):
                 state[f"blocks.{i}.{leaf}"] = t[i]
         elif key.startswith(("blocks/", "rem", "encoder")):
-            raise NotImplementedError(f"{key}: only single-kind dense stacks are ported")
+            raise NotImplementedError(f"{key}: only single-kind stacks are ported")
         else:
             state[key.replace("/", ".")] = t
     return {k: v.to(device) for k, v in state.items()}

@@ -1,4 +1,4 @@
-"""Norms, projections, RoPE and the parameter initializer of the dense family.
+"""Norms, projections, RoPE and the parameter initializers.
 
 Counterpart of the JAX package's ``models/layers.py``.  Weights keep that
 package's layout: a projection's ``w`` is ``(d_in, d_out)`` and is applied as
@@ -27,6 +27,14 @@ def init_normal_(p: torch.Tensor, generator: torch.Generator, scale: float = 1.0
     z = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     p.copy_((z * (scale / np.sqrt(fan_in))).to(device=p.device, dtype=p.dtype))
+
+
+@torch.no_grad()
+def init_uniform_(p: torch.Tensor, generator: torch.Generator, scale: float) -> None:
+    """The JAX ``Builder``'s "uniform" init: U(−scale, scale), drawn in fp32
+    and cast to the parameter's dtype."""
+    z = torch.rand(p.shape, generator=generator, dtype=torch.float32, device=generator.device)
+    p.copy_((z * (2 * scale) - scale).to(device=p.device, dtype=p.dtype))
 
 
 class Dense(nn.Module):
@@ -65,6 +73,38 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
         return (x32 * torch.rsqrt(var + self.eps) * self.scale.float()).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """``(x − mean) · rsqrt(var + eps) · scale + bias`` in fp32 (population
+    variance), cast back to x's dtype."""
+
+    def __init__(self, d: int, eps: float, *, dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = empty_param((d,), dtype, device)
+        self.bias = empty_param((d,), dtype, device)
+
+    def init(self, generator: torch.Generator) -> None:
+        del generator
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        x32 = x.float()
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+        out = (x32 - mu) * torch.rsqrt(var + self.eps) * self.scale.float()
+        return (out + self.bias.float()).to(x.dtype)
+
+
+def make_norm(kind: str, d: int, eps: float, *, dtype, device) -> nn.Module:
+    """The norm ``cfg.norm`` names: ``rmsnorm`` or ``layernorm``."""
+    if kind == "rmsnorm":
+        return RMSNorm(d, eps, dtype=dtype, device=device)
+    if kind == "layernorm":
+        return LayerNorm(d, eps, dtype=dtype, device=device)
+    raise NotImplementedError(f"norm {kind!r} is not ported yet")
 
 
 def rope_freqs(head_dim: int, rotary_pct: float, theta: float) -> np.ndarray:

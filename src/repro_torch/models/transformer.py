@@ -1,14 +1,16 @@
-"""Dense decoder-only model of the port: prefill and paged single-token decode.
+"""Decoder-only model of the port: prefill, and single-token decode over a
+paged or contiguous KV cache or the RWKV6 recurrent state.
 
-Counterpart of the dense path of the JAX package's ``models/transformer.py``
-(``Model.init``, ``prefill(lengths=)``, ``decode_step(table=)``,
+Counterpart of the JAX package's ``models/transformer.py`` for the families
+ported so far (``Model.init``, ``prefill``, ``decode_step``, ``init_cache``,
 ``init_paged_cache``).  Where JAX stacks the layers on a leading axis and
 scans over them, the port keeps an ``nn.ModuleList`` of blocks and loops;
 the weight bridge (``repro_torch.models.bridge``) unstacks the JAX leaves.
+Caches keep the JAX layout with the layers stacked on axis 0.
 
-Supported: global-attention decoder stacks with RMSNorm, SwiGLU, RoPE and
-optional QKV bias — the configs this slice serves.  Other families raise
-``NotImplementedError`` at construction.
+Supported: global-attention dense stacks with RMSNorm, SwiGLU, RoPE and
+optional QKV bias, and RWKV6 stacks (family ``ssm``) with LayerNorm.  Other
+families raise ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
@@ -21,33 +23,43 @@ from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import Attention, attention_decode, attention_full
 from repro_torch.models.layers import (
-    RMSNorm,
     empty_param,
     init_normal_,
+    make_norm,
     rope_freqs,
     rope_tables,
 )
 from repro_torch.models.mlp import MLP
+from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
-__all__ = ["Model", "Block"]
+__all__ = ["Model", "Block", "RWKVBlock"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.family != "dense" or cfg.moe is not None:
+    kinds = set(cfg.layer_kinds())
+    if cfg.family == "dense" and cfg.moe is None:
+        if kinds != {"attn"}:
+            unsupported.append(f"blocks {sorted(kinds)}")
+        if cfg.norm != "rmsnorm":
+            unsupported.append(f"norm {cfg.norm!r}")
+        if cfg.rope_type not in ("rope", "none"):
+            unsupported.append(f"rope_type {cfg.rope_type!r}")
+    elif cfg.family == "ssm":
+        if kinds != {"rwkv"}:
+            unsupported.append(f"blocks {sorted(kinds)}")
+        if cfg.norm != "layernorm":
+            unsupported.append(f"norm {cfg.norm!r}")
+        if cfg.rope_type != "none":
+            unsupported.append(f"rope_type {cfg.rope_type!r}")
+    else:
         unsupported.append(f"family {cfg.family!r}")
-    if any(k != "attn" for k in cfg.layer_kinds()):
-        unsupported.append(f"blocks {sorted(set(cfg.layer_kinds()))}")
-    if cfg.norm != "rmsnorm":
-        unsupported.append(f"norm {cfg.norm!r}")
     if cfg.enc_dec or cfg.frontend:
         unsupported.append("encoder-decoder / modality frontend")
     if cfg.tie_embeddings:
         unsupported.append("tied embeddings")
-    if cfg.rope_type not in ("rope", "none"):
-        unsupported.append(f"rope_type {cfg.rope_type!r}")
     if cfg.dtype not in _DTYPES:
         unsupported.append(f"dtype {cfg.dtype!r}")
     if unsupported:
@@ -59,9 +71,9 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
-        self.n1 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.n1 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
-        self.n2 = RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.n2 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.mlp = MLP(cfg, dtype=dtype, device=device)
 
     def init(self, generator: torch.Generator) -> None:
@@ -69,8 +81,33 @@ class Block(nn.Module):
             m.init(generator)
 
 
+class RWKVBlock(nn.Module):
+    """RWKV6 block: ``x + tm(n1(x))``, then ``x + cm(n2(x))``; each mix carries
+    its token-shift state, the time-mix also the WKV state."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.n1 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.tm = TimeMix(cfg, dtype=dtype, device=device)
+        self.n2 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.cm = ChannelMix(cfg, dtype=dtype, device=device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for m in (self.n1, self.tm, self.n2, self.cm):
+            m.init(generator)
+
+    def forward(self, x, shift_tm=None, shift_cm=None, wkv=None):
+        """x: (B, S, d) and this layer's carried states (None at the start
+        of a sequence).  Returns (x, (shift_tm, shift_cm, wkv))."""
+        h, (shift_tm, wkv) = self.tm(self.n1(x), shift_tm, wkv)
+        x = x + h
+        h, shift_cm = self.cm(self.n2(x), shift_cm)
+        return x + h, (shift_tm, shift_cm, wkv)
+
+
 class Model(nn.Module):
-    """The dense decoder.  Parameters are created uninitialized on ``device``
+    """The decoder: dense attention blocks, or RWKV6 blocks for family
+    ``ssm`` (``recurrent``).  Parameters are created uninitialized on ``device``
     (default ``"cuda"``, which raises when no card is present): fill them
     with :meth:`init` or from the JAX package through the weight bridge."""
 
@@ -87,9 +124,11 @@ class Model(nn.Module):
         self.dtype = _DTYPES[cfg.dtype]
         d = cfg.d_model
         self.embed = empty_param((self.vocab_padded, d), self.dtype, dev)
-        self.blocks = nn.ModuleList(Block(cfg, dtype=self.dtype, device=dev)
+        self.recurrent = cfg.family == "ssm"
+        block = RWKVBlock if self.recurrent else Block
+        self.blocks = nn.ModuleList(block(cfg, dtype=self.dtype, device=dev)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(d, cfg.norm_eps, dtype=self.dtype, device=dev)
+        self.final_norm = make_norm(cfg.norm, d, cfg.norm_eps, dtype=self.dtype, device=dev)
         self.lm_head = empty_param((d, self.vocab_padded), self.dtype, dev)
         # RoPE inverse frequencies, built once on the device (not a weight)
         inv_freq = None
@@ -107,7 +146,8 @@ class Model(nn.Module):
         """Random weights in the JAX ``Builder``'s scheme: normal leaves with
         std 1/sqrt(fan_in) (fan_in = the second-to-last dim, so the embedding
         table's is the padded vocab, as there), norm scales one, biases
-        zero.  Draws on ``generator``'s device.  The numbers differ from
+        zero, and the RWKV6 leaves' own schemes (``rwkv6.TimeMix.init``).
+        Draws on ``generator``'s device.  The numbers differ from
         ``jax.random``'s; tests share weights through the bridge instead."""
         init_normal_(self.embed, generator)
         self.final_norm.init(generator)
@@ -138,20 +178,75 @@ class Model(nn.Module):
             return None
         return rope_tables(positions, self.rope_inv_freq)
 
+    # ---------------- caches ----------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """The contiguous serving cache, zeroed, layers stacked on axis 0.
+
+        Attention stacks: ``{"k", "v"}`` of shape (n_layers, batch, max_len,
+        Hk, hd) and the per-row lengths ``len`` (batch,) int32.  (JAX keeps
+        one ``len`` per layer; they are always equal, so the port keeps
+        one.)  RWKV6 stacks: the token-shift states ``shift_tm``/``shift_cm``
+        (n_layers, batch, d) in the model dtype and the WKV state ``wkv``
+        (n_layers, batch, H, hd, hd) in fp32; ``max_len`` does not apply.
+        """
+        cfg, dev = self.cfg, self.device
+        if self.recurrent:
+            d, hd = cfg.d_model, cfg.rwkv_head_dim
+            shift = torch.zeros((cfg.n_layers, batch, d), dtype=self.dtype, device=dev)
+            return {"shift_tm": shift, "shift_cm": torch.zeros_like(shift),
+                    "wkv": torch.zeros((cfg.n_layers, batch, d // hd, hd, hd),
+                                       dtype=torch.float32, device=dev)}
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        k = torch.zeros(shape, dtype=self.dtype, device=dev)
+        return {"k": k, "v": torch.zeros_like(k),
+                "len": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+    def init_paged_cache(self, n_pages: int, page_size: int, batch: int) -> dict:
+        """The paged serving cache: per-layer K/V pools stacked as
+        ``(n_layers, n_pages + 1, page_size, Hk, hd)`` and the per-slot
+        lengths ``len`` (batch,) int32.  Page ``n_pages`` is the drop page:
+        the target of writes to unmapped positions, never mapped by a table
+        and never read.  Attention stacks only, as in JAX."""
+        if self.recurrent:
+            raise ValueError("paged KV cache requires a decoder-only global-attention stack")
+        cfg = self.cfg
+        shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+        k = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return {"k": k, "v": torch.zeros_like(k),
+                "len": torch.zeros(batch, dtype=torch.int32, device=self.device)}
+
     # ---------------- prefill ----------------
     @torch.no_grad()
-    def prefill(self, tokens, lengths=None):
+    def prefill(self, tokens, lengths=None, max_len: Optional[int] = None):
         """Run the full prompt.  tokens: (B, S) int.  Returns ``(logits,
-        rows)``: logits (B, 1, V) float32 at each row's last valid token and
-        the prefill cache rows ``{"k", "v"}`` of shape (n_layers, B, S, Hk,
-        hd) plus ``"len"`` (B,) int32.
+        cache)`` with logits (B, 1, V) float32 at each row's last valid token.
 
-        ``lengths`` (B,): valid prompt lengths of a right-padded batch.
-        Causal attention keeps the padding out of the valid prefix; logits
-        are gathered at ``lengths - 1`` and ``len`` is set per row.
+        Attention stacks: the cache holds the rotated K and the V of every
+        layer, ``{"k", "v"}`` of shape (n_layers, B, S, Hk, hd) — or, given
+        ``max_len``, placed at the start of zeroed (n_layers, B, max_len, Hk,
+        hd) buffers as ``init_cache`` lays them out (JAX's
+        ``_fill_kv_cache``) — plus ``"len"`` (B,) int32.  ``lengths`` (B,):
+        valid prompt lengths of a right-padded batch; causal attention keeps
+        the padding out of the valid prefix, logits are gathered at
+        ``lengths - 1`` and ``len`` is set per row.
+
+        RWKV6 stacks: the cache is the recurrent state after the last token,
+        ``{"shift_tm", "shift_cm", "wkv"}`` as ``init_cache`` lays it out.
+        ``lengths`` raises ``ValueError`` there, as JAX's assertion does: a
+        recurrent state would advance through the padding.
         """
         x = self._embed_in(tokens)
         B, S = x.shape[:2]
+        if self.recurrent:
+            if lengths is not None:
+                raise ValueError("variable-length prefill requires attention-only models")
+            states = []
+            for blk in self.blocks:
+                x, st = blk(x)
+                states.append(st)
+            shift_tm, shift_cm, wkv = (torch.stack(t) for t in zip(*states))
+            return self._logits(x[:, -1:]), {"shift_tm": shift_tm, "shift_cm": shift_cm,
+                                             "wkv": wkv}
         rope = self._rope(self._positions(B, S))
         ks, vs = [], []
         for blk in self.blocks:
@@ -166,33 +261,45 @@ class Model(nn.Module):
         else:
             lengths = torch.full((B,), S, dtype=torch.int32, device=self.device)
             last = x[:, -1:]
-        rows = {"k": torch.stack(ks), "v": torch.stack(vs), "len": lengths}
-        return self._logits(last), rows
+        k, v = torch.stack(ks), torch.stack(vs)
+        if max_len is not None:
+            take = min(S, max_len)
+            buf_k = k.new_zeros((*k.shape[:2], max_len, *k.shape[3:]))
+            buf_v = torch.zeros_like(buf_k)
+            buf_k[:, :, :take] = k[:, :, :take]
+            buf_v[:, :, :take] = v[:, :, :take]
+            k, v = buf_k, buf_v
+        return self._logits(last), {"k": k, "v": v, "len": lengths}
 
-    # ---------------- paged decode ----------------
-    def init_paged_cache(self, n_pages: int, page_size: int, batch: int) -> dict:
-        """The paged serving cache: per-layer K/V pools stacked as
-        ``(n_layers, n_pages + 1, page_size, Hk, hd)`` and the per-slot
-        lengths ``len`` (batch,) int32.  Page ``n_pages`` is the drop page:
-        the target of writes to unmapped positions, never mapped by a table
-        and never read.  (JAX keeps one ``len`` per layer; they are always
-        equal, so the port keeps one.)"""
-        cfg = self.cfg
-        shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
-        k = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        return {"k": k, "v": torch.zeros_like(k),
-                "len": torch.zeros(batch, dtype=torch.int32, device=self.device)}
-
+    # ---------------- decode ----------------
     @torch.no_grad()
-    def decode_step(self, tokens, cache: dict, table):
-        """tokens: (B, 1) int; cache from :meth:`init_paged_cache`; table:
-        (B, n_cols) int32 block table (entries >= n_pages unmapped), one for
-        every layer.  Appends each row's K/V at ``cache["len"]`` and advances
-        ``len`` by one, both in place.  Returns logits (B, 1, V) float32."""
-        if table is None:
-            raise NotImplementedError("the contiguous KV cache is not ported yet; "
-                                      "decode_step needs a block table")
+    def decode_step(self, tokens, cache: dict, table=None):
+        """tokens: (B, 1) int.  Returns logits (B, 1, V) float32 and
+        advances ``cache`` by one token, in place.
+
+        Attention stacks: ``table`` (B, n_cols) int32 switches the layers onto
+        the paged cache of :meth:`init_paged_cache` (entries >= n_pages
+        unmapped), one table for every layer; without it the cache is the
+        contiguous one of :meth:`init_cache` (or a horizon view of it, its
+        sequence axis sliced).  Each row's K/V is written at
+        ``cache["len"]`` and ``len`` advances by one.
+
+        RWKV6 stacks: the cache is the recurrent state of :meth:`init_cache`
+        or :meth:`prefill`; every layer's states are replaced by the next
+        ones.  A ``table`` raises ``ValueError``: recurrent state has no
+        paged form.
+        """
         x = self._embed_in(tokens)
+        if self.recurrent:
+            if table is not None:
+                raise ValueError("paged KV cache requires a decoder-only global-attention stack")
+            for i, blk in enumerate(self.blocks):
+                x, (shift_tm, shift_cm, wkv) = blk(x, cache["shift_tm"][i],
+                                                   cache["shift_cm"][i], cache["wkv"][i])
+                cache["shift_tm"][i] = shift_tm
+                cache["shift_cm"][i] = shift_cm
+                cache["wkv"][i] = wkv
+            return self._logits(x)
         pos = cache["len"]
         rope = self._rope(pos[:, None])
         for i, blk in enumerate(self.blocks):

@@ -1,25 +1,33 @@
-"""Serving engine of the port: slot-based continuous batching over a paged KV
-cache, greedy decoding.
+"""Serving engine of the port: slot-based continuous batching over a paged
+or a contiguous KV cache, greedy decoding.
 
-Counterpart of the JAX package's ``serving/engine.py`` in its paged mode
-(``ServingEngine(paged=True)``), and bit-for-bit the same host logic:
+Counterpart of the JAX package's ``serving/engine.py`` (``ServingEngine``
+with ``paged=True`` or ``paged=False``), and bit-for-bit the same host logic:
 
 * **Batched admission** (``_admit_batch``): every request admitted in one
-  serving tick is padded to a power-of-two length bucket (at least 16, then
-  a page multiple), prefilled in one ``Model.prefill`` call, and its pages
-  are written into the pools by ``_insert_pages``.  Siblings that share the
-  batch prompt's prefix map their tables onto the owner's pages (refcount
-  bumps, no second copy).
-* **Page maintenance** (``_prepare_paged``): before each decode dispatch every
-  active slot's table grows to cover its next ``decode_block`` writes, and
-  any still-shared page in that range is copied-on-write (``_fork_pages``).
-* **Fused K-step decode** (``_decode_k_paged``): ``decode_block`` greedy
-  steps run back to back with the per-slot state (last token, active mask,
-  emitted count) on the device, and the host reads the results once per K.
+  serving tick is padded to a power-of-two length bucket (at least 16) and
+  prefilled in one ``Model.prefill`` call.  Paged: the bucket is rounded up
+  to a page multiple and the rows' pages are written into the pools by
+  ``_insert_pages``; siblings that share the batch prompt's prefix map their
+  tables onto the owner's pages (refcount bumps, no second copy).
+  Contiguous: each row is written into its slot's ``max_len`` row by
+  ``_insert_many``.
+* **Page maintenance** (``_prepare_paged``): before each paged decode
+  dispatch every active slot's table grows to cover its next
+  ``decode_block`` writes, and any still-shared page in that range is
+  copied-on-write (``_fork_pages``).
+* **Fused K-step decode** (``_decode_k``): ``decode_block`` greedy steps run
+  back to back with the per-slot state (last token, active mask, emitted
+  count) on the device, and the host reads the results once per K.  The
+  paged dispatch attends through the table sliced to the horizon; the
+  contiguous one through a horizon view of the cache's sequence axis.
+* **Stepwise reference driver** (``serve_stepwise``, contiguous only): one
+  admission per request and one host round-trip per token, the parity
+  reference of the fused driver.
 
-The contiguous KV layout, sampled decoding and the stepwise reference driver
-are not ported yet: ``paged=False`` and a non-greedy ``GenerationConfig``
-raise ``NotImplementedError``.
+Sampled decoding is not ported yet: a non-greedy ``GenerationConfig``
+raises ``NotImplementedError``.  Only attention stacks are served, as in
+JAX, whose prefill of a right-padded batch asserts as much.
 """
 from __future__ import annotations
 
@@ -60,10 +68,12 @@ class ServingEngine:
     """Continuous-batching engine for one model on one device.
 
     ``decode_block`` is K, the number of tokens generated per host dispatch;
-    greedy outputs are the same for every K.  The KV cache is paged:
-    per-layer pools of ``page_size``-token pages plus host-side per-slot
-    block tables (:class:`PagedCacheManager`).  ``share_prefix=False`` keeps
-    paging but gives every slot private pages.
+    greedy outputs are the same for every K.  ``paged=True`` (the default)
+    keeps the KV cache in per-layer pools of ``page_size``-token pages plus
+    host-side per-slot block tables (:class:`PagedCacheManager`);
+    ``share_prefix=False`` keeps paging but gives every slot private pages.
+    ``paged=False`` keeps one contiguous ``(max_slots, max_len)`` row of
+    K/V per slot; greedy outputs are the same in both layouts.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present;
     ``model`` must live on the same device.
@@ -73,22 +83,28 @@ class ServingEngine:
                  decode_block: int = 8, paged: bool = True, page_size: int = 16,
                  share_prefix: bool = True, eos_id: int = ByteTokenizer.eos,
                  pad_id: int = ByteTokenizer.pad, device="cuda"):
-        if not paged:
-            raise NotImplementedError("the contiguous KV layout is not ported yet; "
-                                      "use paged=True")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
+        if model.recurrent:
+            raise ValueError(f"{model.cfg.name}: the engine prefills right-padded batches, and "
+                             f"variable-length prefill requires attention-only models")
         self.model = model
         self.max_slots = max_slots
         self.max_len = max_len
         self.decode_block = max(1, int(decode_block))
+        self.paged = bool(paged)
         self.page_size = int(page_size)
         self.share_prefix = bool(share_prefix)
         self.eos_id = eos_id
         self.pad_id = pad_id
-        self.kv = PagedCacheManager(max_slots, max_len, self.page_size)
-        self.cache = model.init_paged_cache(self.kv.alloc.n_pages, self.page_size, max_slots)
+        if self.paged:
+            self.kv = PagedCacheManager(max_slots, max_len, self.page_size)
+            self.cache = model.init_paged_cache(self.kv.alloc.n_pages, self.page_size,
+                                                max_slots)
+        else:
+            self.kv = None
+            self.cache = model.init_cache(max_slots, max_len)
         self.slot_req: list[Optional[Request]] = [None] * max_slots
         self.tok = ByteTokenizer()
         self.n_decode_calls = 0             # host→device decode dispatches
@@ -153,6 +169,24 @@ class ServingEngine:
         self.cache["len"][self._to_device(slots[live].astype(np.int64))] = \
             rows["len"][self._to_device(live)]
 
+    def _insert_many(self, rows: dict, slots: np.ndarray) -> None:
+        """Write freshly prefilled rows into their slots of the contiguous
+        cache.  ``rows`` K/V are ``(n_layers, B, L, Hk, hd)``; row b fills
+        positions ``[0, L)`` of slot ``slots[b]`` and the rest of the slot's
+        row is zeroed, as JAX's ``_fill_kv_cache`` + ``_insert_many`` leave
+        it.  A slot index of ``max_slots`` marks a padding row of the
+        admission bucket: JAX drops its scatter, here it is left out on the
+        host."""
+        live = np.nonzero(slots < self.max_slots)[0]
+        dst = self._to_device(slots[live].astype(np.int64))
+        src = self._to_device(live.astype(np.int64))
+        L = rows["k"].shape[2]
+        for name in ("k", "v"):
+            buf = self.cache[name]
+            buf[:, dst, :L] = rows[name][:, src].to(buf.dtype)
+            buf[:, dst, L:] = 0
+        self.cache["len"][dst] = rows["len"][src]
+
     def _fork_pages(self, src_pages: list[int], dst_pages: list[int]) -> None:
         """Copy-on-write device copy: physical page ``src[i]`` → ``dst[i]`` in
         every layer's pools.  (JAX pads the list to a size bucket to bound
@@ -166,22 +200,52 @@ class ServingEngine:
     def _admit_batch(self, reqs: list[Request], slots: list[int]):
         """Admit ``reqs`` into ``slots`` with ONE prefill + ONE insert.
 
-        Prompts pad to a shared length bucket rounded up to a page multiple;
-        the batch count pads to a power-of-two bucket.  The owner (first
-        request) allocates all its prompt pages; every sibling points its
-        table at the owner's common-prefix pages and allocates only the pages
-        past it.  Causal attention makes each row's prefix K/V identical, so
-        which row's bytes land in a shared page is immaterial.
+        Prompts pad to a shared length bucket (paged: rounded up to a page
+        multiple); the batch count pads to a power-of-two bucket, whose
+        padding rows carry the slot index ``max_slots`` and are never
+        written.
         """
         for r in reqs:
             self._gen_of(r)             # refuses sampled requests
         B = self._bucket_count(len(reqs))
         L = self._bucket_len(max(len(r.tokens) for r in reqs))
+        seqs = [r.tokens for r in reqs] + [[self.pad_id]] * (B - len(reqs))
+        slot_arr = np.full(B, self.max_slots, dtype=np.int32)
+        slot_arr[: len(reqs)] = slots
+        if self.paged:
+            logits = self._admit_paged(reqs, slots, seqs, slot_arr, L)
+        else:
+            tokens, lengths = self.tok.pad_batch(seqs, L)
+            logits, rows = self.model.prefill(self._to_device(tokens),
+                                              lengths=self._to_device(lengths))
+            self.n_prefill_calls += 1
+            self._insert_many(rows, slot_arr)
+        # argmax takes the first maximum, as jnp.argmax does
+        first = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        now = time.time()
+        for req, slot, f in zip(reqs, slots, first):
+            self.slot_req[slot] = req
+            req.started_at = now
+            req.finished_at = None      # clear stale timing on re-admission
+            req.done = False
+            req.out_tokens.append(int(f))
+            if int(f) == self.eos_id:
+                self._retire(slot)
+            if req.on_tokens is not None:
+                req.on_tokens([int(f)], req.done)
+
+    def _admit_paged(self, reqs, slots, seqs, slot_arr, L):
+        """The paged half of :meth:`_admit_batch`: build the sharing plan,
+        prefill the page-multiple bucket once and write its pages.  The
+        owner (first request) allocates all its prompt pages; every sibling
+        points its table at the owner's common-prefix pages and allocates
+        only the pages past it.  Causal attention makes each row's prefix K/V
+        identical, so which row's bytes land in a shared page is immaterial.
+        Returns the prefill's logits."""
         ps = self.page_size
         Lp = -(-L // ps) * ps
-        seqs = [r.tokens for r in reqs] + [[self.pad_id]] * (B - len(reqs))
         tokens, lengths = self.tok.pad_batch(seqs, Lp)
-        dst = np.full((B, Lp // ps), self.kv.alloc.n_pages, np.int32)
+        dst = np.full((len(seqs), Lp // ps), self.kv.alloc.n_pages, np.int32)
         owner_pages: list[int] = []
         for idx, (req, slot) in enumerate(zip(reqs, slots)):
             n_need = -(-len(req.tokens) // ps)
@@ -202,22 +266,8 @@ class ServingEngine:
         logits, rows = self.model.prefill(self._to_device(tokens),
                                           lengths=self._to_device(lengths))
         self.n_prefill_calls += 1
-        slot_arr = np.full(B, self.max_slots, dtype=np.int32)
-        slot_arr[: len(reqs)] = slots
         self._insert_pages(rows, slot_arr, dst)
-        # argmax takes the first maximum, as jnp.argmax does
-        first = logits[:, 0].argmax(dim=-1).cpu().numpy()
-        now = time.time()
-        for req, slot, f in zip(reqs, slots, first):
-            self.slot_req[slot] = req
-            req.started_at = now
-            req.finished_at = None      # clear stale timing on re-admission
-            req.done = False
-            req.out_tokens.append(int(f))
-            if int(f) == self.eos_id:
-                self._retire(slot)
-            if req.on_tokens is not None:
-                req.on_tokens([int(f)], req.done)
+        return logits
 
     def _admit_free(self, queue: list[Request]):
         """Fill every free slot from the queue (FCFS, slot-index order); an
@@ -235,9 +285,10 @@ class ServingEngine:
             req.done = True
             req.finished_at = time.time()
         self.slot_req[slot] = None
-        # drop the slot's table references; only pages no sibling still
-        # shares actually return to the free list
-        self.kv.release_slot(slot)
+        if self.paged:
+            # drop the slot's table references; only pages no sibling still
+            # shares actually return to the free list
+            self.kv.release_slot(slot)
 
     def _active_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
@@ -292,21 +343,34 @@ class ServingEngine:
         n_cols = min(self.kv.pages_per_slot, -(-horizon // ps))
         return self._to_device(self.kv.table[:, :n_cols])
 
-    def _decode_k_paged(self, table, last, active, n_out, limit):
+    def _horizon_view(self, horizon: int) -> dict:
+        """The contiguous cache with its sequence axis cut to ``horizon``:
+        views of the K/V buffers (decode writes land in the cache itself,
+        and the kernel reads them through their strides, so nothing is
+        copied) and the shared ``len``.  The host guarantees ``horizon`` ≥
+        the longest live sequence + K, so the cut is exact; a retired slot's
+        garbage stream may run past it, where its writes are dropped."""
+        return {"k": self.cache["k"][:, :, :horizon], "v": self.cache["v"][:, :, :horizon],
+                "len": self.cache["len"]}
+
+    def _decode_k(self, cache, table, last, active, n_out, limit):
         """``decode_block`` greedy decode steps back to back.
 
-        Device state per slot: ``last`` (next input token), ``active`` (still
-        generating), ``n_out`` (tokens emitted, prefill's first included),
-        ``limit`` (min(max_new, max_len−1−prompt)).  The pools are updated in
-        place (JAX donates them to the scan).  Returns the final active mask,
-        the (K, max_slots) token block and its validity mask (``valid[k, i]``
-        ⇔ slot i was active entering step k), all still on the device.
-        Inactive slots decode garbage into pages no live table maps.
+        ``cache`` and ``table``: the paged pools and the block table sliced
+        to the horizon's columns, or the contiguous cache's horizon view and
+        None.  Device state per slot: ``last`` (next input token), ``active``
+        (still generating), ``n_out`` (tokens emitted, prefill's first
+        included), ``limit`` (min(max_new, max_len−1−prompt)).  The cache is
+        updated in place (JAX donates it to the scan).  Returns the final
+        active mask, the (K, max_slots) token block and its validity mask
+        (``valid[k, i]`` ⇔ slot i was active entering step k), all still on
+        the device.  Inactive slots decode garbage: into pages no live table
+        maps, or into their own contiguous rows, which admission rewrites.
         """
         toks, valid = [], []
         act, n = active, n_out
         for _ in range(self.decode_block):
-            logits = self.model.decode_step(last[:, None], self.cache, table)
+            logits = self.model.decode_step(last[:, None], cache, table)
             nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
             n = n + act.to(torch.int32)
             done = act & ((nxt == self.eos_id) | (n >= limit))
@@ -317,9 +381,15 @@ class ServingEngine:
         return act, torch.stack(toks), torch.stack(valid)
 
     def kv_occupancy(self) -> dict:
-        """KV memory telemetry: live and peak *mapped* bytes — distinct
-        physical pages times per-page bytes summed across layers (the drop
-        page is not counted)."""
+        """KV memory telemetry.  Contiguous engines report the committed
+        buffer size (every slot owns a full ``max_len`` row whether it uses
+        it or not); paged engines report live and peak *mapped* bytes —
+        distinct physical pages times per-page bytes summed across layers
+        (the drop page is not counted)."""
+        if not self.paged:
+            kv_bytes = sum(self.cache[n].numel() * self.cache[n].element_size()
+                           for n in ("k", "v"))
+            return {"paged": False, "kv_bytes": kv_bytes, "peak_kv_bytes": kv_bytes}
         occ = self.kv.occupancy()
         page_bytes = 2 * self.cache["k"][:, 0].numel() * self.cache["k"].element_size()
         occ.update(paged=True, page_bytes=page_bytes,
@@ -343,9 +413,12 @@ class ServingEngine:
             live = max(len(self.slot_req[i].tokens) + len(self.slot_req[i].out_tokens)
                        for i in active)
             horizon = min(self.max_len, self._bucket_len(live + self.decode_block))
-            table = self._prepare_paged(active, horizon)
-            act_f, toks, valid = self._decode_k_paged(
-                table, self._to_device(last), self._to_device(act),
+            if self.paged:
+                cache, table = self.cache, self._prepare_paged(active, horizon)
+            else:
+                cache, table = self._horizon_view(horizon), None
+            act_f, toks, valid = self._decode_k(
+                cache, table, self._to_device(last), self._to_device(act),
                 self._to_device(n_out), self._to_device(limit))
             self.n_decode_calls += 1
             self.n_decode_steps += self.decode_block
@@ -363,6 +436,45 @@ class ServingEngine:
                     self._retire(i)
                 if req.on_tokens is not None:
                     req.on_tokens(block, req.done)
+        return requests
+
+    def serve_stepwise(self, requests: list[Request]) -> list[Request]:
+        """Reference driver: one admission per request (into the lowest free
+        slot) and one host round-trip (dispatch + argmax) per generated token,
+        over the whole ``max_len`` cache.  Greedy outputs are identical to
+        :meth:`serve`'s.  Contiguous layout only, as in JAX: it is the
+        reference, and paging it would leave no fixed point to test
+        against."""
+        if self.paged:
+            raise RuntimeError("serve_stepwise is the contiguous parity "
+                               "reference; use serve() on a paged engine")
+        queue = list(requests)
+        while queue or self._active_slots():
+            for slot in range(self.max_slots):
+                if self.slot_req[slot] is None and queue:
+                    self._admit_batch([queue.pop(0)], [slot])
+            active = self._active_slots()
+            if not active:
+                continue
+            # lockstep decode across all slots (inactive slots decode garbage
+            # into their own rows; admission rewrites them)
+            last = np.full((self.max_slots, 1), self.pad_id, dtype=np.int32)
+            for i in active:
+                last[i, 0] = self.slot_req[i].out_tokens[-1]
+            logits = self.model.decode_step(self._to_device(last), self.cache)
+            self.n_decode_calls += 1
+            self.n_decode_steps += 1
+            nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+            for i in active:
+                req = self.slot_req[i]
+                req.out_tokens.append(int(nxt[i]))
+                total_len = len(req.tokens) + len(req.out_tokens)
+                if (int(nxt[i]) == self.eos_id
+                        or len(req.out_tokens) >= self._gen_of(req).max_new
+                        or total_len >= self.max_len - 1):
+                    self._retire(i)
+                if req.on_tokens is not None:
+                    req.on_tokens([int(nxt[i])], req.done)
         return requests
 
     # convenience --------------------------------------------------------

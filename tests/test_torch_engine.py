@@ -1,15 +1,17 @@
-"""The port's paged serving engine against the JAX package's, on the CPU.
+"""The port's serving engine against the JAX package's, on the CPU, in both
+KV layouts.
 
 Both engines serve the workload of ``tests/test_engine.py`` with the same
 tiny-s weights (bridged from the JAX init): greedy token streams must be
-identical and the KV page counters equal, over K ∈ {1, 8} decode-block
-depths × {1, 4} slots.  Every prompt opens with a shared system prefix
-(prefix sharing), and the first three are identical (a copy-on-write fork
-on their first decode write).
+identical and the dispatch and KV counters equal, over K ∈ {1, 8}
+decode-block depths × {1, 4} slots, paged and contiguous.  Every prompt
+opens with a shared system prefix (prefix sharing), and the first three are
+identical (a copy-on-write fork on their first decode write).
 """
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.config import ShardingConfig as JaxShardingConfig
 from repro.config import get_arch as jax_get_arch
@@ -18,6 +20,7 @@ from repro.serving import engine as jengine
 from repro.serving import kvpool as jkvpool
 from repro_torch.config import get_arch
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.models.attention import attention_decode
 from repro_torch.models.bridge import state_from_jax
 from repro_torch.models.transformer import Model
 from repro_torch.serving import engine, kvpool
@@ -90,6 +93,68 @@ def test_greedy_streams_and_kv_counters_match_reference(models, eos_id, k, slots
         assert eng.kv.alloc.n_shares > 0 and eng.kv.alloc.n_forks > 0
 
 
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("k", [1, 8])
+def test_contiguous_streams_and_counters_match_reference(models, eos_id, k, slots):
+    """``paged=False`` on both sides: streams, dispatch counters and
+    ``kv_occupancy()`` identical.  The horizon slice engages (max_len 160,
+    horizons of 32–128 while the streams are short), and retired slots'
+    garbage streams run past it."""
+    jmodel, jparams, model = models
+    ref = jengine.ServingEngine(jmodel, jparams, max_slots=slots, max_len=MAX_LEN,
+                                decode_block=k, paged=False, eos_id=eos_id)
+    eng = engine.ServingEngine(model, max_slots=slots, max_len=MAX_LEN, decode_block=k,
+                               paged=False, eos_id=eos_id, device="cpu")
+    r_ref = [jengine.Request(rid=i, tokens=t, max_new=m) for i, (t, m) in enumerate(_workload())]
+    r_got = [engine.Request(rid=i, tokens=t, max_new=m) for i, (t, m) in enumerate(_workload())]
+    ref.serve(r_ref)
+    eng.serve(r_got)
+    for a, b in zip(r_ref, r_got):
+        assert b.out_tokens == a.out_tokens, f"rid {a.rid} diverged"
+        assert b.done
+    assert any(eos_id in r.out_tokens for r in r_got), "no stream retired by EOS"
+    assert eng.kv_occupancy() == ref.kv_occupancy()
+    assert eng.kv_occupancy()["paged"] is False
+    assert (eng.n_decode_calls, eng.n_decode_steps, eng.n_prefill_calls) == \
+        (ref.n_decode_calls, ref.n_decode_steps, ref.n_prefill_calls)
+
+
+def test_serve_stepwise_matches_serve(models, eos_id):
+    """The port's stepwise reference driver gives the fused driver's streams,
+    and JAX's stepwise driver's counters."""
+    jmodel, jparams, model = models
+    fused = engine.ServingEngine(model, max_slots=4, max_len=MAX_LEN, decode_block=8,
+                                 paged=False, eos_id=eos_id, device="cpu")
+    step = engine.ServingEngine(model, max_slots=4, max_len=MAX_LEN, paged=False,
+                                eos_id=eos_id, device="cpu")
+    ref = jengine.ServingEngine(jmodel, jparams, max_slots=4, max_len=MAX_LEN, paged=False,
+                                eos_id=eos_id)
+    r_fused = [engine.Request(rid=i, tokens=t, max_new=m)
+               for i, (t, m) in enumerate(_workload())]
+    r_step = [engine.Request(rid=i, tokens=t, max_new=m) for i, (t, m) in enumerate(_workload())]
+    r_ref = [jengine.Request(rid=i, tokens=t, max_new=m) for i, (t, m) in enumerate(_workload())]
+    fused.serve(r_fused)
+    step.serve_stepwise(r_step)
+    ref.serve_stepwise(r_ref)
+    assert [r.out_tokens for r in r_step] == [r.out_tokens for r in r_fused]
+    assert [r.out_tokens for r in r_step] == [r.out_tokens for r in r_ref]
+    assert all(r.done for r in r_step)
+    assert (step.n_decode_calls, step.n_decode_steps, step.n_prefill_calls) == \
+        (ref.n_decode_calls, ref.n_decode_steps, ref.n_prefill_calls)
+    with pytest.raises(RuntimeError, match="contiguous"):
+        engine.ServingEngine(model, max_slots=2, max_len=64, device="cpu").serve_stepwise([])
+
+
+def test_engine_refuses_recurrent_models():
+    """JAX's engine asserts in prefill that variable-length batches need an
+    attention-only stack; the port's refuses an RWKV6 model up front, in
+    both layouts."""
+    model = Model(get_arch("rwkv6-3b").reduced(), device="cpu")
+    for paged in (True, False):
+        with pytest.raises(ValueError, match="attention-only"):
+            engine.ServingEngine(model, max_slots=2, max_len=64, paged=paged, device="cpu")
+
+
 def test_generate_text_matches_reference(models):
     jmodel, jparams, model = models
     prompts = [f"query number {i}" for i in range(5)]
@@ -114,11 +179,21 @@ def test_allocator_pinned_to_reference_on_full_pool():
 
 
 def test_unported_paths_raise(models):
+    """Sampled decoding (either layout, either driver) and ring (sliding
+    window) KV caches are not ported yet."""
     _, _, model = models
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        engine.ServingEngine(model, paged=False, device="cpu")
-    eng = engine.ServingEngine(model, max_slots=2, max_len=64, device="cpu")
-    req = engine.Request(rid=0, tokens=TOK.encode("hi"),
-                         gen=GenerationConfig(max_new=4, temperature=0.7))
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.serve([req])
+    for paged in (True, False):
+        eng = engine.ServingEngine(model, max_slots=2, max_len=64, paged=paged, device="cpu")
+        req = engine.Request(rid=0, tokens=TOK.encode("hi"),
+                             gen=GenerationConfig(max_new=4, temperature=0.7))
+        with pytest.raises(NotImplementedError, match="sampled"):
+            eng.serve([req])
+        if not paged:
+            with pytest.raises(NotImplementedError, match="sampled"):
+                eng.serve_stepwise([req])
+    cache = model.init_cache(2, 64)
+    x = torch.zeros((2, 1, model.cfg.d_model))
+    pos = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="window"):
+        attention_decode(model.blocks[0].attn, model.cfg, x, cache["k"][0], cache["v"][0],
+                         pos, None, None, window=16)

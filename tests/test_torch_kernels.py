@@ -1,11 +1,14 @@
-"""The port's attention kernels on the CPU: their plain PyTorch versions held
-against the JAX package's tiled versions and Pallas kernels (interpret mode),
-and the device dispatch of the wrappers.
+"""The port's kernels on the CPU: their plain PyTorch versions held against
+the JAX package's tiled versions, its naive oracles and its Pallas kernels
+(interpret mode), and the device dispatch of the wrappers.
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
-each against its plain version there.  Tolerances are those of
+each against its plain version there.  Attention tolerances are those of
 ``tests/test_kernels.py``: 2e-5 in float32 (summation order differs between
-the frameworks), 2e-2 in bfloat16 (one bf16 rounding of the output).
+the frameworks), 2e-2 in bfloat16 (one bf16 rounding of the output).  WKV6
+is held to 2e-4 in float32, as the JAX package's kernel tests hold it: its
+outputs run to tens, and the chunked and token-by-token forms round
+differently.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,11 +17,15 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.paged_attention import paged_attention_pallas
+from repro.kernels.rwkv6_scan import wkv6_pallas
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
+from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -86,6 +93,141 @@ def test_torch_oracle_matches_jax_oracle(causal, win):
     lengths = np.asarray([3, 20], np.int32)
     _close(ref.decode_attention_ref(q[:, :1], k, v, torch.from_numpy(lengths)),
            jref.decode_attention_ref(jq[:, :1], jk, jv, jnp.asarray(lengths)), "float32")
+
+
+# ---------------------------------------------------------------------------
+# decode attention against a contiguous cache
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Smax,H,Hk,D", [
+    (4, 40, 8, 2, 16),
+    (3, 130, 4, 4, 32),
+    (2, 64, 8, 1, 64),
+])
+def test_decode_plain_matches_jax(dtype, B, Smax, H, Hk, D):
+    """Ragged lengths with one empty row (zeros) and one full row, against
+    ``_decode_jnp`` and the Pallas kernel (interpret mode, kv_block 32 so
+    the online softmax crosses blocks)."""
+    rng = np.random.default_rng(B * Smax + D)
+    (q, jq), (k, jk), (v, jv) = _arrs(rng, dtype, (B, 1, H, D), (B, Smax, Hk, D),
+                                      (B, Smax, Hk, D))
+    lengths = rng.integers(1, Smax + 1, B).astype(np.int32)
+    lengths[0], lengths[-1] = 0, Smax
+    got = decode_attention_plain(q, k, v, torch.from_numpy(lengths))
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _close(got, jops._decode_jnp(jq, jk, jv, jnp.asarray(lengths)), dtype)
+    _close(got, decode_attention_pallas(jq, jk, jv, jnp.asarray(lengths), kv_block=32,
+                                        interpret=True), dtype)
+
+
+def test_decode_plain_on_a_horizon_view():
+    """The engine's decode reads a horizon slice ``cache[:, :h]`` of a longer
+    buffer in place: the plain version on the strided view gives what the
+    JAX versions give on the sliced copy, and the oracle agrees."""
+    rng = np.random.default_rng(13)
+    B, max_len, horizon, H, Hk, D = 3, 96, 48, 4, 2, 16
+    (q, jq), (kf, _), (vf, _) = _arrs(rng, "float32", (B, 1, H, D), (B, max_len, Hk, D),
+                                      (B, max_len, Hk, D))
+    k, v = kf[:, :horizon], vf[:, :horizon]
+    assert not k.is_contiguous() and k.stride(0) == max_len * Hk * D
+    lengths = np.asarray([horizon, 17, 1], np.int32)
+    jk, jv = jnp.asarray(k.numpy()), jnp.asarray(v.numpy())
+    got = ops.decode_attention(q, k, v, torch.from_numpy(lengths))
+    _close(got, jops._decode_jnp(jq, jk, jv, jnp.asarray(lengths)), "float32")
+    _close(got, decode_attention_pallas(jq, jk, jv, jnp.asarray(lengths), kv_block=16,
+                                        interpret=True), "float32")
+    _close(got, jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths)), "float32")
+    _close(ref.decode_attention_ref(q, k, v, torch.from_numpy(lengths)),
+           jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths)), "float32")
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+WKV_TOL = 2e-4
+
+
+def _wkv_inputs(rng, B, T, H, D, decay):
+    """r/k/v ~ N(0, 1), u ~ U(−0.5, 0.5), a carried state, and decays in the
+    ``mild`` range U(0.4, 0.999) of ``tests/test_kernels.py`` or the
+    ``strong`` one U(0.15, 0.3), whose cumulative log-decay passes −30
+    within a chunk of 32."""
+    r, k, v = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3))
+    lo, hi = {"mild": (0.4, 0.999), "strong": (0.15, 0.3)}[decay]
+    w = rng.uniform(lo, hi, (B, T, H, D)).astype(np.float32)
+    u = rng.uniform(-0.5, 0.5, (H, D)).astype(np.float32)
+    s0 = (0.3 * rng.normal(size=(B, H, D, D))).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+def _wkv_close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), atol=WKV_TOL,
+                               rtol=WKV_TOL)
+
+
+@pytest.mark.parametrize("decay", ["mild", "strong"])
+@pytest.mark.parametrize("T", [1, 33, 64])
+def test_wkv6_plain_matches_jax_and_oracle(T, decay):
+    rng = np.random.default_rng(T + len(decay))
+    arrs = _wkv_inputs(rng, 2, T, 2, 16, decay)
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in arrs)
+    out, s_t = wkv6_plain(r, k, v, w, u, s0)
+    assert out.dtype == torch.float32 and s_t.dtype == torch.float32
+    j = [jnp.asarray(a) for a in arrs]
+    want_out, want_s = jops._wkv6_jnp(*j, 32)
+    _wkv_close(out, want_out)
+    _wkv_close(s_t, want_s)
+    ref_out, ref_s = jref.wkv6_ref(*j)
+    _wkv_close(out, ref_out)
+    _wkv_close(s_t, ref_s)
+    # the port's own oracle is the JAX oracle
+    mine_out, mine_s = ref.wkv6_ref(r, k, v, w, u, s0)
+    _wkv_close(mine_out, ref_out)
+    _wkv_close(mine_s, ref_s)
+
+
+def test_wkv6_plain_bfloat16_rounds_the_output_only():
+    """bf16 r/k/v/u with fp32 w and state: the output is the fp32 result
+    rounded once to bf16, the state stays fp32."""
+    rng = np.random.default_rng(21)
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _wkv_inputs(rng, 1, 37, 2, 16, "mild"))
+    rb, kb, vb, ub = (x.to(torch.bfloat16) for x in (r, k, v, u))
+    out, s_t = wkv6_plain(rb, kb, vb, w, ub, s0)
+    want, want_s = wkv6_plain(rb.float(), kb.float(), vb.float(), w, ub.float(), s0)
+    assert out.dtype == torch.bfloat16 and s_t.dtype == torch.float32
+    assert torch.equal(out, want.to(torch.bfloat16))
+    assert torch.equal(s_t, want_s)
+
+
+@pytest.mark.parametrize("T", [1, 33, 64])
+def test_wkv6_plain_matches_pallas_in_the_mild_range(T):
+    """Where the TPU kernel's ±30 clip never engages, it agrees too."""
+    rng = np.random.default_rng(30 + T)
+    arrs = _wkv_inputs(rng, 2, T, 2, 16, "mild")
+    out, s_t = wkv6_plain(*(torch.from_numpy(a) for a in arrs))
+    want_out, want_s = wkv6_pallas(*(jnp.asarray(a) for a in arrs), chunk=32, interpret=True)
+    _wkv_close(out, want_out)
+    _wkv_close(s_t, want_s)
+
+
+def test_wkv6_pallas_clip_fault_is_pinned():
+    """The reference's fault, pinned: at w ~ U(0.15, 0.3) with chunk 32 the
+    cumulative log-decay of a chunk falls below −30, where ``wkv6_pallas``'s
+    clipped factors give a pair decay of 1 instead of exp(Le_t − L_s): it is
+    off the token-by-token oracle by more than 1.0, while the port's plain
+    version stays within 2e-4.  Should the reference be repaired, this test
+    fails and the note on the fault in ROADMAP.md §3 goes."""
+    rng = np.random.default_rng(0)
+    r, k, v, w, u, _ = _wkv_inputs(rng, 1, 64, 2, 16, "strong")
+    j = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    want, _ = jref.wkv6_ref(*j)
+    pallas, _ = wkv6_pallas(*j, chunk=32, interpret=True)
+    assert float(jnp.abs(pallas - want).max()) > 1.0
+    got, _ = wkv6_plain(*(torch.from_numpy(a) for a in (r, k, v, w, u)))
+    _wkv_close(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +320,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     rng = np.random.default_rng(5)
     (q, _), (k, _), (v, _) = _arrs(rng, "float32", (1, 32, 4, 16), (1, 32, 2, 16),
                                    (1, 32, 2, 16))
-    f0, p0 = flash_attention_cuda.launches, paged_attention_cuda.launches
+    counters = (flash_attention_cuda, paged_attention_cuda, decode_attention_cuda, wkv6_cuda)
+    before = [c.launches for c in counters]
     assert torch.equal(ops.flash_attention(q, k, v, q_block=16, kv_block=16),
                        flash_attention_plain(q, k, v, q_block=16, kv_block=16))
     pool = k.reshape(2, 16, 2, 16)
@@ -186,7 +329,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     lengths = torch.tensor([20], dtype=torch.int32)
     assert torch.equal(ops.paged_attention(q[:, :1], pool, pool, table, lengths),
                        paged_attention_plain(q[:, :1], pool, pool, table, lengths))
-    assert (flash_attention_cuda.launches, paged_attention_cuda.launches) == (f0, p0)
+    assert torch.equal(ops.decode_attention(q[:, :1], k, v, lengths),
+                       decode_attention_plain(q[:, :1], k, v, lengths))
+    r = q[:, :, :2]
+    w = torch.full_like(r, 0.9)
+    u = torch.zeros(2, 16)
+    for got, want in zip(ops.wkv6(r, r, r, w, u), wkv6_plain(r, r, r, w, u)):
+        assert torch.equal(got, want)
+    assert [c.launches for c in counters] == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -196,6 +346,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     table = torch.zeros(1, 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="not a CUDA device"):
         paged_attention_cuda(q[:, :1], q, q, table, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        decode_attention_cuda(q[:, :1], q, q, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        wkv6_cuda(q, q, q, q, torch.zeros(2, 16))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
