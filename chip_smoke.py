@@ -6,17 +6,23 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit, as nvidia-smi reports them.
-2. Build: the four CUDA kernels compiled by nvcc from ``src/repro_torch/csrc``,
-   one nvcc per source, all started together.
+2. Build: the five CUDA kernel sources compiled by nvcc from
+   ``src/repro_torch/csrc``, one nvcc per source, all started together.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
-   at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32) and at a
-   ragged GQA/window shape; paged decode at B=8, page 16 with shared pages,
+   at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32), at ragged
+   GQA/window shapes, at head widths 128 and 256 (MQA and GQA, ragged S, a
+   window shorter than S), and in fp32 at RecurrentGemma-9B's prefill shape
+   (B=4, S=3072, H=16 on Hk=1, D=256, window 2048); paged decode at B=8, page 16 with shared pages,
    a forked page, sentinel columns and one all-sentinel (retired) row;
    contiguous decode at B=8, H=Hk=16, D=64 with ragged lengths (0 and Smax
-   included) on a horizon view of a longer cache, and a GQA case; WKV6 at
-   H=40, D=64, T in {1, 37, 512} with RWKV6's own decay range and a carried
-   state, also held against the token-by-token oracle in fp32.
-4. Three main paths, each driven with every launch count set to 0 just
+   included) on a horizon view of a longer cache, a GQA case, and G=16 at
+   head widths 128 and 256 (a 2,048-slot ring among them); WKV6 at H=40,
+   D=64, T in {1, 37, 512} with RWKV6's own decay range and a carried state,
+   also held against the token-by-token oracle in fp32; the RG-LRU scan at
+   W=4096, T in {1, 37, 3072}, bf16 and fp32, with a carried state and
+   log-gates mild, strong (down to −20) and within 1e-6 of 0, the fp32 ones
+   also held against the token-by-token oracle.
+4. Four main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched and no plain version may see a CUDA tensor:
    a. paged serving: full-width Qwen1.5-0.5B in bf16, random weights from
@@ -26,12 +32,23 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``ServingEngine(paged=False)`` (flash prefill, contiguous decode);
    c. full-width RWKV6-3B in bf16, random weights: ``Model.prefill`` of 4
       prompts of 512 token ids, then 32 greedy ``decode_step``s (WKV6 at
-      every layer of every step, at least 32 × 33 launches).
-   Each kernel is then timed, and held against its plain version, on
-   inputs recorded from its path (the shapes the main path gives it).
+      every layer of every step, at least 32 × 33 launches);
+   d. full-width RecurrentGemma-9B in bf16 (38 layers, 10.445 B
+      parameters), random weights: ``Model.prefill`` of 4 prompts of 3,072
+      token ids into caches of max_len 4,096 (2,048-slot rings), then 32
+      greedy ``decode_step``s that write into the wrapped rings: exactly
+      26 × 33 RG-LRU, 12 flash and 12 × 32 decode-attention launches.
+   Paths c and d time prefill and the decode steps apart, then trace 8
+   more decode steps with torch.profiler for the card's busy time a step.
+   At head width 256 the bf16 phase-3 cases and the main-path entries are
+   held row by row: the error of each output row over the row's largest
+   plain value.  Each kernel is
+   then timed, and held against its plain version, on inputs recorded from
+   its path (the shapes the main path gives it).
 5. Parity in fp32, kernels against plain versions: both serving paths
-   (prefill logits within 1e-3, identical greedy streams) and RWKV6-3B
-   (prefill logits within 1e-3, identical greedy streams over 32 steps).
+   (prefill logits within 1e-3, identical greedy streams), RWKV6-3B and
+   RecurrentGemma-9B at full depth (prefill logits within 1e-3, identical
+   greedy streams over 32 steps).
 
 The line before the last is a JSON object with one entry per kernel (time,
 launches, bound, plain and library times); the last line is
@@ -42,6 +59,7 @@ repository's ``src/`` beside this file.
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +76,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
               torch.float32: 67e12}            # fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # as tests/test_kernels.py
 WKV_ORACLE_TOL = 2e-4          # chunked vs token-by-token fp32, as tests/test_kernels.py
+RGLRU_ORACLE_TOL = 1e-5        # kernel vs token-by-token fp32, as tests/test_kernels.py
 LOGIT_TOL = 1e-3
 SEED = 0
 DEVICE = "cuda:0"
@@ -66,6 +85,15 @@ DEVICE = "cuda:0"
 def check(cond, msg):
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def row_rel_err(got, want):
+    """Max over output rows (the last axis) of max|got − want| over the row's
+    max|want|, a zero row taken as 1e-6: each row is held on its own scale,
+    so rows that average thousands of values, far below one, are held as
+    tightly as the rest."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    return (d / want.float().abs().amax(-1).clamp(min=1e-6)).max().item()
 
 
 def timed_ms(fn, iters, flush):
@@ -145,6 +173,17 @@ def wkv6_work(r, state):
     return n_bytes, 5 * D * D * B * T * H
 
 
+def rglru_work(x, state):
+    """Bytes and operations one RG-LRU call needs: x read and h written in the
+    model dtype, a_log read in fp32, the fp32 state read (unless it starts at
+    zero, ``state`` None) and written; 8 operations per token and channel
+    (two exp, a sqrt, a max, a subtraction and the three of the update),
+    each counted as one fp32 operation."""
+    B, T, W = x.shape
+    n_state = B * W * (1 if state is None else 2)
+    return B * T * W * (2 * x.element_size() + 4) + 4 * n_state, 8 * B * T * W
+
+
 def horizon_view(t, max_len):
     """``t`` (B, S, ...) copied to the start of a (B, max_len, ...) buffer and
     returned as the view ``buf[:, :S]``: the strided layout the contiguous
@@ -184,24 +223,67 @@ def serving_engine(model, device, paged=True):
                          paged=paged, page_size=16, device=device)
 
 
-def rwkv_prompts(vocab, B=4, T=512):
-    """The RWKV6 phase's prompts: B rows of T token ids drawn from a numpy
-    seed over the vocab."""
-    rng = np.random.default_rng(SEED + 1)
+def random_prompts(vocab, B, T, seed):
+    """B rows of T token ids drawn from a numpy seed over the vocab."""
+    rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, vocab, (B, T)).astype(np.int32))
 
 
-def greedy_rwkv(model, tokens, steps=32):
+def greedy(model, tokens, steps=32, **prefill_kw):
     """Prefill ``tokens`` and take ``steps`` greedy ``decode_step``s on the
-    recurrent cache.  Returns (prefill logits, (B, steps + 1) token ids)."""
-    logits, cache = model.prefill(tokens)
+    model's own cache.  Returns (prefill logits, (B, steps + 1) token ids,
+    prefill seconds, decode seconds): host clock, each span ending in a
+    synchronize.  The tokens stay on the card and the decode logits'
+    finiteness is checked once after the loop, so no step waits on the
+    host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, **prefill_kw)
     first = logits
     out = [logits[:, 0].argmax(dim=-1).to(torch.int32)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    finite = torch.ones((), dtype=torch.bool, device=logits.device)
     for _ in range(steps):
         logits = model.decode_step(out[-1][:, None], cache)
-        check(bool(torch.isfinite(logits).all()), "RWKV6 decode logits are not finite")
+        finite &= torch.isfinite(logits).all()
         out.append(logits[:, 0].argmax(dim=-1).to(torch.int32))
-    return first, torch.stack(out, dim=1).cpu()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    check(bool(finite), f"{model.cfg.name}: decode logits are not finite")
+    return first, torch.stack(out, dim=1).cpu(), t1 - t0, decode_s
+
+
+def trace_decode(label, model, tokens, step_s, steps=8, **prefill_kw):
+    """Profile ``steps`` greedy decode steps after a prefill of ``tokens``:
+    the card's busy time a step from torch.profiler's CUDA activity (the self
+    device time of every kernel and copy on the card, summed; None when the
+    trace holds no device time) beside ``step_s``, the host clock's step
+    time of the untraced run, and the ten device entries that take most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, cache = model.prefill(tokens, **prefill_kw)
+    tok = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            tok = model.decode_step(tok, cache)[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+    rows = sorted(((e.key[:90], e.self_device_time_total / 1e3 / steps)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms in rows) or None
+    step_ms = 1e3 * step_s
+    busy = None if device_ms is None else device_ms / step_ms
+    print(f"[{label}] decode trace: device busy "
+          + ("not measured (no device time in the trace)" if device_ms is None else
+             f"{device_ms:.3f} ms a step of {step_ms:.3f} ms ({100 * busy:.1f}%)"))
+    for name, ms in rows[:10]:
+        print(f"[{label}]   {ms:.4f} ms a step: {name}")
+    return dict(device_ms_per_step=device_ms, step_ms=step_ms, busy_share=busy,
+                top=rows[:10])
 
 
 @contextlib.contextmanager
@@ -238,6 +320,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import rglru_scan as rglru_mod
     from repro_torch.kernels import rwkv6_scan as wkv6_mod
     from repro_torch.models.transformer import Model
 
@@ -245,13 +328,15 @@ def main() -> int:
     kern = {"flash_attention": (flash_mod, "flash_attention_cuda", "flash_attention_plain"),
             "paged_attention": (paged_mod, "paged_attention_cuda", "paged_attention_plain"),
             "decode_attention": (decode_mod, "decode_attention_cuda", "decode_attention_plain"),
-            "wkv6": (wkv6_mod, "wkv6_cuda", "wkv6_plain")}
+            "wkv6": (wkv6_mod, "wkv6_cuda", "wkv6_plain"),
+            "rglru_scan": (rglru_mod, "rglru_cuda", "rglru_plain")}
     kernel = {n: getattr(m, c) for n, (m, c, _) in kern.items()}
     plain = {n: getattr(m, p) for n, (m, _, p) in kern.items()}
     flash_kernel, flash_plain = kernel["flash_attention"], plain["flash_attention"]
     paged_kernel, paged_plain = kernel["paged_attention"], plain["paged_attention"]
     decode_kernel, decode_plain = kernel["decode_attention"], plain["decode_attention"]
     wkv6_kernel, wkv6_plain = kernel["wkv6"], plain["wkv6"]
+    rglru_kernel, rglru_plain = kernel["rglru_scan"], plain["rglru_scan"]
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False        # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -275,9 +360,16 @@ def main() -> int:
     for name in build.SOURCES:
         log = Path(f"{build.library_path(name)}.log")
         if log.exists():
+            entry = ""
             for line in log.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
+                m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)",
+                              line)
+                if m:
+                    entry = m[1]
+                elif "Used" in line or "spill" in line:
+                    line = line.replace("ptxas info    : ", "").strip()
+                    print(f"[build] {name}: {entry}: {line}")
+                    results.setdefault("ptxas", []).append(f"{entry}: {line}")
     results["build_s"] = build_s
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -295,20 +387,30 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(err <= TOL[dtype], f"flash {label}: max abs err {err:.3g} > {TOL[dtype]}")
+        rel = row_rel_err(got, want)
+        check(dtype != torch.bfloat16 or D < 128 or rel <= TOL[dtype],
+              f"flash {label}: row-relative err {rel:.3g} > {TOL[dtype]}")
         ms = timed_ms(lambda: flash_kernel(q, k, v, window=window), 20, flush)
         plain_ms = timed_ms(lambda: flash_plain(q, k, v, window=window), 5, flush)
         print(f"[kernels] flash {label} B={B} S={S} H={H} Hk={Hk} D={D} {str(dtype)[6:]} "
-              f"window={window}: max|err| {err:.3g} (tol {TOL[dtype]}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"window={window}: max|err| {err:.3g} (tol {TOL[dtype]}), row-relative "
+              f"{rel:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         results["cases"].append(dict(kernel="flash_attention", label=label, B=B, S=S, H=H,
                                      Hk=Hk, D=D, dtype=str(dtype), window=window,
-                                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                                     max_abs_err=err, row_rel_err=rel, ms=ms,
+                                     plain_ms=plain_ms))
 
     for S in (128, 512):
         for dtype in (torch.bfloat16, torch.float32):
             flash_case("qwen-heads", 8, S, 16, 16, 64, dtype)
     flash_case("ragged-gqa-window", 3, 77, 8, 2, 32, torch.float32, window=24)
     flash_case("ragged-mqa", 2, 45, 4, 1, 16, torch.bfloat16)
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_case("mqa-window-d256", 2, 301, 16, 1, 256, dtype, window=128)
+        flash_case("gqa-d128", 2, 177, 8, 2, 128, dtype)
+    flash_case("gqa3-window-d256", 1, 250, 12, 4, 256, torch.bfloat16, window=64)
+    flash_case("mha-window-d128", 1, 130, 4, 4, 128, torch.float32, window=100)
+    flash_case("rgemma-prefill-d256", 4, 3072, 16, 1, 256, torch.float32, window=2048)
 
     def paged_inputs(dtype, B=8, ps=16, H=16, Hk=16, D=64, max_len=512):
         """Pools and a table with a shared prefix of up to 8 pages (rows 0-3), a CoW
@@ -376,20 +478,28 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(err <= TOL[dtype], f"decode {label}: max abs err {err:.3g} > {TOL[dtype]}")
+        rel = row_rel_err(got, want)
+        check(dtype != torch.bfloat16 or D < 128 or rel <= TOL[dtype],
+              f"decode {label}: row-relative err {rel:.3g} > {TOL[dtype]}")
         check(bool(got[0].eq(0).all()), f"decode {label}: a length-0 row is not zero")
         ms = timed_ms(lambda: decode_kernel(q, k, v, lengths), 50, flush)
         plain_ms = timed_ms(lambda: decode_plain(q, k, v, lengths), 10, flush)
         print(f"[kernels] decode {label} B={B} S={S}/{max_len} H={H} Hk={Hk} D={D} "
-              f"{str(dtype)[6:]}: max|err| {err:.3g} (tol {TOL[dtype]}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"{str(dtype)[6:]}: max|err| {err:.3g} (tol {TOL[dtype]}), row-relative "
+              f"{rel:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         results["cases"].append(dict(kernel="decode_attention", label=label, B=B, S=S,
                                      max_len=max_len, H=H, Hk=Hk, D=D, dtype=str(dtype),
-                                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                                     max_abs_err=err, row_rel_err=rel, ms=ms,
+                                     plain_ms=plain_ms))
 
     for dtype in (torch.bfloat16, torch.float32):
         decode_case("qwen-heads-horizon", 8, 512, 16, 16, 64, dtype, 1024)
     decode_case("ragged-gqa", 3, 77, 8, 2, 32, torch.float32, 100)
     decode_case("gqa-split", 2, 70, 20, 2, 64, torch.bfloat16, 80)
+    for dtype in (torch.bfloat16, torch.float32):
+        decode_case("mqa-ring-d256", 4, 2048, 16, 1, 256, dtype, 2048)
+        decode_case("mqa-horizon-d128", 3, 300, 16, 1, 128, dtype, 400)
+    decode_case("gqa-d256", 2, 90, 32, 2, 256, torch.float32, 100)
 
     def wkv6_inputs(B, T, H, D, dtype):
         """r/k/v ~ N(0, 1), RWKV6's own decay range exp(−exp(U(−0.5, 0.5))),
@@ -400,7 +510,7 @@ def main() -> int:
         return r, k, v, torch.exp(-torch.exp(w_raw)), u, 0.3 * randn(B, H, D, D,
                                                                       dtype=torch.float32)
 
-    def wkv6_err(got, want):
+    def scaled_err(got, want):
         """Max |got − want| and whether it is within TOL·(1 + |want|): the
         outputs run to tens, so the dtype's tolerance is taken relative
         above one, as ``assert_allclose(atol=rtol=TOL)`` takes it."""
@@ -412,8 +522,8 @@ def main() -> int:
         out, st = wkv6_kernel(*args)
         out_p, st_p = wkv6_plain(*args)
         torch.cuda.synchronize()
-        err, rel = wkv6_err(out, out_p)
-        s_err, s_rel = wkv6_err(st, st_p)
+        err, rel = scaled_err(out, out_p)
+        s_err, s_rel = scaled_err(st, st_p)
         tol = TOL[dtype]
         check(rel <= tol and s_rel <= TOL[torch.float32],
               f"wkv6 T={T} {dtype}: kernel vs plain {err:.3g} (scaled {rel:.3g}), state "
@@ -422,8 +532,8 @@ def main() -> int:
                     scaled_err=rel, state_err=s_err, out_max=out_p.float().abs().max().item())
         if dtype == torch.float32:
             out_r, st_r = ref.wkv6_ref(*args)
-            o_err, o_rel = wkv6_err(out, out_r)
-            so_err, so_rel = wkv6_err(st, st_r)
+            o_err, o_rel = scaled_err(out, out_r)
+            so_err, so_rel = scaled_err(st, st_r)
             check(o_rel <= WKV_ORACLE_TOL and so_rel <= WKV_ORACLE_TOL,
                   f"wkv6 T={T}: kernel vs oracle {o_err:.3g}, state {so_err:.3g}")
             line.update(oracle_err=o_err, oracle_state_err=so_err)
@@ -439,6 +549,49 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             wkv6_case(4, T, 40, 64, dtype)
     wkv6_case(2, 45, 3, 16, torch.float32)
+
+    def rglru_inputs(B, T, W, dtype, gates):
+        """x ~ N(0, 1), a carried state ~ N(0, 1), and log-gates ``mild``
+        −|N(0, 0.5)|, ``strong`` U(−20, 0) or ``near0`` U(−1e-6, 0), where
+        1 − exp(2a) keeps only a few bits."""
+        x = randn(B, T, W, dtype=dtype)
+        u = torch.rand((B, T, W), generator=gen, device=dev)
+        a_log = {"mild": lambda: -(0.5 * torch.randn((B, T, W), generator=gen,
+                                                     device=dev)).abs(),
+                 "strong": lambda: -20.0 * u, "near0": lambda: -1e-6 * u}[gates]()
+        return x, a_log, randn(B, W, dtype=torch.float32)
+
+    def rglru_case(B, T, W, dtype, gates):
+        args = rglru_inputs(B, T, W, dtype, gates)
+        h, st = rglru_kernel(*args)
+        h_p, st_p = rglru_plain(*args)
+        torch.cuda.synchronize()
+        err, rel = scaled_err(h, h_p)
+        s_err, s_rel = scaled_err(st, st_p)
+        check(rel <= TOL[dtype] and s_rel <= TOL[torch.float32],
+              f"rglru T={T} {gates} {dtype}: kernel vs plain {err:.3g} (scaled {rel:.3g}), "
+              f"state {s_err:.3g} (scaled {s_rel:.3g})")
+        line = dict(kernel="rglru_scan", B=B, T=T, W=W, gates=gates, dtype=str(dtype),
+                    max_abs_err=err, scaled_err=rel, state_err=s_err)
+        if dtype == torch.float32:
+            h_r, st_r = ref.rglru_ref(*args)
+            o_err, o_rel = scaled_err(h, h_r)
+            so_err, so_rel = scaled_err(st, st_r)
+            check(o_rel <= RGLRU_ORACLE_TOL and so_rel <= RGLRU_ORACLE_TOL,
+                  f"rglru T={T} {gates}: kernel vs oracle {o_err:.3g}, state {so_err:.3g}")
+            line.update(oracle_err=o_err, oracle_state_err=so_err)
+        line["ms"] = timed_ms(lambda: rglru_kernel(*args), 20, flush)
+        line["plain_ms"] = timed_ms(lambda: rglru_plain(*args), 3, flush)
+        print(f"[kernels] rglru B={B} T={T} W={W} {gates} {str(dtype)[6:]}: max|err| "
+              f"{err:.3g} (scaled {rel:.3g}, tol {TOL[dtype]}), state {s_err:.3g}, oracle "
+              f"{line.get('oracle_err', '-')}, kernel {line['ms']:.4f} ms, plain "
+              f"{line['plain_ms']:.4f} ms")
+        results["cases"].append(line)
+
+    for T in (1, 37, 3072):
+        for dtype in (torch.bfloat16, torch.float32):
+            for gates in ("mild", "strong", "near0"):
+                rglru_case(4, T, 4096, dtype, gates)
 
     # ---- 4. the main paths -----------------------------------------------
     plain_on_cuda = {"n": 0}
@@ -521,13 +674,12 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[rwkv6] {rcfg.name}: {rmodel.param_count() / 1e9:.3f} B parameters in "
           f"{str(rmodel.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
-    prompts = rwkv_prompts(rcfg.vocab_size).to(dev)
+    prompts = random_prompts(rcfg.vocab_size, 4, 512, SEED + 1).to(dev)
     n_steps = 32
     with main_path("rwkv6", ("wkv6",)) as rwkv_counts, \
             recording(ops, "wkv6", {0, rcfg.n_layers}) as wkv6_calls:
-        t0 = time.perf_counter()
-        r_logits, r_streams = greedy_rwkv(rmodel, prompts, n_steps)
-        rwkv_s = time.perf_counter() - t0
+        r_logits, r_streams, r_prefill_s, r_decode_s = greedy(rmodel, prompts, n_steps)
+        rwkv_s = r_prefill_s + r_decode_s
     check(rwkv_counts["wkv6"] >= rcfg.n_layers * (n_steps + 1),
           f"rwkv6: {rwkv_counts['wkv6']} WKV6 launches < {rcfg.n_layers} x {n_steps + 1}")
     want_shape = (prompts.shape[0], 1, rmodel.vocab_padded)
@@ -535,11 +687,58 @@ def main() -> int:
           f"rwkv6: prefill logits {tuple(r_logits.shape)} not finite of {want_shape}")
     check(bool(((r_streams >= 0) & (r_streams < rcfg.vocab_size)).all()),
           "rwkv6: a token id out of the vocab")
-    print(f"[rwkv6] prefill 4x{prompts.shape[1]} + {n_steps} greedy steps in {rwkv_s:.3f}s "
-          f"({4 * n_steps / rwkv_s:.1f} decode tokens/s incl. prefill)")
-    results["rwkv6"] = dict(seconds=rwkv_s, launches=rwkv_counts, steps=n_steps,
-                            prompt_shape=list(prompts.shape))
+    print(f"[rwkv6] prefill 4x{prompts.shape[1]} in {r_prefill_s:.3f}s, {n_steps} greedy "
+          f"steps in {r_decode_s:.3f}s ({1e3 * r_decode_s / n_steps:.1f} ms a step); "
+          f"{rwkv_s:.3f}s in all")
+    r_trace = trace_decode("rwkv6", rmodel, prompts, r_decode_s / n_steps)
+    results["rwkv6"] = dict(seconds=rwkv_s, prefill_s=r_prefill_s, decode_s=r_decode_s,
+                            launches=rwkv_counts, steps=n_steps,
+                            prompt_shape=list(prompts.shape), decode_trace=r_trace)
     del rmodel
+    torch.cuda.empty_cache()
+
+    gcfg = get_arch("recurrentgemma-9b")
+    kinds = gcfg.layer_kinds()
+    n_rec, n_local = kinds.count("rglru"), kinds.count("local")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gmodel = Model(gcfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    g_params = gmodel.param_count()
+    print(f"[rgemma] {gcfg.name}: {g_params / 1e9:.3f} B parameters in "
+          f"{str(gmodel.dtype)[6:]} (the config's own estimate: "
+          f"{gcfg.param_count() / 1e9:.3f} B), init {time.perf_counter() - t0:.1f}s")
+    g_prompts = random_prompts(gcfg.vocab_size, 4, 3072, SEED + 2).to(dev)
+    g_max_len = 4096
+    with main_path("recurrentgemma", ("rglru_scan", "flash_attention", "decode_attention")) \
+            as g_counts, \
+            recording(ops, "rglru_scan", {0, n_rec}) as rglru_calls, \
+            recording(ops, "flash_attention", {0}) as g_flash_calls, \
+            recording(ops, "decode_attention", {0}) as g_decode_calls:
+        g_logits, g_streams, g_prefill_s, g_decode_s = greedy(gmodel, g_prompts, n_steps,
+                                                              max_len=g_max_len)
+    want_counts = {"rglru_scan": n_rec * (n_steps + 1), "flash_attention": n_local,
+                   "decode_attention": n_local * n_steps}
+    check(all(g_counts[n] == c for n, c in want_counts.items()),
+          f"recurrentgemma: launches {g_counts}, expected {want_counts}")
+    want_shape = (g_prompts.shape[0], 1, gmodel.vocab_padded)
+    check(tuple(g_logits.shape) == want_shape and bool(torch.isfinite(g_logits).all()),
+          f"recurrentgemma: prefill logits {tuple(g_logits.shape)} not finite of {want_shape}")
+    check(bool(((g_streams >= 0) & (g_streams < gcfg.vocab_size)).all()),
+          "recurrentgemma: a token id out of the vocab")
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[rgemma] prefill 4x{g_prompts.shape[1]} (max_len {g_max_len}, ring "
+          f"{min(gcfg.window, g_max_len)}) in {g_prefill_s:.3f}s, {n_steps} greedy steps in "
+          f"{g_decode_s:.3f}s ({1e3 * g_decode_s / n_steps:.1f} ms a step); peak memory "
+          f"{g_peak:.1f} GiB")
+    g_trace = trace_decode("rgemma", gmodel, g_prompts, g_decode_s / n_steps,
+                           max_len=g_max_len)
+    results["recurrentgemma"] = dict(params=g_params, config_param_estimate=gcfg.param_count(),
+                                     prefill_s=g_prefill_s, decode_s=g_decode_s,
+                                     launches=g_counts, steps=n_steps, max_len=g_max_len,
+                                     prompt_shape=list(g_prompts.shape), peak_gib=g_peak,
+                                     decode_trace=g_trace)
+    del gmodel
     torch.cuda.empty_cache()
 
     # the kernels on the inputs the main paths gave them
@@ -605,8 +804,8 @@ def main() -> int:
         wargs, _ = wkv6_calls[idx]
         w_out, w_st = wkv6_kernel(*wargs)
         w_out_p, w_st_p = wkv6_plain(*wargs)
-        w_err, w_rel = wkv6_err(w_out, w_out_p)
-        w_serr, w_srel = wkv6_err(w_st, w_st_p)
+        w_err, w_rel = scaled_err(w_out, w_out_p)
+        w_serr, w_srel = scaled_err(w_st, w_st_p)
         check(w_rel <= TOL[wargs[0].dtype] and w_srel <= TOL[torch.float32],
               f"wkv6 on main-path {label} inputs: {w_err:.3g} (scaled {w_rel:.3g}), state "
               f"{w_serr:.3g}")
@@ -627,14 +826,96 @@ def main() -> int:
         plain_ms=wp["plain_ms"],
         bound_ms=wp["bound_ms"], bound_by=wp["bound_by"], library_ms=None,
         shape=wp["shape"], decode_step=wkv6_extra["decode"]))
+    rglru_extra = {}
+    for idx, label in ((n_rec, "decode"), (0, "prefill")):
+        gargs, _ = rglru_calls[idx]
+        g_out, g_st = rglru_kernel(*gargs)
+        g_out_p, g_st_p = rglru_plain(*gargs)
+        g_err, g_rel = scaled_err(g_out, g_out_p)
+        g_serr, g_srel = scaled_err(g_st, g_st_p)
+        check(g_rel <= TOL[gargs[0].dtype] and g_srel <= TOL[torch.float32],
+              f"rglru on main-path {label} inputs: {g_err:.3g} (scaled {g_rel:.3g}), state "
+              f"{g_serr:.3g}")
+        g_bound, g_by = bound_ms(*rglru_work(gargs[0], gargs[2]), torch.float32)
+        rglru_extra[label] = dict(
+            max_abs_err=g_err, scaled_err=g_rel, state_err=g_serr, atol=TOL[gargs[0].dtype],
+            rtol=TOL[gargs[0].dtype],
+            ms=timed_ms(lambda: rglru_kernel(*gargs), 20, flush),
+            plain_ms=timed_ms(lambda: rglru_plain(*gargs), 3 if label == "prefill" else 10,
+                              flush),
+            bound_ms=g_bound, bound_by=g_by,
+            shape=dict(x=list(gargs[0].shape), dtype=str(gargs[0].dtype),
+                       state=gargs[2] is not None))
+    gp = rglru_extra["prefill"]
+    entries.append(dict(
+        name="rglru_scan", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:69", launches=g_counts["rglru_scan"],
+        max_abs_err=gp["max_abs_err"], atol=gp["atol"], rtol=gp["rtol"], ms=gp["ms"],
+        plain_ms=gp["plain_ms"], bound_ms=gp["bound_ms"], bound_by=gp["bound_by"],
+        library_ms=None, shape=gp["shape"], decode_step=rglru_extra["decode"]))
+    (gq, gk, gv), gkw = g_flash_calls[0]
+    gkw = {"causal": gkw.get("causal", True), "window": gkw.get("window")}
+    check(gkw["window"] == gcfg.window, f"recurrentgemma flash saw window {gkw['window']}")
+    gf_out, gf_want = flash_kernel(gq, gk, gv, **gkw), flash_plain(gq, gk, gv, **gkw)
+    gf_err = (gf_out.float() - gf_want.float()).abs().max().item()
+    gf_rel = row_rel_err(gf_out, gf_want)
+    check(gf_rel <= TOL[gq.dtype], f"flash d256 on main-path inputs: max abs err {gf_err:.3g}, "
+          f"row-relative {gf_rel:.3g} > {TOL[gq.dtype]}")
+    gf_max = gf_want.float().abs().max().item()
+    del gf_out, gf_want
+    G = gq.shape[2] // gk.shape[2]
+    gqt = gq.transpose(1, 2).contiguous()
+    gkt, gvt = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() for x in (gk, gv))
+    pos = torch.arange(gq.shape[1], device=dev)
+    win_mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - gkw["window"])
+    gf_bound, gf_by = bound_ms(*flash_work(gq, gk, gkw["window"]), gq.dtype)
+    entries.append(dict(
+        name="flash_attention_d256", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:124",
+        launches=g_counts["flash_attention"], max_abs_err=gf_err, atol=0.0,
+        rtol=TOL[gq.dtype], scale="row", row_rel_err=gf_rel, out_max=gf_max,
+        ms=timed_ms(lambda: flash_kernel(gq, gk, gv, **gkw), 10, flush),
+        plain_ms=timed_ms(lambda: flash_plain(gq, gk, gv, **gkw), 3, flush),
+        bound_ms=gf_bound, bound_by=gf_by,
+        library_ms=timed_ms(lambda: sdpa(gqt, gkt, gvt, attn_mask=win_mask), 10, flush),
+        shape=dict(q=list(gq.shape), k=list(gk.shape), window=gkw["window"],
+                   dtype=str(gq.dtype))))
+    del gqt, gkt, gvt
+    (eq, ek, ev, elen), _ = g_decode_calls[0]
+    ge_out, ge_want = decode_kernel(eq, ek, ev, elen), decode_plain(eq, ek, ev, elen)
+    ge_err = (ge_out.float() - ge_want.float()).abs().max().item()
+    ge_rel = row_rel_err(ge_out, ge_want)
+    check(ge_rel <= TOL[eq.dtype], f"decode d256 on main-path inputs: max abs err "
+          f"{ge_err:.3g}, row-relative {ge_rel:.3g} > {TOL[eq.dtype]}")
+    ge_max = ge_want.float().abs().max().item()
+    G = eq.shape[2] // ek.shape[2]
+    eqt = eq.transpose(1, 2).contiguous()
+    ekt, evt = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous() for x in (ek, ev))
+    emask = (torch.arange(ek.shape[1], device=dev)[None, :] < elen[:, None])[:, None, None, :]
+    ge_bound, ge_by = bound_ms(*decode_work(eq, ek, elen), eq.dtype)
+    entries.append(dict(
+        name="decode_attention_d256", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:83",
+        launches=g_counts["decode_attention"], max_abs_err=ge_err, atol=0.0,
+        rtol=TOL[eq.dtype], scale="row", row_rel_err=ge_rel, out_max=ge_max,
+        ms=timed_ms(lambda: decode_kernel(eq, ek, ev, elen), 50, flush),
+        plain_ms=timed_ms(lambda: decode_plain(eq, ek, ev, elen), 10, flush),
+        bound_ms=ge_bound, bound_by=ge_by,
+        library_ms=timed_ms(lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50, flush),
+        shape=dict(q=list(eq.shape), k=list(ek.shape), lengths=elen.tolist(),
+                   dtype=str(eq.dtype))))
     for e in entries:
         print(f"[main-path] {e['name']} {e['shape']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} "
               f"ms by {e['bound_by']}), plain {e['plain_ms']:.4f} ms, library {e['library_ms']}, "
-              f"max|err| {e['max_abs_err']:.3g}, {e['launches']} launches")
-    wd = wkv6_extra["decode"]
-    print(f"[main-path] wkv6 decode step {wd['shape']}: {wd['ms']:.4f} ms (bound "
-          f"{wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain {wd['plain_ms']:.4f} ms, "
-          f"max|err| {wd['max_abs_err']:.3g}")
+              f"max|err| {e['max_abs_err']:.3g}"
+              + (f" (row-relative {e['row_rel_err']:.3g}, max|plain| {e['out_max']:.3g})"
+                 if "row_rel_err" in e else "") + f", {e['launches']} launches")
+    for name, wd in (("wkv6", wkv6_extra["decode"]), ("rglru", rglru_extra["decode"])):
+        print(f"[main-path] {name} decode step {wd['shape']}: {wd['ms']:.4f} ms (bound "
+              f"{wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain {wd['plain_ms']:.4f} ms, "
+              f"max|err| {wd['max_abs_err']:.3g}")
 
     # ---- 5. parity in fp32: kernels vs plain versions ---------------------
     @contextlib.contextmanager
@@ -696,19 +977,33 @@ def main() -> int:
         torch.Generator(device=dev).manual_seed(SEED))
 
     def rwkv_fp32():
-        logits, streams = greedy_rwkv(rmodel32, prompts, n_steps)
+        logits, streams, _, _ = greedy(rmodel32, prompts, n_steps)
         return logits, streams.tolist()
 
     parity("rwkv6", rwkv_fp32)
     del rmodel32
+    torch.cuda.empty_cache()
+    gmodel32 = Model(dataclasses.replace(gcfg, dtype="float32"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+
+    def rgemma_fp32():
+        logits, streams, _, _ = greedy(gmodel32, g_prompts, n_steps, max_len=g_max_len)
+        return logits, streams.tolist()
+
+    parity("recurrentgemma", rgemma_fp32)
+    del gmodel32
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     results["kernels"] = entries
     (out_dir / "chip_smoke_results.json").write_text(json.dumps(results, indent=1))
-    # |kernel − plain| ≤ atol + rtol·|plain| is the check each entry passed
+    # |kernel − plain| ≤ atol + rtol·|plain| is the check each entry passed, with
+    # |plain| taken element by element, or (scale "row") as the max of the
+    # output row (the last axis) the element lies in
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "atol", "rtol",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "scale", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for e in entries:
+        e.setdefault("scale", "element")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ A copy of the JAX package's ``config.py`` (no import of it): ``ModelConfig``
 and the architecture registry are unchanged, so a config built here and one
 built there describe the same model field for field.  Architecture modules
 under ``repro_torch.configs`` register the configs served so far
-(``qwen1.5-0.5b``, ``rwkv6-3b`` and the tiny pool); the other published configs are not
-ported yet and ``get_arch`` names them as unknown.
+(``qwen1.5-0.5b``, ``rwkv6-3b``, ``recurrentgemma-9b`` and the tiny pool);
+the other published configs are not ported yet and ``get_arch`` names them
+as unknown.
 """
 from __future__ import annotations
 
@@ -224,6 +225,7 @@ _REGISTRY: dict[str, ModelConfig] = {}
 # The published configs ported so far; the rest of the JAX package's zoo
 # arrives with the model families that serve it.
 ARCH_IDS = [
+    "recurrentgemma-9b",
     "rwkv6-3b",
     "qwen1.5-0.5b",
 ]

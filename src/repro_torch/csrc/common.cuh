@@ -60,3 +60,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
+
+// 16-byte asynchronous copy from global to shared memory (cp.async, sm_80
+// and later); with src_bytes = 0 nothing is read and the 16 bytes are
+// zero-filled.  Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// Wait until every cp.async this thread issued has landed (the block still
+// needs a __syncthreads before reading what other threads copied).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}

@@ -25,6 +25,27 @@
 //    query tile are never loaded (the TPU kernel's pl.when skip).
 //  * The layout is the JAX one, (B, S, H, D), strided directly: no transposes.
 //  * GQA: head h reads KV head h / (H / Hk).
+//
+// Wide heads (D = 128, 256) take a second design, flash_wide_kernel below:
+// one query row's q and fp32 accumulator in registers would need 2·D
+// registers a thread (512 at D = 256, against the limit of 255), and fp32
+// K/V tiles of 64 keys 128 KB of static shared memory (limit 48 KB).
+//  * A block takes a tile of M = 64 (position, head) rows: BQP = 64 / GH
+//    query positions times GH query heads of one KV head (GH = G when G
+//    divides 64; under MQA with H = 16, 4 positions × 16 heads), so each
+//    K/V tile it loads serves every head of the group.
+//  * Its 256 threads form a 16 × 16 grid: thread (ty, tx) owns rows
+//    4·ty .. 4·ty + 3, scores those rows against keys tx and tx + 16 of
+//    the tile, and accumulates output columns (tx + 16·j)·VEC .. + VEC.
+//    The accumulator is split over the 16 threads of a row (64 floats a
+//    thread at D = 256), and a row's max and sum are reduced across them
+//    with shuffles; q sits in shared memory in fp32.
+//  * K and V tiles of BK = 32 keys are staged in the input dtype in dynamic
+//    shared memory by cp.async (16 bytes a copy, rows past S zero-filled),
+//    each row padded by 16 bytes so the 16 keys a phase reads fall in
+//    distinct banks; the probabilities go through shared memory to the
+//    P·V product.
+//  * The causal and window skip of KV tiles is the same as above.
 #include "common.cuh"
 
 namespace {
@@ -167,6 +188,209 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---- wide heads: D = 128, 256 ------------------------------------------
+constexpr int WNT = 256;          // threads per block, a 16 x 16 grid
+constexpr int WTX = 16;           // threads sharing a row
+constexpr int WM = 64;            // (position, head) rows per block
+constexpr int WRPT = WM / (WNT / WTX);  // rows per thread
+constexpr int WBK = 32;           // keys per tile
+constexpr int WKPT = WBK / WTX;   // keys per thread
+
+template <typename T, int D>
+constexpr size_t wide_smem_bytes() {
+  // q (WM x D fp32), K and V tiles (WBK x (D + VEC) of T), P (WM x WBK fp32)
+  return sizeof(float) * WM * D + 2 * sizeof(T) * WBK * (D + Vec<T>::N) +
+         sizeof(float) * WM * WBK;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(WNT)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ o, int S, int H, int Hk, int GH, int causal, int window,
+                  float scale) {
+  constexpr int VEC = Vec<T>::N;      // elements per 16-byte copy
+  constexpr int VPR = D / VEC;        // 16-byte vectors per row
+  constexpr int KS = D + VEC;         // padded K/V row stride, elements
+  constexpr int CPT = D / WTX;        // output columns per thread
+  constexpr int NCH = CPT / VEC;      // 16-byte column chunks per thread
+  static_assert(CPT % VEC == 0, "a thread's columns must be whole 16-byte chunks");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);                       // WM x D
+  T* ks = reinterpret_cast<T*>(qs + WM * D);                        // WBK x KS
+  T* vs = ks + WBK * KS;                                            // WBK x KS
+  float* ps = reinterpret_cast<float*>(vs + WBK * KS);              // WM x WBK
+
+  const int tid = threadIdx.x;
+  const int tx = tid % WTX;
+  const int ty = tid / WTX;
+  const int bqp = WM / GH;                      // query positions per block
+  const int q0 = blockIdx.x * bqp;
+  const int h0 = blockIdx.y * GH;               // first query head of the group
+  const int b = blockIdx.z;
+  const int G = H / Hk;
+  const int hk = h0 / G;
+
+  // stage the q rows, widened to fp32; row r is (position q0 + r / GH,
+  // head h0 + r % GH), so a position's GH heads are adjacent in memory
+  for (int i = tid; i < WM * VPR; i += WNT) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * VEC;
+    const int pos = q0 + r / GH;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (pos < S) raw = load_vec(q + ((size_t)(b * S + pos) * H + h0 + r % GH) * D + c);
+    store_widened(qs + r * D + c, raw, T());
+  }
+
+  int pos_r[WRPT];
+  float m[WRPT], l[WRPT], acc[WRPT][CPT];
+#pragma unroll
+  for (int i = 0; i < WRPT; ++i) {
+    pos_r[i] = q0 + (ty * WRPT + i) / GH;
+    m[i] = REPRO_NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
+
+  // KV tiles some row of this block can see
+  const int q_last = min(q0 + bqp, S) - 1;
+  const int n_tiles = (S + WBK - 1) / WBK;
+  const int hi = causal ? min(n_tiles, q_last / WBK + 1) : n_tiles;
+  int lo = 0;
+  if (window > 0) {
+    const int first = q0 - window + 1;  // earliest key position q0 sees
+    lo = first > 0 ? first / WBK : 0;
+  }
+  const size_t row_stride = (size_t)Hk * D;
+  const T* kb = k + (size_t)b * S * row_stride + (size_t)hk * D;
+  const T* vb = v + (size_t)b * S * row_stride + (size_t)hk * D;
+
+  for (int j = lo; j < hi; ++j) {
+    const int k0 = j * WBK;
+    __syncthreads();  // every thread is done with the previous tile and its P
+    for (int i = tid; i < WBK * VPR; i += WNT) {
+      const int kr = i / VPR;
+      const int c = (i % VPR) * VEC;
+      const int kp = k0 + kr;
+      const size_t off = (size_t)(kp < S ? kp : 0) * row_stride + c;
+      const int n = kp < S ? 16 : 0;
+      cp_async16(ks + kr * KS + c, kb + off, n);
+      cp_async16(vs + kr * KS + c, vb + off, n);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // scores of this thread's rows against keys tx and tx + 16
+    float s[WRPT][WKPT];
+#pragma unroll
+    for (int i = 0; i < WRPT; ++i)
+#pragma unroll
+      for (int jj = 0; jj < WKPT; ++jj) s[i][jj] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += VEC) {
+      float kf[WKPT][VEC];
+#pragma unroll
+      for (int jj = 0; jj < WKPT; ++jj)
+        store_widened(kf[jj], load_vec(ks + (tx + WTX * jj) * KS + d), T());
+#pragma unroll
+      for (int i = 0; i < WRPT; ++i) {
+        const float* qr = qs + (ty * WRPT + i) * D + d;
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qr + e);
+#pragma unroll
+          for (int jj = 0; jj < WKPT; ++jj)
+            s[i][jj] += qq.x * kf[jj][e] + qq.y * kf[jj][e + 1] + qq.z * kf[jj][e + 2] +
+                        qq.w * kf[jj][e + 3];
+        }
+      }
+    }
+
+    // online softmax, one row's statistics reduced over its 16 threads
+#pragma unroll
+    for (int i = 0; i < WRPT; ++i) {
+      const int pos = pos_r[i];
+      bool ok[WKPT];
+      float m_tile = REPRO_NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < WKPT; ++jj) {
+        const int kp = k0 + tx + WTX * jj;
+        ok[jj] = kp < S && (!causal || kp <= pos) && (window <= 0 || kp > pos - window);
+        s[i][jj] = ok[jj] ? s[i][jj] * scale : REPRO_NEG_INF;
+        m_tile = fmaxf(m_tile, s[i][jj]);
+      }
+#pragma unroll
+      for (int off = WTX / 2; off > 0; off >>= 1)
+        m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, off));
+      const float m_new = fmaxf(m[i], m_tile);
+      const float corr = expf(m[i] - m_new);
+      float p_sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < WKPT; ++jj) {
+        const float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
+        ps[(ty * WRPT + i) * WBK + tx + WTX * jj] = p;
+        p_sum += p;
+      }
+#pragma unroll
+      for (int off = WTX / 2; off > 0; off >>= 1)
+        p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
+      l[i] = l[i] * corr + p_sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();  // P of every row is in shared memory
+
+    const int n_keys = min(WBK, S - k0);
+    for (int kk = 0; kk < n_keys; ++kk) {
+      float vf[NCH][VEC];
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+        store_widened(vf[ch], load_vec(vs + kk * KS + (tx + WTX * ch) * VEC), T());
+#pragma unroll
+      for (int i = 0; i < WRPT; ++i) {
+        const float p = ps[(ty * WRPT + i) * WBK + kk];
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[i][ch * VEC + e] += p * vf[ch][e];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < WRPT; ++i) {
+    const int pos = pos_r[i];
+    if (pos < S) {
+      const int r = ty * WRPT + i;
+      const float inv = 1.f / fmaxf(l[i], 1e-30f);
+      T* op = o + ((size_t)(b * S + pos) * H + h0 + r % GH) * D;
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          op[(tx + WTX * ch) * VEC + e] = from_float<T>(acc[i][ch * VEC + e] * inv);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                int Hk, int causal, int window, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes<T, D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = H / Hk;
+  const int GH = WM % G == 0 ? G : 1;  // query heads of one KV head per block
+  const int bqp = WM / GH;
+  const dim3 grid((S + bqp - 1) / bqp, H / GH, B);
+  flash_wide_kernel<T, D><<<grid, WNT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), S, H, Hk, GH, causal, window, (float)(1.0 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hk,
            int causal, int window, cudaStream_t stream) {
@@ -184,6 +408,8 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S,
     case 16: return launch<T, 16>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 128: return launch_wide<T, 128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 256: return launch_wide<T, 256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,2 +1,3 @@
-"""Attention kernels of the port: hand-written CUDA for the card, each with a
-plain PyTorch version beside it (see ``ops`` for the dispatch)."""
+"""Kernels of the port (attention and the RWKV6 and RG-LRU recurrences):
+hand-written CUDA for the card, each with a plain PyTorch version beside it
+(see ``ops`` for the dispatch)."""

@@ -6,7 +6,11 @@ the JAX package's ``decode_attention_pallas``: one query token per row
 against a ``(B, Smax, Hk, D)`` cache, keys ``< lengths[b]`` visible.  The
 kernel takes the cache's batch and sequence strides, so a horizon slice
 ``cache[:, :horizon]`` of a longer buffer is read in place, never copied.
-``decode_attention_plain`` is the same function in plain PyTorch, shaped
+At head widths 128 and 256 the kernel splits the sequence into pieces of
+``SPLIT_LEN`` positions, one block each, and merges the pieces' partial
+softmaxes in a second launch ("flash-decoding"); the wrapper allocates
+their fp32 scratch.  ``decode_attention_plain`` is the same function in
+plain PyTorch, shaped
 like the JAX package's ``ops._decode_jnp``: the CPU path and the reference
 the kernel is held against on the card.
 """
@@ -21,7 +25,9 @@ from repro_torch.kernels import build
 
 __all__ = ["decode_attention_cuda", "decode_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64)                  # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's compiled head widths
+SPLIT_DIMS = (128, 256)                   # widths that split the sequence over blocks
+SPLIT_LEN = 64                            # positions per block there
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,6 +63,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        split = lib.repro_decode_attention_split
+        split.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                          + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        split.restype = ctypes.c_int
     return lib
 
 
@@ -109,9 +119,18 @@ def decode_attention_cuda(q, k, v, lengths):
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.repro_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     lengths.data_ptr(), out.data_ptr(), B, H, Hk, D, S,
-                                     _DTYPE_CODE[q.dtype], bs, ss, stream)
+    if D in SPLIT_DIMS:
+        n_split = max(1, -(-S // SPLIT_LEN))
+        part_acc = torch.empty((B, H, n_split, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=q.device)
+        err = lib.repro_decode_attention_split(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), B, H, Hk, D, S, _DTYPE_CODE[q.dtype],
+            bs, ss, n_split, stream)
+    else:
+        err = lib.repro_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         lengths.data_ptr(), out.data_ptr(), B, H, Hk, D, S,
+                                         _DTYPE_CODE[q.dtype], bs, ss, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_cuda: launch failed with CUDA error {err}")
     decode_attention_cuda.launches += 1

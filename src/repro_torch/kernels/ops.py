@@ -12,9 +12,10 @@ from typing import Optional
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rwkv6_scan as _wkv6
 
-__all__ = ["flash_attention", "decode_attention", "paged_attention", "wkv6"]
+__all__ = ["flash_attention", "decode_attention", "paged_attention", "wkv6", "rglru_scan"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -55,3 +56,12 @@ def wkv6(r, k, v, w, u, state=None):
     if r.device.type == "cpu":
         return _wkv6.wkv6_plain(r, k, v, w, u, state)
     return _wkv6.wkv6_cuda(r, k, v, w, u, state)
+
+
+def rglru_scan(x, a_log, state=None):
+    """RG-LRU recurrence.  x: (B, T, W) in the model dtype; a_log: (B, T, W)
+    float32 log-gates ≤ 0; state: (B, W) float32 or None.  Returns ``(h in
+    x's dtype, final state float32)``."""
+    if x.device.type == "cpu":
+        return _rglru.rglru_plain(x, a_log, state)
+    return _rglru.rglru_cuda(x, a_log, state)

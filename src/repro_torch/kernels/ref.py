@@ -12,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["mha_ref", "decode_attention_ref", "wkv6_ref"]
+__all__ = ["mha_ref", "decode_attention_ref", "wkv6_ref", "rglru_ref"]
 
 
 def _expand_kv(x, groups: int):
@@ -78,3 +78,26 @@ def wkv6_ref(r, k, v, w, u, state=None):
         outs.append(torch.einsum("bhd,bhde->bhe", r[:, t], S + u[None, :, :, None] * kv))
         S = w[:, t, :, :, None] * S + kv
     return torch.stack(outs, dim=1), S
+
+
+def rglru_ref(x, a_log, state=None):
+    """Diagonal gated linear recurrence (RG-LRU core), token by token (exact
+    oracle).
+
+    x: (B, T, W) pre-gated inputs; a_log: (B, T, W) log recurrence gates ≤ 0;
+    state: (B, W) or None (zeros).
+      h_t = exp(a_log_t) · h_{t-1} + sqrt(max(1 − exp(2·a_log_t), 1e-12)) · x_t
+    Returns (h (B, T, W) in x's dtype, final state (B, W) fp32).
+    """
+    B, T, W = x.shape
+    h = (torch.zeros((B, W), dtype=torch.float32, device=x.device) if state is None
+         else state.float())
+    x32, al = x.float(), a_log.float()
+    hs = []
+    for t in range(T):
+        a = torch.exp(al[:, t])
+        e2 = torch.exp(2.0 * al[:, t].double()).float()       # correctly rounded, as
+        gated = torch.sqrt(torch.clamp_min(1.0 - e2, 1e-12)) * x32[:, t]   # rglru_plain
+        h = a * h + gated
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype), h

@@ -1,1 +1,2 @@
-"""Dense decoder of the port: layers, SwiGLU MLP, attention and the model."""
+"""Models of the port: layers, gated MLPs, attention, the RWKV6 and RG-LRU
+blocks, the decoder and the weight bridge."""

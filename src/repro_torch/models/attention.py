@@ -1,12 +1,14 @@
 """Attention block of the port: GQA with RoPE and optional QKV bias, the
-full-sequence (prefill) path and the single-token decode path over a paged
-or a contiguous KV cache.
+full-sequence (prefill) path with an optional sliding window, and the
+single-token decode path over a paged, a contiguous or a ring KV cache.
 
 Counterpart of the JAX package's ``models/attention.py`` (``attention_full``
-and the paged and contiguous branches of ``attention_decode``).  Prefill
-attention goes through ``ops.flash_attention``, decode through
+and the paged, contiguous and ring branches of ``attention_decode``).
+Prefill attention goes through ``ops.flash_attention``, decode through
 ``ops.paged_attention`` or ``ops.decode_attention``; on the card all three
-are the hand-written CUDA kernels.
+are the hand-written CUDA kernels.  A sliding-window layer keeps a ring
+buffer of its last ``S_buf`` keys: keys are RoPE-rotated at write time, so
+the order of the ring's slots does not matter.
 """
 from __future__ import annotations
 
@@ -41,17 +43,18 @@ def _heads(x, n: int, hd: int):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def attention_full(p: Attention, cfg: ModelConfig, x, rope, *,
+def attention_full(p: Attention, cfg: ModelConfig, x, rope, *, window=None,
                    shard: ShardingConfig = ShardingConfig()):
     """Causal full-sequence attention.  x: (B, S, d); rope: the RoPE tables
-    of positions (B, S) (``layers.rope_tables``), or None.  Returns
+    of positions (B, S) (``layers.rope_tables``), or None; ``window``: query
+    i sees keys (i − window, i], or all earlier keys when None.  Returns
     (out, (k, v)) — the rotated K/V so prefill can fill the cache."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = apply_rope(_heads(p.q(x), H, hd), rope)
     k = apply_rope(_heads(p.k(x), Hk, hd), rope)
     v = _heads(p.v(x), Hk, hd)
-    out = ops.flash_attention(q, k, v, causal=True,
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
                               q_block=shard.attn_q_block, kv_block=shard.attn_kv_block,
                               causal_skip=shard.causal_skip)
     return p.o(out.reshape(B, S, H * hd)), (k, v)
@@ -82,11 +85,16 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, t
     ``pos >= S_buf`` (a retired slot's garbage stream running past the
     horizon) is dropped by JAX's scatter and would raise in PyTorch; here
     such a row writes back the value its clamped index already holds, which
-    leaves the cache as it was.  Ring buffers (``window``) come with the
-    hybrid family and raise ``NotImplementedError``.
+    leaves the cache as it was.
+
+    Ring (``window`` given, ``table=None``): k_cache/v_cache are this layer's
+    ``(B, S_buf, Hk, hd)`` ring, ``S_buf = min(window, max_len)``.  Row b
+    writes at slot ``pos[b] % S_buf`` and attends the ``min(pos[b] + 1,
+    S_buf)`` filled slots.  The paged branch refuses a window
+    (``ValueError``), as the JAX package asserts.
     """
-    if window is not None:
-        raise NotImplementedError("sliding-window (ring) KV caches are not ported yet")
+    if window is not None and table is not None:
+        raise ValueError("paged KV cache supports global attention only, not a sliding window")
     B = x.shape[0]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = apply_rope(_heads(p.q(x), H, hd), rope)
@@ -103,6 +111,12 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, t
         k_cache[phys, pos64 % ps] = k_new
         v_cache[phys, pos64 % ps] = v_new
         out = ops.paged_attention(q, k_cache[:P], v_cache[:P], table, pos + 1)
+    elif window is not None:
+        S_buf = k_cache.shape[1]
+        at = pos64 % S_buf
+        k_cache[rows, at] = k_new
+        v_cache[rows, at] = v_new
+        out = ops.decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S_buf))
     else:
         S_buf = k_cache.shape[1]
         inside = (pos64 < S_buf)[:, None, None]

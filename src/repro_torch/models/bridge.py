@@ -5,16 +5,22 @@ Input is the JAX ``Model.init`` tree as numpy arrays
 tree paths, or a ``save_pytree`` ``arrays.npz`` (see :func:`load_npz`) — no
 JAX is needed to read any of them.  The mapping:
 
-* ``blocks/b0/<leaf>`` leaves are layer-stacked (axis 0 = layer, the scan
-  axis of the JAX model) and are unstacked into ``blocks.<i>.<leaf>`` —
-  attention blocks' ``attn.*``/``mlp.*`` and RWKV6 blocks' ``tm.*``/``cm.*``
-  alike (``tm.mix_b`` keeps its (5, rank, d) and ``tm.u`` its (H, hd));
+* ``blocks/b<s>/<leaf>`` leaves are stacked over the ``n_groups = n_layers //
+  P`` repeats of the block pattern (P = ``len(block_pattern)``; axis 0 is the
+  scan axis of the JAX model): group g's slice goes to layer ``g·P + s`` as
+  ``blocks.<i>.<leaf>`` — attention blocks' ``attn.*``/``mlp.*``, RWKV6
+  blocks' ``tm.*``/``cm.*`` (``tm.mix_b`` keeps its (5, rank, d) and
+  ``tm.u`` its (H, hd)) and RG-LRU blocks' ``rec.*`` alike;
+* ``rem<j>/<leaf>`` leaves are the unrolled tail that the pattern does not
+  divide (RecurrentGemma-9B's 38 = 12·3 + 2): layer ``n_groups·P + j``;
 * every other leaf keeps its path with ``/`` turned into ``.``;
 * weights keep the ``(d_in, d_out)`` layout of ``apply_dense`` — the port
   applies ``x @ w`` — so no leaf is transposed; ``embed`` and ``lm_head``
   carry the vocab padded to a multiple of 32, as there.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -23,7 +29,8 @@ from repro_torch.config import ModelConfig
 
 __all__ = ["flatten_tree", "load_npz", "state_from_jax"]
 
-_STACK = "blocks/b0/"
+_STACK = re.compile(r"blocks/b(\d+)/(.+)")
+_TAIL = re.compile(r"rem(\d+)/(.+)")
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -55,21 +62,31 @@ def _to_tensor(a) -> torch.Tensor:
 
 def state_from_jax(params, cfg: ModelConfig, device="cpu") -> dict[str, torch.Tensor]:
     """The port's ``Model`` state dict, on ``device``, holding the weights of
-    the JAX parameter tree ``params`` (nested or flat).  Raises if a layer
-    stack does not have ``cfg.n_layers`` layers or a key is of an unported
-    kind (``rem<j>`` tails, an encoder)."""
+    the JAX parameter tree ``params`` (nested or flat).  Raises
+    ``ValueError`` if a stacked leaf does not hold ``n_layers // P`` groups or
+    a pattern slot or tail index names no layer of ``cfg``, and
+    ``NotImplementedError`` on an encoder."""
+    P = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // P
+    n_tail = cfg.n_layers - n_groups * P
     state: dict[str, torch.Tensor] = {}
     for key, arr in flatten_tree(params).items():
         t = _to_tensor(arr)
-        if key.startswith(_STACK):
-            if t.shape[0] != cfg.n_layers:
-                raise ValueError(f"{key}: {t.shape[0]} stacked layers, config has "
-                                 f"{cfg.n_layers}")
-            leaf = key[len(_STACK):].replace("/", ".")
-            for i in range(cfg.n_layers):
-                state[f"blocks.{i}.{leaf}"] = t[i]
-        elif key.startswith(("blocks/", "rem", "encoder")):
-            raise NotImplementedError(f"{key}: only single-kind stacks are ported")
+        stack, tail = _STACK.fullmatch(key), _TAIL.fullmatch(key)
+        if stack:
+            slot, leaf = int(stack[1]), stack[2].replace("/", ".")
+            if slot >= P or t.shape[0] != n_groups:
+                raise ValueError(f"{key}: {t.shape[0]} stacked groups at slot {slot}, config "
+                                 f"has {n_groups} groups of {P} ({cfg.n_layers} layers)")
+            for g in range(n_groups):
+                state[f"blocks.{g * P + slot}.{leaf}"] = t[g]
+        elif tail:
+            j, leaf = int(tail[1]), tail[2].replace("/", ".")
+            if j >= n_tail:
+                raise ValueError(f"{key}: tail layer {j}, config has {n_tail} tail layers")
+            state[f"blocks.{n_groups * P + j}.{leaf}"] = t
+        elif key.startswith(("blocks/", "encoder")):
+            raise NotImplementedError(f"{key}: encoder stacks are not ported yet")
         else:
             state[key.replace("/", ".")] = t
     return {k: v.to(device) for k, v in state.items()}

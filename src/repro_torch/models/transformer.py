@@ -1,5 +1,6 @@
 """Decoder-only model of the port: prefill, and single-token decode over a
-paged or contiguous KV cache or the RWKV6 recurrent state.
+paged or contiguous KV cache, the RWKV6 recurrent state, or the RG-LRU
+hybrid's mixed cache (ring K/V and recurrent state).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the families
 ported so far (``Model.init``, ``prefill``, ``decode_step``, ``init_cache``,
@@ -9,7 +10,9 @@ the weight bridge (``repro_torch.models.bridge``) unstacks the JAX leaves.
 Caches keep the JAX layout with the layers stacked on axis 0.
 
 Supported: global-attention dense stacks with RMSNorm, SwiGLU, RoPE and
-optional QKV bias, and RWKV6 stacks (family ``ssm``) with LayerNorm.  Other
+optional QKV bias; RWKV6 stacks (family ``ssm``) with LayerNorm; and the
+RG-LRU hybrid (family ``hybrid``, RecurrentGemma): RG-LRU blocks mixed with
+sliding-window (or global) attention blocks, RMSNorm, GeGLU and RoPE.  Other
 families raise ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
@@ -30,9 +33,10 @@ from repro_torch.models.layers import (
     rope_tables,
 )
 from repro_torch.models.mlp import MLP
+from repro_torch.models.rglru import RGLRU
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
-__all__ = ["Model", "Block", "RWKVBlock"]
+__all__ = ["Model", "Block", "RWKVBlock", "RGLRUBlock"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -54,6 +58,20 @@ def _check_supported(cfg: ModelConfig) -> None:
             unsupported.append(f"norm {cfg.norm!r}")
         if cfg.rope_type != "none":
             unsupported.append(f"rope_type {cfg.rope_type!r}")
+    elif cfg.family == "hybrid" and cfg.moe is None:
+        if (not kinds <= {"rglru", "local", "attn"} or "rglru" not in kinds
+                or not kinds & {"local", "attn"}):
+            unsupported.append(f"blocks {sorted(kinds)}")
+        if {"local", "attn"} <= kinds:
+            unsupported.append("global and sliding-window attention in one stack")
+        if "local" in kinds and not cfg.window:
+            unsupported.append("local attention without a window")
+        if cfg.norm != "rmsnorm":
+            unsupported.append(f"norm {cfg.norm!r}")
+        if cfg.activation != "geglu":
+            unsupported.append(f"activation {cfg.activation!r}")
+        if cfg.rope_type != "rope":
+            unsupported.append(f"rope_type {cfg.rope_type!r}")
     else:
         unsupported.append(f"family {cfg.family!r}")
     if cfg.enc_dec or cfg.frontend:
@@ -67,10 +85,13 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """Pre-norm decoder block: ``x + attn(n1(x))``, then ``x + mlp(n2(x))``."""
+    """Pre-norm decoder block: ``x + attn(n1(x))``, then ``x + mlp(n2(x))``.
+    ``window`` is the sliding window of a ``local`` block, None for global
+    attention."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, window=None):
         super().__init__()
+        self.window = window
         self.n1 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.n2 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
@@ -105,9 +126,43 @@ class RWKVBlock(nn.Module):
         return x + h, (shift_tm, shift_cm, wkv)
 
 
+class RGLRUBlock(nn.Module):
+    """RecurrentGemma recurrent block: ``x + rec(n1(x))``, then
+    ``x + mlp(n2(x))``; ``rec`` carries the conv history and the RG-LRU
+    state."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.n1 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.rec = RGLRU(cfg, dtype=dtype, device=device)
+        self.n2 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+        self.mlp = MLP(cfg, dtype=dtype, device=device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for m in (self.n1, self.rec, self.n2, self.mlp):
+            m.init(generator)
+
+    def forward(self, x, conv=None, h=None):
+        """x: (B, S, d) and this layer's carried states (None at the start of
+        a sequence).  Returns (x, (conv, h))."""
+        a, (conv, h) = self.rec(self.n1(x), conv, h)
+        x = x + a
+        return x + self.mlp(self.n2(x)), (conv, h)
+
+
+def _make_block(cfg: ModelConfig, kind: str, *, dtype, device) -> nn.Module:
+    if kind == "rwkv":
+        return RWKVBlock(cfg, dtype=dtype, device=device)
+    if kind == "rglru":
+        return RGLRUBlock(cfg, dtype=dtype, device=device)
+    return Block(cfg, dtype=dtype, device=device,
+                 window=cfg.window if kind == "local" else None)
+
+
 class Model(nn.Module):
-    """The decoder: dense attention blocks, or RWKV6 blocks for family
-    ``ssm`` (``recurrent``).  Parameters are created uninitialized on ``device``
+    """The decoder: dense attention blocks, RWKV6 blocks for family ``ssm``
+    (``recurrent``), or RG-LRU and attention blocks for family ``hybrid``
+    (``hybrid``).  Parameters are created uninitialized on ``device``
     (default ``"cuda"``, which raises when no card is present): fill them
     with :meth:`init` or from the JAX package through the weight bridge."""
 
@@ -125,9 +180,16 @@ class Model(nn.Module):
         d = cfg.d_model
         self.embed = empty_param((self.vocab_padded, d), self.dtype, dev)
         self.recurrent = cfg.family == "ssm"
-        block = RWKVBlock if self.recurrent else Block
-        self.blocks = nn.ModuleList(block(cfg, dtype=self.dtype, device=dev)
-                                    for _ in range(cfg.n_layers))
+        self.hybrid = cfg.family == "hybrid"
+        kinds = cfg.layer_kinds()
+        self.blocks = nn.ModuleList(_make_block(cfg, kind, dtype=self.dtype, device=dev)
+                                    for kind in kinds)
+        # a sliding-window stack keeps its K/V in a ring of min(window, max_len)
+        self.kv_window = cfg.window if "local" in kinds else None
+        # each layer's place in its cache stack: attention layers index the
+        # K/V stack, RG-LRU layers the conv/h stack, in layer order
+        is_rec = [kind == "rglru" for kind in kinds]
+        self.cache_index = [sum(r == is_rec[i] for r in is_rec[:i]) for i in range(len(kinds))]
         self.final_norm = make_norm(cfg.norm, d, cfg.norm_eps, dtype=self.dtype, device=dev)
         self.lm_head = empty_param((d, self.vocab_padded), self.dtype, dev)
         # RoPE inverse frequencies, built once on the device (not a weight)
@@ -188,6 +250,17 @@ class Model(nn.Module):
         one.)  RWKV6 stacks: the token-shift states ``shift_tm``/``shift_cm``
         (n_layers, batch, d) in the model dtype and the WKV state ``wkv``
         (n_layers, batch, H, hd, hd) in fp32; ``max_len`` does not apply.
+
+        RG-LRU hybrids: one stack per kind, each in layer order —
+        ``{"k", "v"}`` (n_attn, batch, S_buf, Hk, hd) for the attention
+        layers, a ring of ``S_buf = min(window, max_len)`` slots for local
+        attention (``max_len`` for global); ``conv`` (n_rec, batch, cw − 1,
+        W) in the model dtype and ``h`` (n_rec, batch, W) fp32 for the
+        RG-LRU layers; and one ``len`` (batch,) int32.  Layer i sits at
+        position ``cache_index[i]`` of its kind's stack.  The JAX package
+        keeps layer ``i = g·P + s`` (P = len(block_pattern), g < n_groups =
+        n_layers // P) at ``cache["blocks"][f"b{s}"][leaf][g]`` and layer
+        ``i = n_groups·P + j`` at ``cache[f"rem{j}"][leaf]``.
         """
         cfg, dev = self.cfg, self.device
         if self.recurrent:
@@ -196,10 +269,19 @@ class Model(nn.Module):
             return {"shift_tm": shift, "shift_cm": torch.zeros_like(shift),
                     "wkv": torch.zeros((cfg.n_layers, batch, d // hd, hd, hd),
                                        dtype=torch.float32, device=dev)}
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        n_rec = sum(isinstance(b, RGLRUBlock) for b in self.blocks)
+        n_attn = cfg.n_layers - n_rec
+        size = min(max_len, self.kv_window or max_len)
+        shape = (n_attn, batch, size, cfg.n_kv_heads, cfg.head_dim)
         k = torch.zeros(shape, dtype=self.dtype, device=dev)
-        return {"k": k, "v": torch.zeros_like(k),
-                "len": torch.zeros(batch, dtype=torch.int32, device=dev)}
+        cache = {"k": k, "v": torch.zeros_like(k),
+                 "len": torch.zeros(batch, dtype=torch.int32, device=dev)}
+        if self.hybrid:
+            W = cfg.lru_width or cfg.d_model
+            cache["conv"] = torch.zeros((n_rec, batch, cfg.conv_width - 1, W),
+                                        dtype=self.dtype, device=dev)
+            cache["h"] = torch.zeros((n_rec, batch, W), dtype=torch.float32, device=dev)
+        return cache
 
     def init_paged_cache(self, n_pages: int, page_size: int, batch: int) -> dict:
         """The paged serving cache: per-layer K/V pools stacked as
@@ -207,7 +289,7 @@ class Model(nn.Module):
         lengths ``len`` (batch,) int32.  Page ``n_pages`` is the drop page:
         the target of writes to unmapped positions, never mapped by a table
         and never read.  Attention stacks only, as in JAX."""
-        if self.recurrent:
+        if self.recurrent or self.hybrid:
             raise ValueError("paged KV cache requires a decoder-only global-attention stack")
         cfg = self.cfg
         shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
@@ -232,14 +314,22 @@ class Model(nn.Module):
 
         RWKV6 stacks: the cache is the recurrent state after the last token,
         ``{"shift_tm", "shift_cm", "wkv"}`` as ``init_cache`` lays it out.
-        ``lengths`` raises ``ValueError`` there, as JAX's assertion does: a
-        recurrent state would advance through the padding.
+
+        RG-LRU hybrids: the mixed cache of ``init_cache`` for ``max_len``
+        (default S).  A sliding-window layer's ring of ``S_buf`` slots holds
+        the last ``min(S, S_buf)`` keys, key p at slot ``p % S_buf``, as
+        JAX's ``_fill_kv_cache`` places them; the RG-LRU layers' ``conv``
+        and ``h`` are their states after the last token.
+
+        ``lengths`` raises ``ValueError`` on RWKV6 and hybrid stacks, as
+        JAX's assertion does: a recurrent state would advance through the
+        padding.
         """
         x = self._embed_in(tokens)
         B, S = x.shape[:2]
+        if (self.recurrent or self.hybrid) and lengths is not None:
+            raise ValueError("variable-length prefill requires attention-only models")
         if self.recurrent:
-            if lengths is not None:
-                raise ValueError("variable-length prefill requires attention-only models")
             states = []
             for blk in self.blocks:
                 x, st = blk(x)
@@ -248,9 +338,15 @@ class Model(nn.Module):
             return self._logits(x[:, -1:]), {"shift_tm": shift_tm, "shift_cm": shift_cm,
                                              "wkv": wkv}
         rope = self._rope(self._positions(B, S))
-        ks, vs = [], []
+        ks, vs, convs, hs = [], [], [], []
         for blk in self.blocks:
-            a, (k, v) = attention_full(blk.attn, self.cfg, blk.n1(x), rope, shard=self.shard)
+            if isinstance(blk, RGLRUBlock):
+                x, (conv, h) = blk(x)
+                convs.append(conv)
+                hs.append(h)
+                continue
+            a, (k, v) = attention_full(blk.attn, self.cfg, blk.n1(x), rope, window=blk.window,
+                                       shard=self.shard)
             x = x + a
             x = x + blk.mlp(blk.n2(x))
             ks.append(k)
@@ -262,6 +358,17 @@ class Model(nn.Module):
             lengths = torch.full((B,), S, dtype=torch.int32, device=self.device)
             last = x[:, -1:]
         k, v = torch.stack(ks), torch.stack(vs)
+        if self.hybrid:
+            size = S if max_len is None else max_len
+            size = min(size, self.kv_window or size)
+            take = min(S, size)
+            slots = torch.arange(S - take, S, device=self.device) % size
+            buf_k = k.new_zeros((*k.shape[:2], size, *k.shape[3:]))
+            buf_v = torch.zeros_like(buf_k)
+            buf_k[:, :, slots] = k[:, :, S - take:]
+            buf_v[:, :, slots] = v[:, :, S - take:]
+            return self._logits(last), {"k": buf_k, "v": buf_v, "len": lengths,
+                                        "conv": torch.stack(convs), "h": torch.stack(hs)}
         if max_len is not None:
             take = min(S, max_len)
             buf_k = k.new_zeros((*k.shape[:2], max_len, *k.shape[3:]))
@@ -286,13 +393,16 @@ class Model(nn.Module):
 
         RWKV6 stacks: the cache is the recurrent state of :meth:`init_cache`
         or :meth:`prefill`; every layer's states are replaced by the next
-        ones.  A ``table`` raises ``ValueError``: recurrent state has no
-        paged form.
+        ones.  RG-LRU hybrids: the mixed cache of :meth:`init_cache` or
+        :meth:`prefill`; a sliding-window layer writes its ring at slot
+        ``len % S_buf``, an RG-LRU layer replaces its ``conv`` and ``h``.  A
+        ``table`` raises ``ValueError`` on both: recurrent state and ring
+        buffers have no paged form.
         """
         x = self._embed_in(tokens)
+        if (self.recurrent or self.hybrid) and table is not None:
+            raise ValueError("paged KV cache requires a decoder-only global-attention stack")
         if self.recurrent:
-            if table is not None:
-                raise ValueError("paged KV cache requires a decoder-only global-attention stack")
             for i, blk in enumerate(self.blocks):
                 x, (shift_tm, shift_cm, wkv) = blk(x, cache["shift_tm"][i],
                                                    cache["shift_cm"][i], cache["wkv"][i])
@@ -302,9 +412,14 @@ class Model(nn.Module):
             return self._logits(x)
         pos = cache["len"]
         rope = self._rope(pos[:, None])
-        for i, blk in enumerate(self.blocks):
-            x = x + attention_decode(blk.attn, self.cfg, blk.n1(x), cache["k"][i],
-                                     cache["v"][i], pos, table, rope)
+        for blk, j in zip(self.blocks, self.cache_index):
+            if isinstance(blk, RGLRUBlock):
+                x, (conv, h) = blk(x, cache["conv"][j], cache["h"][j])
+                cache["conv"][j] = conv
+                cache["h"][j] = h
+                continue
+            x = x + attention_decode(blk.attn, self.cfg, blk.n1(x), cache["k"][j],
+                                     cache["v"][j], pos, table, rope, window=blk.window)
             x = x + blk.mlp(blk.n2(x))
         cache["len"] += 1
         return self._logits(x)

@@ -86,7 +86,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on {self.device}")
-        if model.recurrent:
+        if model.recurrent or model.hybrid:
             raise ValueError(f"{model.cfg.name}: the engine prefills right-padded batches, and "
                              f"variable-length prefill requires attention-only models")
         self.model = model

@@ -179,8 +179,9 @@ def test_allocator_pinned_to_reference_on_full_pool():
 
 
 def test_unported_paths_raise(models):
-    """Sampled decoding (either layout, either driver) and ring (sliding
-    window) KV caches are not ported yet."""
+    """Sampled decoding (either layout, either driver) is not ported yet, and
+    the paged KV cache refuses a sliding window, as the JAX package asserts
+    (ring caches are the contiguous layout's)."""
     _, _, model = models
     for paged in (True, False):
         eng = engine.ServingEngine(model, max_slots=2, max_len=64, paged=paged, device="cpu")
@@ -191,9 +192,10 @@ def test_unported_paths_raise(models):
         if not paged:
             with pytest.raises(NotImplementedError, match="sampled"):
                 eng.serve_stepwise([req])
-    cache = model.init_cache(2, 64)
+    cache = model.init_paged_cache(8, 16, 2)
     x = torch.zeros((2, 1, model.cfg.d_model))
     pos = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="window"):
+    table = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="window"):
         attention_decode(model.blocks[0].attn, model.cfg, x, cache["k"][0], cache["v"][0],
-                         pos, None, None, window=16)
+                         pos, table, None, window=16)

@@ -18,6 +18,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.kernels.ops, repro_torch.models.bridge\n"
+            "import repro_torch.models.rglru, repro_torch.kernels.rglru_scan\n"
+            "import repro_torch.configs.recurrentgemma_9b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")

@@ -272,9 +272,13 @@ def test_rwkv_cache_layout_and_paged_refusal():
 
 
 def test_unported_families_raise():
-    """qk_norm, local-attention and RG-LRU blocks, and a dense stack with
-    LayerNorm are not ported yet."""
-    for change in (dict(qk_norm=True), dict(block_pattern=("local",)),
-                   dict(block_pattern=("rglru",), family="hybrid"), dict(norm="layernorm")):
+    """qk_norm, mixture-of-experts MLPs, encoder-decoder stacks and a dense
+    stack with LayerNorm are not ported yet.  (Local-attention and RG-LRU
+    blocks are: the hybrid family.)"""
+    from repro_torch.config import MoEConfig
+
+    for change in (dict(qk_norm=True), dict(family="moe", moe=MoEConfig(4, 2, 32)),
+                   dict(enc_dec=True, n_encoder_layers=2, family="audio"),
+                   dict(norm="layernorm")):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(get_arch("tiny-s"), **change), device="cpu")
