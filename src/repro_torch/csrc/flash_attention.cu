@@ -1,52 +1,121 @@
 // Causal GQA flash attention for prefill, hand-written for Hopper (sm_90a).
 //
 // Replaces: flash_attention_pallas in src/repro/kernels/flash_attention.py
-// (the Pallas TPU kernel, body _kernel).  Same function: q (B, S, H, D)
-// against k, v (B, S, Hk, D), query row i attends keys j <= i (causal) and
-// j > i - window (sliding window), scores scaled by 1/sqrt(D), fp32 online
-// softmax with the TPU kernel's finite NEG_INF, output (B, S, H, D) in the
-// input dtype.
+// (the Pallas TPU kernel, pallas_call at line 124, body _kernel).  Same
+// function: q (B, S, H, D) against k, v (B, S, Hk, D), query row i attends
+// keys j <= i (causal) and j > i - window (sliding window), scores scaled by
+// 1/sqrt(D), fp32 online softmax with the TPU kernel's finite NEG_INF, a
+// fully masked row gives zeros, output (B, S, H, D) in the input dtype.
 //
-// What bounds it on the H100: prefill attention does 4·D FLOPs per visible
-// (query, key) pair on about 2·D·(H + Hk) bytes per token, so at the serving
-// shapes (S >= 128, D = 64) it is bound by arithmetic, not by memory.  This
-// first version computes on the fp32 CUDA cores (67 TFLOP/s on the card),
-// not on the tensor cores (989 TFLOP/s bf16), so it cannot reach the bound;
-// wgmma and TMA staging are later work.
+// Two designs, one a dtype:
 //
-// What the design does about it:
-//  * One block per (query tile of BQ rows, head, batch row); each thread owns
-//    one query row and keeps q and its fp32 accumulator in registers, so the
-//    only shared-memory traffic is the K/V tile, read as broadcasts.
-//  * The TPU grid's sequential KV axis becomes a loop inside the block over
-//    KV tiles of BK keys, staged in shared memory (converted to fp32 once)
-//    with 16-byte loads, several in flight per thread.
-//  * KV tiles that the causal mask or the window hide from every row of the
-//    query tile are never loaded (the TPU kernel's pl.when skip).
-//  * The layout is the JAX one, (B, S, H, D), strided directly: no transposes.
-//  * GQA: head h reads KV head h / (H / Hk).
+// bf16: flash_tc_kernel, on the tensor cores.  What bounds it on the H100:
+// 4·D FLOPs a visible (query, key) pair against ~2·D·(H + Hk) bytes a
+// token, so at RecurrentGemma-9B's prefill (D = 256, 16 heads on 1, window
+// 2048) the FLOPs over 989 TFLOP/s (bf16 wgmma), and at the serving
+// admission shape (D = 64, S = 256) the bytes over 3.35 TB/s.  The design:
+//  * A block owns 64·WGS (position, head) rows, one warpgroup (128 threads)
+//    per 64: WGS = 2 at D = 256, where a K/V tile is worth sharing, 1 below,
+//    where more, shorter blocks finish sooner.  Row R is (position q0 + R /
+//    GH, head h0 + R % GH): GH = G query heads of one KV head when G divides
+//    the block (under MQA at D = 256, 8 positions x 16 heads, so one K/V
+//    tile serves all 16), else GH = 1 (a block of one head).
+//  * TMA copies through 4-d tensor maps over (D, H, S, B) for q and (D, Hk,
+//    S, B) for k/v, built per call with cuTensorMapEncodeTiled (found
+//    through cudaGetDriverEntryPointByVersion, so no -lcuda) and passed as
+//    __grid_constant__ parameters.  Boxes are 64 columns (128 bytes) wide
+//    with the 128-byte swizzle; a row of D values is D/64 such atom columns
+//    side by side.  Q is loaded once; K and V tiles of 64 keys go through
+//    rings of two stages, each stage with its own mbarrier.  A K stage is
+//    released once its S is computed, a V stage once its P·V is, and
+//    refilled with the tile two ahead: with one warpgroup after a block
+//    barrier by thread 0; with two, each warp adds one to the stage's count
+//    in shared memory by an acquire-release atomic, and the warp that
+//    completes it issues the copy, so neither warpgroup waits on the other
+//    for a copy and every warp's reads of the stage happen before it.  The
+//    standard "empty" mbarrier a stage, on which one consumer thread waits
+//    before the refill, made the D = 256 call markedly slower on the card:
+//    its waiter belongs with a producer warp (see below).  TMA fills what lies
+//    outside the tensor with zeros, so keys and rows past S, and the
+//    columns that pad D = 16, 32 to 64, read as 0.
+//  * S = Q·Kᵀ: wgmma m64n64k16, bf16 in, fp32 out, A (Q) and B (K) both
+//    K-major from shared memory.  O += P·V: wgmma m64nDk16 with A = P in
+//    registers and B = V read MN-major (the transpose bit), N = D (64 for
+//    D < 64).  The O accumulator (D/2 floats a thread) stays in registers.
+//  * A warpgroup works in sections: S of the first tile; then P·V of tile
+//    j - 1 and S of tile j in one commit group, followed by the softmax of
+//    tile j; then P·V of the last tile.  With two warpgroups the sections
+//    take turns on named barriers 1 and 2 (warpgroup 0 first), so one
+//    warpgroup's softmax runs while the other's products keep the tensor
+//    cores busy.
+//  * Online softmax in the log2 domain (exp2f, log2(e) folded into the
+//    scale); a row's max and sum reduce over the 4 threads of a quad.  Only
+//    tiles that cross the diagonal, the window's edge or the end of S are
+//    masked; tiles no row of the block sees are never loaded (the TPU
+//    kernel's pl.when skip).
+//  * P is rounded to bf16 for the tensor-core product while the row sums
+//    take it in fp32: a row-relative error of one bf16 unit (~0.0078) on
+//    the card, the same as rounding the output, inside the 2e-2 check.
 //
-// Wide heads (D = 128, 256) take a second design, flash_wide_kernel below:
-// one query row's q and fp32 accumulator in registers would need 2·D
-// registers a thread (512 at D = 256, against the limit of 255), and fp32
-// K/V tiles of 64 keys 128 KB of static shared memory (limit 48 KB).
-//  * A block takes a tile of M = 64 (position, head) rows: BQP = 64 / GH
-//    query positions times GH query heads of one KV head (GH = G when G
-//    divides 64; under MQA with H = 16, 4 positions × 16 heads), so each
-//    K/V tile it loads serves every head of the group.
-//  * Its 256 threads form a 16 × 16 grid: thread (ty, tx) owns rows
-//    4·ty .. 4·ty + 3, scores those rows against keys tx and tx + 16 of
-//    the tile, and accumulates output columns (tx + 16·j)·VEC .. + VEC.
-//    The accumulator is split over the 16 threads of a row (64 floats a
-//    thread at D = 256), and a row's max and sum are reduced across them
-//    with shuffles; q sits in shared memory in fp32.
-//  * K and V tiles of BK = 32 keys are staged in the input dtype in dynamic
-//    shared memory by cp.async (16 bytes a copy, rows past S zero-filled),
-//    each row padded by 16 bytes so the 16 keys a phase reads fall in
-//    distinct banks; the probabilities go through shared memory to the
-//    P·V product.
-//  * The causal and window skip of KV tiles is the same as above.
+// What was hard, and how it is settled (each piece was checked alone on the
+// card, against torch.matmul, before the kernel was written):
+//  1. Descriptors (hopper.cuh, sw128_desc): start address >> 4, layout type
+//     1 (128-byte swizzle), SBO = 1024 bytes (8 rows of 128), LBO unused for
+//     K-major; every atom column on a 1024-byte boundary (the dynamic shared
+//     memory is aligned by hand), so the k-th 16-wide step of a K-major
+//     operand is simply the atom column's address + 32·k.
+//  2. The MN-major V operand: LBO = the distance between atom columns (64
+//     values of N each, 64·128 bytes apart in a tile), SBO = 1024 bytes
+//     between groups of 8 keys; a 16-key step moves 2048 bytes.
+//  3. Ordering: wgmma.fence before each section (the accumulators and P
+//     were written by ordinary instructions), one commit_group and
+//     wait_group 0 after it, and an empty asm on every accumulator register
+//     after the wait, so the compiler cannot hoist a read of S or O above
+//     it.  P depends on S only through registers, and is rewritten only
+//     after the product that reads it has completed.  Every product must
+//     be issued on a path that ptxas sees all threads take: a section
+//     chosen by a runtime flag made ptxas insert a warpgroup.arrive on a
+//     divergent path and serialise every wgmma (its warning C7520), which
+//     made the kernel markedly slower, so the first and last sections are
+//     peeled out of the loop.
+//  4. The accumulator layout: thread t of warp w of a warpgroup holds rows
+//     16w + t/4 and 16w + t/4 + 8 and columns 8i + 2(t%4) + {0, 1}; the
+//     16-column chunk j of S, packed to bf16 pairs, is exactly the A
+//     fragment of the j-th 16-key step of P·V.  Masks and the (position,
+//     head) of each row derive from it.
+//  5. Partial tiles: TMA zero-fills keys past S (and the mask drops them);
+//     rows past S compute on zero q and are not stored.  A tile range that
+//     is empty leaves l = 0 and stores zeros.
+//  6. G not dividing the block: GH = 1, a block of 64·WGS positions of one
+//     head (phase 3's G = 3 case at D = 256).
+// What is left out, and would come next: clusters of two blocks with TMA
+// multicast of K/V (under MQA at D = 256 every block of a batch row reads
+// the same tiles from L2, ~64 KB a tile for 128 rows, and two stages of
+// 64 KB fill the shared memory, so copy latency is the likely limit at
+// ~50% of the tensor-core bound); a producer warp with setmaxnreg, which
+// would free registers for a second S accumulator so each warpgroup could
+// overlap its own softmax with its products; persistent blocks.
+//
+// fp32: the CUDA-core kernels below, flash_fwd_kernel (D <= 64) and
+// flash_wide_kernel (D = 128, 256), unchanged.  They serve only the fp32
+// parity legs and fp32 checks, held at 2e-5 and 1e-3, which neither TF32
+// (10 mantissa bits) nor bf16 tensor-core inputs could meet.
+//  * flash_fwd_kernel: one block per (query tile of BQ rows, head, batch
+//    row); each thread owns one query row and keeps q and its fp32
+//    accumulator in registers; K/V tiles of BK keys staged in shared memory,
+//    widened to fp32, with 16-byte loads, several in flight per thread.
+//  * flash_wide_kernel: one query row's q and accumulator in registers
+//    would need 2·D registers a thread (512 at D = 256), so a block takes
+//    64 (position, head) rows (packed as above), its 256 threads form a
+//    16 x 16 grid, a row's accumulator is split over 16 threads and its max
+//    and sum reduced with shuffles; q in shared memory; K/V tiles of 32
+//    keys by cp.async, rows padded by 16 bytes against bank conflicts; P
+//    through shared memory.
+//  * Both skip hidden KV tiles as above, read the (B, S, H, D) layout in
+//    place, and map head h to KV head h / (H / Hk).  Their templates keep
+//    the element type; only float is instantiated.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -401,15 +470,333 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hk,
-             int D, int causal, int window, cudaStream_t stream) {
+// ---- bf16: tensor cores (wgmma over swizzled TMA tiles) ------------------
+constexpr int TC_BK = 64;        // keys a K/V tile
+constexpr int TC_STAGES = 2;     // K/V tiles in flight
+
+template <int D>
+struct TcTile {
+  // warpgroups a block, 64 rows each: two at D = 256, where a K/V tile is
+  // worth sharing; one below, where more and shorter blocks win
+  static constexpr int WGS = D == 256 ? 2 : 1;
+  static constexpr int M = 64 * WGS;            // (position, head) rows a block
+  static constexpr int THREADS = 128 * WGS;     // consumers that also issue the copies
+  static constexpr int DP = D < 64 ? 64 : D;    // width padded to whole 128-byte rows
+  static constexpr int NA = DP / 64;            // 128-byte atom columns across a row
+  static constexpr int Q_ATOM = M * 128;        // bytes of one Q atom column
+  static constexpr int KV_ATOM = TC_BK * 128;   // bytes of one K or V atom column
+  static constexpr int Q_BYTES = NA * Q_ATOM;
+  static constexpr int KV_BYTES = NA * KV_ATOM; // one K (or V) tile
+  // 1024 bytes to align the first atom column; at the end the barriers
+  // (Q, K and V of each stage) and the stages' release counters
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * TC_STAGES * KV_BYTES + 8 * (1 + 2 * TC_STAGES) + 4 * 2 * TC_STAGES;
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, b);
+  else wgmma_rs_m64n256k16(d, a, b);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TcTile<D>::THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+                int H, int G, int GH, int causal, int window, float scale_log2) {
+  using T = TcTile<D>;
+  constexpr int DP = T::DP;
+  constexpr int KSTEPS = D / 16;   // 16-wide steps of S = Q·Kᵀ (the padding adds 0)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ks = qs + T::Q_BYTES;                   // stage s at ks + s·KV_BYTES
+  const uint32_t vs = ks + TC_STAGES * T::KV_BYTES;
+  const uint32_t bar_q = vs + TC_STAGES * T::KV_BYTES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int bqp = T::M / GH;                    // query positions a block
+  const int q0 = blockIdx.x * bqp;
+  const int h0 = blockIdx.y * GH;               // first query head of the group
+  const int b = blockIdx.z;
+  const int hk = h0 / G;
+
+  // KV tiles some row of this block can see
+  const int q_last = min(q0 + bqp, S) - 1;
+  const int n_tiles = (S + TC_BK - 1) / TC_BK;
+  const int hi = causal ? min(n_tiles, q_last / TC_BK + 1) : n_tiles;
+  int lo = 0;
+  if (window > 0) {
+    const int first = q0 - window + 1;          // earliest key position q0 sees
+    lo = first > 0 ? first / TC_BK : 0;
+  }
+
+  // Barriers: Q, then K full and V full of each stage; then the stages'
+  // release counts.
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * TC_STAGES;
+  int* released =
+      reinterpret_cast<int*>(smem_raw + (bar_v + 8 * TC_STAGES - smem_u32(smem_raw)));
+  auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t bar, int tile) {
+    mbar_expect_tx(bar, T::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < T::NA; ++c)
+      tma_load_4d(dst + c * T::KV_ATOM, map, bar, 64 * c, hk, tile * TC_BK, b);
+  };
+  auto load_k = [&](int st, int tile) { load(&tk, ks + st * T::KV_BYTES, bar_k + 8 * st, tile); };
+  auto load_v = [&](int st, int tile) { load(&tv, vs + st * T::KV_BYTES, bar_v + 8 * st, tile); };
+  // After section it's wait: release the V stage of tile lo + it - 1 (if
+  // the section had a P·V) and the K stage of tile lo + it, refilling each
+  // with the tile two ahead.  One warpgroup: a block barrier, then thread 0
+  // copies.  Two: each warp adds one to the stage's count (acquire-release,
+  // so the warps' reads of the stage happen before the copy), and the warp
+  // that completes it copies (the counts only grow: nothing to reset).
+  auto release = [&](bool has_v, int it) {
+    const int v_st = (it + TC_STAGES - 1) % TC_STAGES, k_st = it % TC_STAGES;
+    const int v_tile = lo + it + 1, k_tile = lo + it + TC_STAGES;
+    if constexpr (T::WGS == 1) {
+      __syncthreads();
+      if (tid == 0) {
+        if (has_v && v_tile < hi) load_v(v_st, v_tile);
+        if (k_tile < hi) load_k(k_st, k_tile);
+      }
+    } else {
+      __syncwarp();
+      if (lane == 0) {
+        constexpr int WARPS = 4 * T::WGS;
+        if (has_v && (atom_add_acq_rel(released + TC_STAGES + v_st, 1) + 1) % WARPS == 0 &&
+            v_tile < hi)
+          load_v(v_st, v_tile);
+        if ((atom_add_acq_rel(released + k_st, 1) + 1) % WARPS == 0 && k_tile < hi)
+          load_k(k_st, k_tile);
+      }
+    }
+  };
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    for (int i = 0; i < 1 + 2 * TC_STAGES; ++i) mbar_init(bar_q + 8 * i, 1);
+    for (int i = 0; i < 2 * TC_STAGES; ++i) released[i] = 0;
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, T::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < T::NA; ++c)
+      tma_load_4d(qs + c * T::Q_ATOM, &tq, bar_q, 64 * c, h0, q0, b);
+    for (int st = 0; st < TC_STAGES && lo + st < hi; ++st) {
+      load_k(st, lo + st);
+      load_v(st, lo + st);
+    }
+  }
+
+  // This thread holds block rows r0 and r0 + 8 of the accumulator layout;
+  // row R is (position q0 + R / GH, head h0 + R % GH), as the Q box lays
+  // them out (heads innermost).
+  const int r0 = 64 * wg + 16 * warp + lane / 4;
+  int pos[2], head[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pos[h] = q0 + (r0 + 8 * h) / GH;
+    head[h] = h0 + (r0 + 8 * h) % GH;
+  }
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float sc[32];
+  uint32_t p[16];
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
+  float l[2] = {0.f, 0.f};      // this thread's share of the row sums
+  const uint32_t q_wg = qs + wg * 64 * 128;     // this warpgroup's rows in each atom column
+
+  // S = Q·Kᵀ of the K tile in stage st, both operands K-major
+  auto issue_s = [&](int st) {
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss_m64n64k16(
+          sc, sw128_desc(q_wg + (kk / 4) * T::Q_ATOM + (kk % 4) * 32, 16, 1024),
+          sw128_desc(ks + st * T::KV_BYTES + (kk / 4) * T::KV_ATOM + (kk % 4) * 32, 16, 1024));
+  };
+  // O += P·V of the V tile in stage st, P from registers, V MN-major
+  auto issue_pv = [&](int st) {
+#pragma unroll
+    for (int kj = 0; kj < TC_BK / 16; ++kj)
+      wgmma_rs<DP>(acc, p + 4 * kj,
+                   sw128_desc(vs + st * T::KV_BYTES + kj * 16 * 128, T::KV_ATOM, 1024));
+  };
+  // Online softmax of S for KV tile j in the log2 domain; only a tile that
+  // crosses the diagonal, the window's edge or the end of S is masked.
+  // Leaves P in bf16 pairs (the S accumulator's 16-column chunk i is the A
+  // fragment of the i-th 16-key step of P·V) and O rescaled.
+  auto softmax = [&](int j) {
+    const int k0 = j * TC_BK;
+    const bool edge = k0 + TC_BK > S || (causal && k0 + TC_BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + bqp - 1 - window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i / 2) % 2;
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const bool ok = kp < S && (!causal || kp <= pos[h]) &&
+                        (window <= 0 || kp > pos[h] - window);
+        x = ok ? x : REPRO_NEG_INF;
+      }
+      sc[i] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+    float rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i / 2) % 2;
+      float e0 = exp2f(sc[i] - m[h]);
+      float e1 = exp2f(sc[i + 1] - m[h]);
+      if (edge) {   // a masked key adds 0, also in a row that saw no key yet
+        e0 = sc[i] > 0.5f * REPRO_NEG_INF ? e0 : 0.f;
+        e1 = sc[i + 1] > 0.5f * REPRO_NEG_INF ? e1 : 0.f;
+      }
+      rsum[h] += e0 + e1;
+      p[i / 2] = pack_bf16(e0, e1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rsum[h];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+  };
+  // With two warpgroups, their product sections take turns (named barriers
+  // 1 and 2), so one warpgroup's softmax runs under the other's products.
+  auto turn = [&]() {
+    if (T::WGS == 2) named_bar_sync(1 + wg, 256);
+  };
+  auto pass = [&](bool last) {
+    if (T::WGS == 2 && !(last && wg == 1)) named_bar_arrive(2 - wg, 256);
+  };
+
+  auto wait_k = [&](int it) { mbar_wait(bar_k + 8 * (it % TC_STAGES), (it / TC_STAGES) & 1); };
+  auto wait_v = [&](int it) { mbar_wait(bar_v + 8 * (it % TC_STAGES), (it / TC_STAGES) & 1); };
+
+  // Sections: S of tile lo; then PV of tile j - 1 with S of tile j; then PV
+  // of the last tile.  A K stage is released after its S, a V stage after
+  // its PV, each refilled with the tile two ahead.  The first and last
+  // sections are peeled so every product is issued on a path all threads of
+  // the warpgroup take (ptxas serialises wgmma on a divergent one).
+  const int n = hi - lo;    // at least 1: a block's first row sees its own key
+  if (T::WGS == 2 && wg == 1) named_bar_arrive(1, 256);   // warpgroup 0 goes first
+  mbar_wait(bar_q, 0);
+  wait_k(0);
+  turn();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  pass(false);
+  wgmma_wait_all();
+  fence_regs(sc);
+  release(false, 0);
+  softmax(lo);
+  for (int it = 1; it < n; ++it) {
+    wait_k(it);
+    wait_v(it - 1);
+    turn();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+    issue_pv((it - 1) % TC_STAGES);
+    issue_s(it % TC_STAGES);
+    wgmma_commit();
+    pass(false);
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(acc);
+    release(true, it);
+    softmax(lo + it);
+  }
+  wait_v(n - 1);
+  turn();
+  wgmma_fence();
+  issue_pv((n - 1) % TC_STAGES);
+  wgmma_commit();
+  pass(true);
+  wgmma_wait_all();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (pos[h] < S) {
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      __nv_bfloat16* op = o + ((size_t)(b * S + pos[h]) * H + head[h]) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hk,
+              int causal, int window, cudaStream_t stream) {
+  const int G = H / Hk;
+  const int GH = TcTile<D>::M % G == 0 ? G : 1;   // query heads of one KV head per block
+  const int bqp = TcTile<D>::M / GH;
+  CUtensorMap tq, tk, tv;
+  if (!encode_bf16_4d(&tq, q, D, H, S, B, 64, GH, bqp, 1) ||
+      !encode_bf16_4d(&tk, k, D, Hk, S, B, 64, 1, TC_BK, 1) ||
+      !encode_bf16_4d(&tv, v, D, Hk, S, B, 64, 1, TC_BK, 1))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = TcTile<D>::SMEM;
+  static bool smem_set = false;   // once per width and process
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((S + bqp - 1) / bqp, H / GH, B);
+  flash_tc_kernel<D><<<grid, TcTile<D>::THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, G, GH, causal, window,
+      (float)(1.4426950408889634 / sqrt((double)D)));
+  return (int)cudaGetLastError();
+}
+
+// fp32: the CUDA-core kernels
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                int Hk, int D, int causal, int window, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 128: return launch_wide<T, 128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 256: return launch_wide<T, 256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 16: return launch<float, 16>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 32: return launch<float, 32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 64: return launch<float, 64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 128: return launch_wide<float, 128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 256: return launch_wide<float, 256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16: the tensor-core kernel
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                int Hk, int D, int causal, int window, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_tc<16>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 32: return launch_tc<32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 64: return launch_tc<64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 128: return launch_tc<128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 256: return launch_tc<256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -424,8 +811,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_d<float>(q, k, v, o, B, S, H, Hk, D, causal, window, st);
-  if (dtype == kBFloat16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, S, H, Hk, D, causal, window, st);
+  if (dtype == kFloat32) return launch_fp32(q, k, v, o, B, S, H, Hk, D, causal, window, st);
+  if (dtype == kBFloat16) return launch_bf16(q, k, v, o, B, S, H, Hk, D, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

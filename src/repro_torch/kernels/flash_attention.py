@@ -1,10 +1,15 @@
-"""Flash attention for prefill: the CUDA kernel's wrapper and its plain version.
+"""Flash attention for prefill: the CUDA kernels' wrapper and their plain version.
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the port of
 the JAX package's ``flash_attention_pallas`` (causal GQA with an optional
-sliding window, Sq == Skv).  ``flash_attention_plain`` is the same function in
-plain PyTorch, tiled like the JAX package's ``ops._flash_jnp``: the CPU path
-and the reference the kernel is held against on the card.
+sliding window, Sq == Skv).  The dtype picks the kernel: bf16 runs
+``flash_tc_kernel`` on the tensor cores (``wgmma`` over tiles that TMA
+brings into 128-byte-swizzled shared memory; P is rounded to bf16 before
+P·V, one bf16 unit of a row's scale), fp32 the CUDA-core kernels, whose
+full-fp32 products the fp32 parity checks need.  ``flash_attention_plain``
+is the same function in plain PyTorch, tiled like the JAX package's
+``ops._flash_jnp``: the CPU path and the reference both kernels are held
+against on the card.
 """
 from __future__ import annotations
 

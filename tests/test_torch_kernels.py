@@ -10,6 +10,8 @@ is held to 2e-4 in float32, as the JAX package's kernel tests hold it: its
 outputs run to tens, and the chunked and token-by-token forms round
 differently.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,6 +95,61 @@ def test_torch_oracle_matches_jax_oracle(causal, win):
     lengths = np.asarray([3, 20], np.int32)
     _close(ref.decode_attention_ref(q[:, :1], k, v, torch.from_numpy(lengths)),
            jref.decode_attention_ref(jq[:, :1], jk, jv, jnp.asarray(lengths)), "float32")
+
+
+def _flash_with_bf16_probabilities(q, k, v, *, window=None, kv_tile=64):
+    """Causal attention in fp32 with an online softmax over tiles of
+    ``kv_tile`` keys in the log2 domain, each tile's unnormalised
+    probabilities rounded to bf16 before P·V while the row sums take them in
+    fp32, the output rounded to bf16: the arithmetic of the bf16
+    tensor-core kernel, written out in PyTorch."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=2) for x in (k, v))
+    scale = math.log2(math.e) / math.sqrt(D)
+    pos = torch.arange(S)
+    m = torch.full((B, S, H), -1e30)
+    l = torch.zeros(B, S, H)
+    acc = torch.zeros(B, S, H, D)
+    for k0 in range(0, S, kv_tile):
+        kp = pos[k0:k0 + kv_tile]
+        ok = kp[None, :] <= pos[:, None]
+        if window is not None:
+            ok = ok & (kp[None, :] > pos[:, None] - window)
+        ok = ok[None, :, None, :]
+        s = torch.einsum("bqhd,bkhd->bqhk", qf, kf[:, k0:k0 + kv_tile]) * scale
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.where(ok, torch.exp2(s - m_new[..., None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqhk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf[:, k0:k0 + kv_tile])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,Hk,D,window", [
+    (1, 150, 16, 1, 256, 64),     # MQA at head width 256 with a window, as RecurrentGemma
+    (2, 130, 4, 4, 64, None),     # causal at head width 64, as the serving prefill
+])
+def test_bf16_probabilities_stay_within_the_cards_check(B, S, H, Hk, D, window):
+    """Models the rounding the bf16 flash kernel adds (P rounded to bf16
+    before P·V, which its tensor-core product needs) and holds it against
+    ``flash_attention_plain`` at the card's bf16 check: each output row's
+    max error over the row's max |plain| within 2e-2.  It is no test of the
+    kernel, which runs only on the card; ``chip_smoke.py`` holds the kernel
+    itself to the same check there."""
+    rng = np.random.default_rng(S + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+               for shape in ((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D)))
+    got = _flash_with_bf16_probabilities(q, k, v, window=window)
+    want = flash_attention_plain(q, k, v, window=window)
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    rel = (err / want.float().abs().amax(dim=-1).clamp(min=1e-6)).max().item()
+    assert rel <= TOL["bfloat16"]
+    assert not torch.equal(got, want)     # the rounding shows: this models something
 
 
 # ---------------------------------------------------------------------------
