@@ -19,10 +19,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefill shape (B=4, S=3072, H=16 on Hk=1, D=256, window 2048), every
    case in bf16 (the tensor-core kernel) and most in fp32 (the CUDA-core
    kernels) too; paged decode at B=8, page 16 with shared pages,
-   a forked page, sentinel columns and one all-sentinel (retired) row;
+   a forked page, sentinel columns and one all-sentinel (retired) row, at
+   G=1 and under GQA (G in {2, 4, 8}) and MQA (G=16);
    contiguous decode at B=8, H=Hk=16, D=64 with ragged lengths (0 and Smax
    included) on a horizon view of a longer cache, a GQA case, and G=16 at
-   head widths 128 and 256 (a 2,048-slot ring among them); WKV6 at H=40,
+   head widths 128 and 256 (a 2,048-slot ring among them); both D <= 64
+   decode kernels at their design's edges, bf16 and fp32, D=64 at
+   G in {1, 2, 4, 8, 16}, D=32 at G=3 and D=16: lengths 0, 1 and page-1,
+   warps left empty, each warp-range and sub-tile boundary ±1, exactly the
+   cache's capacity and past it, a retired row and a row whose table has a
+   hole of sentinel pages under two warps' ranges; WKV6 at H=40,
    D=64, T in {1, 37, 512} with RWKV6's own decay range and a carried state,
    also held against the token-by-token oracle in fp32; the RG-LRU scan at
    W=4096, T in {1, 37, 3072}, bf16 and fp32, with a carried state and
@@ -46,11 +52,11 @@ Phases, in order; any failure raises and the script exits non-zero:
       26 × 33 RG-LRU, 12 flash and 12 × 32 decode-attention launches.
    Paths c and d time prefill and the decode steps apart, then trace 8
    more decode steps with torch.profiler for the card's busy time a step.
-   Every bf16 flash case of phase 3, the decode cases at D >= 128 and the
-   flash and D=256 main-path entries are held row by row as well: the error
-   of each output row over the row's largest plain value.  Each kernel is
-   then timed, and held against its plain version, on inputs recorded from
-   its path (the shapes the main path gives it).
+   Every bf16 flash, decode and paged case of phase 3 and the flash,
+   paged, decode and D=256 main-path entries are held row by row as well:
+   the error of each output row over the row's largest plain value.  Each
+   kernel is then timed, and held against its plain version, on inputs
+   recorded from its path (the shapes the main path gives it).
 5. Parity in fp32, kernels against plain versions: both serving paths
    (prefill logits within 1e-3, identical greedy streams), RWKV6-3B and
    RecurrentGemma-9B at full depth (prefill logits within 1e-3, identical
@@ -86,6 +92,7 @@ RGLRU_ORACLE_TOL = 1e-5        # kernel vs token-by-token fp32, as tests/test_ke
 LOGIT_TOL = 1e-3
 SEED = 0
 DEVICE = "cuda:0"
+DECODE_WARPS = 8               # warps a block of the D <= 64 decode kernels (csrc/decode_body.cuh)
 
 
 def check(cond, msg):
@@ -100,6 +107,15 @@ def row_rel_err(got, want):
     tightly as the rest."""
     d = (got.float() - want.float()).abs().amax(-1)
     return (d / want.float().abs().amax(-1).clamp(min=1e-6)).max().item()
+
+
+def decode_sub_tile(dtype, D, G):
+    """Positions a warp of the D <= 64 decode kernels loads at once
+    (``csrc/decode_body.cuh``): the rows one load instruction covers (32
+    lanes over D / VEC lanes a row, VEC elements in 16 bytes) times the loads
+    in flight a lane (8 when a block takes at most 2 query heads, else 4)."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return (8 if G <= 2 else 4) * 32 // (D // vec)
 
 
 def timed_ms(fn, iters, flush):
@@ -475,6 +491,9 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         check(err <= TOL[q.dtype], f"paged {label}: max abs err {err:.3g} > {TOL[q.dtype]}")
+        rel = row_rel_err(got, want)
+        check(q.dtype != torch.bfloat16 or rel <= TOL[q.dtype],
+              f"paged {label}: row-relative err {rel:.3g} > {TOL[q.dtype]}")
         retired = args[3].eq(args[1].shape[0]).all(dim=1)
         check(bool(torch.isfinite(got).all()), f"paged {label}: non-finite output")
         check(bool(got[retired].eq(0).all()), f"paged {label}: retired row is not zero")
@@ -482,14 +501,18 @@ def main() -> int:
         plain_ms = timed_ms(lambda: paged_plain(*args), 10, flush)
         print(f"[kernels] paged {label} q {tuple(q.shape)} pool {tuple(args[1].shape)} table "
               f"{tuple(args[3].shape)} {str(q.dtype)[6:]}: max|err| {err:.3g} "
-              f"(tol {TOL[q.dtype]}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"(tol {TOL[q.dtype]}), row-relative {rel:.3g}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
         results["cases"].append(dict(kernel="paged_attention", label=label,
                                      q=list(q.shape), pool=list(args[1].shape),
                                      table=list(args[3].shape), dtype=str(q.dtype),
-                                     max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                                     max_abs_err=err, row_rel_err=rel, ms=ms,
+                                     plain_ms=plain_ms))
 
     for dtype in (torch.bfloat16, torch.float32):
         paged_case("shared-fork-sentinel", paged_inputs(dtype))
+        for G in (2, 4, 8, 16):          # GQA, and MQA at G=16
+            paged_case(f"shared-fork-sentinel-g{G}", paged_inputs(dtype, Hk=16 // G))
     paged_case("ragged-gqa", paged_inputs(torch.float32, B=5, ps=8, H=8, Hk=2, D=32,
                                           max_len=100))
 
@@ -508,7 +531,7 @@ def main() -> int:
         err = (got.float() - want.float()).abs().max().item()
         check(err <= TOL[dtype], f"decode {label}: max abs err {err:.3g} > {TOL[dtype]}")
         rel = row_rel_err(got, want)
-        check(dtype != torch.bfloat16 or D < 128 or rel <= TOL[dtype],
+        check(dtype != torch.bfloat16 or rel <= TOL[dtype],
               f"decode {label}: row-relative err {rel:.3g} > {TOL[dtype]}")
         check(bool(got[0].eq(0).all()), f"decode {label}: a length-0 row is not zero")
         ms = timed_ms(lambda: decode_kernel(q, k, v, lengths), 50, flush)
@@ -529,6 +552,75 @@ def main() -> int:
         decode_case("mqa-ring-d256", 4, 2048, 16, 1, 256, dtype, 2048)
         decode_case("mqa-horizon-d128", 3, 300, 16, 1, 128, dtype, 400)
     decode_case("gqa-d256", 2, 90, 32, 2, 256, torch.float32, 100)
+
+    def edge_lengths(dtype, D, G, ps, cap):
+        """Lengths at the D <= 64 kernels' edges (``csrc/decode_body.cuh``):
+        0, 1 and ps - 1; DECODE_WARPS ± 1 (warps left empty); one and two
+        sub-tiles a warp ± 1, where the warps' ranges and the sub-tiles
+        change; exactly ``cap`` (n_cols·ps or Smax) and past it."""
+        w, sub = DECODE_WARPS, decode_sub_tile(dtype, D, G)
+        lens = [0, 1, ps - 1, w - 1, w, w + 1]
+        for n in (w * sub, 2 * w * sub):
+            lens += [x for x in (n - 1, n, n + 1) if x < cap]
+        return lens + [cap, cap + 5]
+
+    def edge_check(kind, label, got, want, dtype, zero_rows):
+        err = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        check(err <= TOL[dtype] and (dtype != torch.bfloat16 or rel <= TOL[dtype]),
+              f"{kind} {label}: max abs err {err:.3g}, row-relative {rel:.3g} > {TOL[dtype]}")
+        check(bool(torch.isfinite(got).all()), f"{kind} {label}: non-finite output")
+        check(bool(got[zero_rows].eq(0).all()), f"{kind} {label}: an empty row is not zero")
+        print(f"[kernels] {kind} {label} q {tuple(got.shape)} {str(dtype)[6:]}: max|err| "
+              f"{err:.3g} (tol {TOL[dtype]}), row-relative {rel:.3g}")
+        results["cases"].append(dict(kernel=f"{kind}_attention", label=label,
+                                     q=list(got.shape), dtype=str(dtype), max_abs_err=err,
+                                     row_rel_err=rel))
+
+    def decode_edges(dtype, D, G):
+        """Every edge length of ``edge_lengths`` as one row each, on a
+        horizon view of a longer cache; Smax leaves the two-sub-tile
+        boundary inside it."""
+        S = 2 * DECODE_WARPS * decode_sub_tile(dtype, D, G) + 8
+        lens = edge_lengths(dtype, D, G, 16, S)
+        B, Hk = len(lens), max(1, 16 // G)
+        q = randn(B, 1, G * Hk, D, dtype=dtype)
+        k = horizon_view(randn(B, S, Hk, D, dtype=dtype), S + 64)
+        v = horizon_view(randn(B, S, Hk, D, dtype=dtype), S + 64)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        edge_check("decode", f"edges-d{D}-g{G} S={S} lengths {lens}",
+                   decode_kernel(q, k, v, lengths), decode_plain(q, k, v, lengths), dtype,
+                   lengths.eq(0))
+
+    def paged_edges(dtype, D, G, ps=16):
+        """The edge lengths over pages of their own, plus a retired row (all
+        sentinels, length 100) and a row whose table has a hole of sentinel
+        pages where warps 2 and 3 read (so those warps find nothing)."""
+        sub = decode_sub_tile(dtype, D, G)
+        n_cols = -(-(2 * DECODE_WARPS * sub + 8) // ps)
+        lens = edge_lengths(dtype, D, G, ps, n_cols * ps) + [100, DECODE_WARPS * sub]
+        B, Hk = len(lens), max(1, 16 // G)
+        P = B * n_cols + 2
+        pages = np.random.default_rng(SEED + D + G).permutation(P)
+        table = np.full((B, n_cols), P, np.int32)
+        for b, n in enumerate(lens):
+            used = min(-(-n // ps), n_cols)
+            table[b, :used] = pages[b * n_cols:b * n_cols + used]
+        table[B - 2] = P                                   # retired
+        table[B - 1, 2 * sub // ps:-(-4 * sub // ps)] = P  # hole under warps 2 and 3
+        q = randn(B, 1, G * Hk, D, dtype=dtype)
+        k_pool, v_pool = randn(P, ps, Hk, D, dtype=dtype), randn(P, ps, Hk, D, dtype=dtype)
+        table, lengths = torch.from_numpy(table).to(dev), torch.tensor(lens, dtype=torch.int32,
+                                                                       device=dev)
+        args = (q, k_pool, v_pool, table, lengths)
+        empty = lengths.eq(0) | table.eq(P).all(dim=1)
+        edge_check("paged", f"edges-d{D}-g{G} lengths {lens}", paged_kernel(*args),
+                   paged_plain(*args), dtype, empty)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D, G in ((64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (32, 3), (16, 1)):
+            decode_edges(dtype, D, G)
+            paged_edges(dtype, D, G)
 
     def wkv6_inputs(B, T, H, D, dtype):
         """r/k/v ~ N(0, 1), RWKV6's own decay range exp(−exp(U(−0.5, 0.5))),
@@ -794,15 +886,18 @@ def main() -> int:
         library_ms=timed_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20, flush),
         shape=dict(q=list(fq.shape), k=list(fk.shape), dtype=str(fq.dtype))))
     pargs, _ = paged_call
-    p_err = (paged_kernel(*pargs).float() - paged_plain(*pargs).float()).abs().max().item()
-    check(p_err <= TOL[pargs[0].dtype], f"paged on main-path inputs: max abs err {p_err:.3g}")
+    p_out, p_want = paged_kernel(*pargs), paged_plain(*pargs)
+    p_err = (p_out.float() - p_want.float()).abs().max().item()
+    p_rel = row_rel_err(p_out, p_want)
+    check(p_err <= TOL[pargs[0].dtype] and p_rel <= TOL[pargs[0].dtype],
+          f"paged on main-path inputs: max abs err {p_err:.3g}, row-relative {p_rel:.3g}")
     p_bound, p_by = bound_ms(*paged_work(pargs[0], pargs[1], pargs[3], pargs[4]),
                              pargs[0].dtype)
     entries.append(dict(
         name="paged_attention", route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:116",
         launches=paged_counts["paged_attention"], max_abs_err=p_err, atol=TOL[pargs[0].dtype],
-        rtol=0.0,
+        rtol=0.0, row_rel_err=p_rel, out_max=p_want.float().abs().max().item(),
         ms=timed_ms(lambda: paged_kernel(*pargs), 50, flush),
         plain_ms=timed_ms(lambda: paged_plain(*pargs), 10, flush),
         bound_ms=p_bound, bound_by=p_by, library_ms=None,
@@ -811,9 +906,11 @@ def main() -> int:
                    dtype=str(pargs[0].dtype))))
     (dq, dk, dv, dlen), _ = decode_call
     dk, dv = horizon_view(dk, SERVE_MAX_LEN), horizon_view(dv, SERVE_MAX_LEN)
-    d_err = (decode_kernel(dq, dk, dv, dlen).float()
-             - decode_plain(dq, dk, dv, dlen).float()).abs().max().item()
-    check(d_err <= TOL[dq.dtype], f"decode on main-path inputs: max abs err {d_err:.3g}")
+    d_out, d_want = decode_kernel(dq, dk, dv, dlen), decode_plain(dq, dk, dv, dlen)
+    d_err = (d_out.float() - d_want.float()).abs().max().item()
+    d_rel = row_rel_err(d_out, d_want)
+    check(d_err <= TOL[dq.dtype] and d_rel <= TOL[dq.dtype],
+          f"decode on main-path inputs: max abs err {d_err:.3g}, row-relative {d_rel:.3g}")
     # the library yardstick: SDPA over (B, H, S, D) with the length mask
     G = dq.shape[2] // dk.shape[2]
     sq = dq.transpose(1, 2).contiguous()
@@ -825,7 +922,7 @@ def main() -> int:
         source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:83",
         launches=contig_counts["decode_attention"], max_abs_err=d_err, atol=TOL[dq.dtype],
-        rtol=0.0,
+        rtol=0.0, row_rel_err=d_rel, out_max=d_want.float().abs().max().item(),
         ms=timed_ms(lambda: decode_kernel(dq, dk, dv, dlen), 50, flush),
         plain_ms=timed_ms(lambda: decode_plain(dq, dk, dv, dlen), 10, flush),
         bound_ms=d_bound, bound_by=d_by,

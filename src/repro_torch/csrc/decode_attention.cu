@@ -9,36 +9,31 @@
 // never NaN.  k and v are addressed through their batch and sequence
 // strides, so a horizon slice of a longer cache is read where it lies.
 //
-// What bounds it on the H100: memory.  Each step reads each row's live K/V
-// once, 4·D·Hk bytes per position in bf16, and does 4·D FLOPs per (query
-// head, position): a few FLOPs per byte, far below the ~295 the card needs
-// to be compute-bound.
+// What bounds it on the H100: at serving shapes, latency.  Each step reads
+// each row's live K/V once, 4·D·Hk bytes per position in bf16, and does 4·D
+// FLOPs per (query head, position): memory-bound in principle, but a serving
+// step moves only a few MB, which the card's bandwidth clears in about a
+// microsecond, so the launch and the dependent memory latencies set the time.
 //
-// What the design does about it:
-//  * One block per (KV head, batch row); all G = H / Hk query heads of the
-//    KV head share every K/V row the block loads, so GQA reads the cache
-//    once per group.  (Groups of more than GMAX heads are split over
-//    several blocks along grid.x.)
-//  * fp32 at D = 64 would hold 32 16-byte vectors per lane in flight; it
-//    stages a tile in two passes of 16 to stay clear of register spills.
-//  * The TPU kernel's sequential KV grid axis becomes a loop, split across
-//    the block's warps: warp w takes tiles w, w + NW, ... of 32 positions,
-//    and each warp carries its own (m, l, acc) in registers.  The warps'
-//    partial softmaxes merge through shared memory at the end.
-//  * A warp stages its tile in its own slice of shared memory with 16-byte
-//    loads, every load of the tile in flight before any is stored; rows at
-//    or past the length are never loaded, so the kernel reads only what the
-//    row needs.  Lane t then scores position t of the tile (the K tile is
-//    padded by one float per row so this is free of bank conflicts), and
-//    lane d accumulates value dimensions d, d + 32, ...
+// What the design does about it, at D <= 64 (decode_body.cuh holds the body,
+// shared with the paged kernel; here a K/V row lies at pos · Smax-stride):
+//  * One block of NW = 8 warps per (KV head, batch row, slice of up to 8
+//    query heads); all query heads of the slice share every K/V row the
+//    block loads, so GQA reads the cache once per slice.
+//  * Each warp takes a contiguous range of the row's positions and issues
+//    all K/V loads of a sub-tile (32 positions at bf16 D = 64) before it uses
+//    any, keeping them in registers: one memory latency covers the row at
+//    serving lengths; no shared-memory staging and no barrier in the loop.
+//    Rows at or past the length are never loaded.
+//  * Scores by xor-shuffle within a row's lanes, the online softmax per row
+//    group, P·V in the lanes that hold V; the warps merge once at the end.
 //
 // Wide heads (D = 128, 256) take a second design, decode_split_kernel and
 // decode_merge_kernel below ("flash-decoding"), entered through
-// repro_decode_attention_split.  The design above would need NW·TK·(2D + 1)
-// floats of shared memory (263 KB at D = 256, above the 227 KB a block may
-// have), and it caps a block at GMAX = 8 query heads, so under MQA with
-// G = 16 it would read every row twice; and at RecurrentGemma-9B's decode
-// (B = 4, Hk = 1) one block per (row, KV head) lights 4 of 132 SMs.
+// repro_decode_attention_split.  The design above runs one block per (row,
+// KV head, slice of at most 8 query heads): at RecurrentGemma-9B's decode
+// (B = 4, Hk = 1) that lights 4 of 132 SMs, and under MQA with G = 16 it
+// would read every row twice.
 //  * The sequence is split into pieces of STS = 64 positions, one block
 //    each (grid: pieces × KV heads × rows), so a 2,048-slot ring at B = 4
 //    runs as 128 blocks.  Each block takes up to SGMAX = 16 query heads of
@@ -52,179 +47,50 @@
 //    allocates; decode_merge_kernel rescales and sums the pieces.  A piece
 //    at or past the row's length loads nothing and writes (−1e30, 0, 0), so
 //    a length-0 row merges to zeros.
-#include "common.cuh"
+#include "decode_body.cuh"
 
 namespace {
 
-constexpr int TK = 32;    // positions per warp tile (one per lane)
-constexpr int NW = 4;     // warps per block
-constexpr int NT = NW * 32;
-constexpr int GMAX = 8;   // query heads a block handles
-
-// gs = min(G, GMAX), the heads of one block
-template <int D>
-size_t smem_bytes(int gs) {
-  // per warp: K tile TK x (D + 1) and V tile TK x D; then, for the merge,
-  // every warp's (m, l) and acc for the block's heads; and the q vectors
-  return sizeof(float) * ((size_t)NW * TK * (2 * D + 1) + (size_t)NW * gs * (D + 2) +
-                          (size_t)gs * D);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+// One block an SM, as the paged kernel: no spill at eight query heads.
+template <typename T, int D, int GB>
+__global__ void __launch_bounds__(decode_body::NT, 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ lengths, T* __restrict__ o, int S, int Hk, int G,
               int n_gsplit, long long bs, long long ss, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ks = sm + (size_t)warp * TK * (2 * D + 1);  // this warp's K tile
-  float* vs = ks + TK * (D + 1);                     // and its V tile
-  const int gs = min(G, GMAX);                       // head stride of the merge arrays
-  float* m_all = sm + (size_t)NW * TK * (2 * D + 1); // NW x gs
-  float* l_all = m_all + NW * gs;                    // NW x gs
-  float* acc_all = l_all + NW * gs;                  // NW x gs x D
-  float* qs = acc_all + (size_t)NW * gs * D;         // gs x D
-
   const int h = blockIdx.x / n_gsplit;               // KV head
-  const int g0 = (blockIdx.x % n_gsplit) * GMAX;     // first query head of the group slice
-  const int ng = min(GMAX, G - g0);                  // heads this block handles
+  const int g0 = (blockIdx.x % n_gsplit) * GB;       // first query head of the slice
   const int b = blockIdx.y;
-  const int H = Hk * G;
-  const size_t q_off = ((size_t)b * H + (size_t)h * G + g0) * D;
-
-  for (int i = threadIdx.x; i < ng * D; i += NT) qs[i] = to_float(q[q_off + i]);
-  __syncthreads();
-
-  constexpr int VEC = Vec<T>::N;        // elements per 16-byte load
-  constexpr int VPR = D / VEC;          // vectors per K/V row
-  constexpr int PER = TK * VPR / 32;    // vectors of K (and of V) per lane
-  static_assert(TK * VPR % 32 == 0, "a tile must split evenly over the lanes");
-  constexpr int PASS = PER > 8 ? 2 : 1; // fp32 at D=64 stages in two passes
-  constexpr int PP = PER / PASS;        // vectors of K (and of V) per lane and pass
-  constexpr int DPL = (D + 31) / 32;    // value dimensions per lane
-
-  float m[GMAX], l[GMAX], acc[GMAX][DPL];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = REPRO_NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
-  }
-
-  const int n_pos = min(lengths[b], S);
-  const T* kb = k + (size_t)b * bs + (size_t)h * D;
-  const T* vb = v + (size_t)b * bs + (size_t)h * D;
-
-  for (int base = warp * TK; base < n_pos; base += NW * TK) {
-    __syncwarp();  // the previous tile is consumed
-#pragma unroll
-    for (int pass = 0; pass < PASS; ++pass) {
-      uint4 kr[PP], vr[PP];
-#pragma unroll
-      for (int r = 0; r < PP; ++r) {
-        const int i = lane + (pass * PP + r) * 32;
-        const int pos = base + i / VPR;
-        kr[r] = make_uint4(0u, 0u, 0u, 0u);
-        vr[r] = kr[r];
-        if (pos < n_pos) {
-          const size_t off = (size_t)pos * ss + (i % VPR) * VEC;
-          kr[r] = load_vec(kb + off);
-          vr[r] = load_vec(vb + off);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < PP; ++r) {
-        const int i = lane + (pass * PP + r) * 32;
-        const int t = i / VPR;
-        store_widened(ks + t * (D + 1) + (i % VPR) * VEC, kr[r], T());
-        store_widened(vs + t * D + (i % VPR) * VEC, vr[r], T());
-      }
-    }
-    __syncwarp();
-    const bool live = base + lane < n_pos;
-    const float* kt = ks + lane * (D + 1);
-    float p[GMAX];
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g < ng) {
-        const float* qg = qs + g * D;
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot += qg[d] * kt[d];
-        const float s = live ? dot * scale : REPRO_NEG_INF;
-        const float m_new = fmaxf(m[g], warp_max(s));
-        p[g] = live ? expf(s - m_new) : 0.f;
-        const float c = expf(m[g] - m_new);
-        l[g] = l[g] * c + warp_sum(p[g]);
-        m[g] = m_new;
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[g][j] *= c;
-      }
-    }
-    const int n_t = min(TK, n_pos - base);
-    for (int t = 0; t < n_t; ++t) {
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g < ng) {
-          const float pt = __shfl_sync(0xffffffffu, p[g], t);
-#pragma unroll
-          for (int j = 0; j < DPL; ++j) {
-            const int d = lane + 32 * j;
-            if (d < D) acc[g][j] += pt * vs[t * D + d];
-          }
-        }
-      }
-    }
-  }
-
-  // merge the warps' partial softmaxes
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (g < ng) {
-      if (lane == 0) {
-        m_all[warp * gs + g] = m[g];
-        l_all[warp * gs + g] = l[g];
-      }
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        const int d = lane + 32 * j;
-        if (d < D) acc_all[((size_t)warp * gs + g) * D + d] = acc[g][j];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng * D; i += NT) {
-    const int g = i / D;
-    const int d = i - g * D;
-    float mx = REPRO_NEG_INF;
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_all[w * gs + g]);
-    float lsum = 0.f, a = 0.f;
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(m_all[w * gs + g] - mx);
-      lsum += l_all[w * gs + g] * c;
-      a += acc_all[((size_t)w * gs + g) * D + d] * c;
-    }
-    o[q_off + i] = from_float<T>(a / fmaxf(lsum, 1e-30f));
-  }
+  const size_t q_off = ((size_t)b * Hk * G + (size_t)h * G + g0) * D;
+  const size_t kv_off = (size_t)b * bs + (size_t)h * D;
+  decode_body::attend<T, D, GB>(q + q_off, k + kv_off, v + kv_off,
+                                decode_body::ContiguousRows{ss},
+                                max(0, min(lengths[b], S)), min(GB, G - g0), scale, o + q_off);
 }
 
-template <typename T, int D>
+template <typename T, int D, int GB>
 int launch(const void* q, const void* k, const void* v, const int* lengths, void* o, int B,
            int Hk, int G, int S, long long bs, long long ss, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(G < GMAX ? G : GMAX);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int n_gsplit = (G + GMAX - 1) / GMAX;
+  const int n_gsplit = (G + GB - 1) / GB;
   const dim3 grid(Hk * n_gsplit, B);
-  decode_kernel<T, D><<<grid, NT, smem, stream>>>(
+  decode_kernel<T, D, GB><<<grid, decode_body::NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
       static_cast<T*>(o), S, Hk, G, n_gsplit, bs, ss, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_g(const void* q, const void* k, const void* v, const int* lengths, void* o, int B,
+             int Hk, int G, int S, long long bs, long long ss, cudaStream_t stream) {
+  switch (decode_body::heads_per_block(G)) {
+    case 1:
+      return launch<T, D, 1>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+    case 2:
+      return launch<T, D, 2>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+    case 4:
+      return launch<T, D, 4>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+    default:
+      return launch<T, D, decode_body::GMAX>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+  }
 }
 
 template <typename T>
@@ -232,11 +98,11 @@ int launch_d(const void* q, const void* k, const void* v, const int* lengths, vo
              int Hk, int G, int D, int S, long long bs, long long ss, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+      return launch_g<T, 16>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+      return launch_g<T, 32>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+      return launch_g<T, 64>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

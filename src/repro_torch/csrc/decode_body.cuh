@@ -1,0 +1,217 @@
+// The body of one-token decode attention at head widths up to 64, shared by
+// the paged kernel (paged_attention.cu) and the contiguous one
+// (decode_attention.cu, D <= 64).  The two differ only in where the K/V row
+// of a sequence position lies, which an address policy says: strides for a
+// contiguous or horizon-view cache (ContiguousRows), a page-table lookup for
+// the pool (PagedRows).
+//
+// Design, for one block per (KV head, batch row, slice of at most GMAX query
+// heads):
+//  * The row's positions split into NW contiguous ranges, one per warp.  A
+//    K/V row of D elements is LPR = D / VEC lanes wide (VEC elements per
+//    16-byte load), so one load instruction of a warp covers RPL = 32 / LPR
+//    rows (bf16 at D = 64: 8 lanes a row, 4 rows a load).
+//  * A warp walks its range in sub-tiles of NL loads per lane.  Every K and
+//    V load of a sub-tile is issued before any is used, so one memory
+//    latency covers NL · RPL positions; the vectors stay in registers and are
+//    widened to fp32 where they are used: no copy of K/V in shared memory and
+//    no block barrier inside the loop.  fp32 needs twice the loads of bf16
+//    for a row, so its sub-tile covers half the positions (the two passes of
+//    the earlier design).  A position at or past the length, or one that
+//    the policy masks (a sentinel page), is never loaded.
+//  * A lane's dot product over its VEC columns is summed over the row's LPR
+//    lanes by an xor-shuffle.  Each group of LPR lanes keeps its own online
+//    softmax (m, l) and its share of P·V for its VEC columns, in the lanes
+//    that hold V; all GB query heads of the slice score against each K row a
+//    warp holds, so GQA reads the cache once per slice.
+//  * After the loop the groups of a warp merge by xor-shuffle, and the
+//    warps' (m, l, acc) merge once through shared memory.  fp32 throughout,
+//    with the TPU kernels' finite NEG_INF: an empty range is (NEG_INF, 0, 0)
+//    and a row with nothing to read gives acc / max(l, 1e-30) = 0.
+//
+// Next steps, not built: a split of the sequence across blocks with a
+// last-block merge, for shapes with fewer (KV head, row) pairs than SMs
+// (batch-1 serving); cp.async or TMA rings in place of register staging;
+// the decode step as a CUDA graph, which removes the launch this kernel's
+// time is mostly made of at serving shapes.
+#pragma once
+
+#include "common.cuh"
+
+namespace decode_body {
+
+constexpr int NW = 8;          // warps per block, each one range of positions
+constexpr int NT = NW * 32;    // threads per block
+constexpr int GMAX = 8;        // query heads a block handles at most
+
+// Query heads a block takes for a group of G: the smallest of 1, 2, 4 and
+// GMAX that holds G (capped at GMAX, so G > 8 runs several blocks a KV head).
+inline int heads_per_block(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : GMAX; }
+
+// Address policies: the element offset of position pos's K/V row from the
+// (batch row, KV head) base pointer, or -1 where the position is not read.
+struct ContiguousRows {
+  long long ss;                  // sequence stride, in elements
+  __device__ __forceinline__ long long operator()(int pos) const {
+    return (long long)pos * ss;
+  }
+};
+
+struct PagedRows {
+  const int* table;              // the batch row's table, in shared memory
+  int ps;                        // positions per page
+  int n_pool;                    // pages in the pool; an entry outside [0, n_pool) is a sentinel
+  long long pool_row;            // elements from one pool position to the next: Hk · D
+  __device__ __forceinline__ long long operator()(int pos) const {
+    const int page = table[pos / ps];
+    return page >= 0 && page < n_pool ? ((long long)page * ps + pos % ps) * pool_row : -1;
+  }
+};
+
+template <typename T, int D, int GB>
+struct Tiling {
+  static constexpr int VEC = Vec<T>::N;          // elements per 16-byte load
+  static constexpr int LPR = D / VEC;            // lanes a K/V row
+  static constexpr int RPL = 32 / LPR;           // rows a warp load instruction
+  static constexpr int NL = GB <= 2 ? 8 : 4;     // K (and V) loads in flight a lane
+  static constexpr int SUB = NL * RPL;           // positions a warp sub-tile
+  static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "a row must tile a warp");
+};
+
+// One query token of GB (ng live) heads against the first n positions of a
+// sequence.  q and o point at the slice's first query head (heads D apart);
+// kb and vb at the (batch row, KV head) base that rows() offsets.  Every
+// thread of the block calls it.
+template <typename T, int D, int GB, class Rows>
+__device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ kb,
+                                       const T* __restrict__ vb, const Rows rows, int n, int ng,
+                                       float scale, T* __restrict__ o) {
+  using Tl = Tiling<T, D, GB>;
+  constexpr int VEC = Tl::VEC, LPR = Tl::LPR, RPL = Tl::RPL, NL = Tl::NL;
+  __shared__ float m_all[NW][GB], l_all[NW][GB];
+  __shared__ __align__(16) float acc_all[NW][GB][D];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int grp = lane / LPR;              // the row this lane takes in each load
+  const int col = (lane % LPR) * VEC;      // its first column
+
+  float qf[GB][VEC], acc[GB][VEC], m[GB], l[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    m[g] = REPRO_NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      acc[g][e] = 0.f;
+      qf[g][e] = 0.f;
+    }
+    if (g < ng) store_widened(qf[g], load_vec(q + g * D + col), T());
+  }
+
+  const int per = (n + NW - 1) / NW;       // positions a warp
+  const int lo = min(n, warp * per);
+  const int hi = min(n, lo + per);
+  for (int base = lo; base < hi; base += Tl::SUB) {
+    uint4 kr[NL], vr[NL];
+    bool live[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {       // every load of the sub-tile, then any use
+      const int pos = base + i * RPL + grp;
+      const long long off = pos < hi ? rows(pos) : -1;
+      live[i] = off >= 0;
+      kr[i] = make_uint4(0u, 0u, 0u, 0u);
+      vr[i] = kr[i];
+      if (live[i]) {
+        kr[i] = load_vec(kb + off + col);
+        vr[i] = load_vec(vb + off + col);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < ng) {                        // uniform over the block
+        float s[NL];
+        float mx = REPRO_NEG_INF;
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          float kf[VEC];
+          store_widened(kf, kr[i], T());
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot += qf[g][e] * kf[e];
+#pragma unroll
+          for (int off = LPR / 2; off > 0; off >>= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          s[i] = live[i] ? dot * scale : REPRO_NEG_INF;
+          mx = fmaxf(mx, s[i]);
+        }
+        const float m_new = fmaxf(m[g], mx);
+        const float c = expf(m[g] - m_new);
+        m[g] = m_new;
+        l[g] *= c;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] *= c;
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const float p = live[i] ? expf(s[i] - m_new) : 0.f;
+          float vf[VEC];
+          store_widened(vf, vr[i], T());
+          l[g] += p;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[g][e] += p * vf[e];
+        }
+      }
+    }
+  }
+
+  // the warp's row groups merge by xor-shuffle (lanes LPR apart hold the
+  // same columns of other rows), then the warps through shared memory
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < ng) {
+        const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
+        const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
+        const float m_new = fmaxf(m[g], m_o);
+        const float c = expf(m[g] - m_new), c_o = expf(m_o - m_new);
+        m[g] = m_new;
+        l[g] = l[g] * c + l_o * c_o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[g][e] = acc[g][e] * c + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * c_o;
+      }
+    }
+  }
+  if (lane < LPR) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < ng) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc_all[warp][g][col + e] = acc[g][e];
+        if (lane == 0) {
+          m_all[warp][g] = m[g];
+          l_all[warp][g] = l[g];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng * D; i += NT) {
+    const int g = i / D;
+    const int d = i - g * D;
+    float mx = REPRO_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, m_all[w][g]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float c = expf(m_all[w][g] - mx);
+      lsum += l_all[w][g] * c;
+      a += acc_all[w][g][d] * c;
+    }
+    o[i] = from_float<T>(a / fmaxf(lsum, 1e-30f));
+  }
+}
+
+}  // namespace decode_body

@@ -370,6 +370,113 @@ def test_paged_plain_shared_forked_and_retired_rows():
 
 
 # ---------------------------------------------------------------------------
+# the split arithmetic of the D <= 64 decode kernels (csrc/decode_body.cuh)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30        # the TPU kernels' finite mask value
+N_WARPS, SUB = 8, 4    # warps a block; positions a warp sub-tile (small, so rows cross several)
+
+
+def _split_decode(q, k, v, lengths, mapped=None):
+    """The D <= 64 decode kernels' arithmetic in plain fp32 PyTorch: row b's
+    n_b = min(lengths[b], S) positions split into N_WARPS contiguous ranges
+    of ceil(n_b / N_WARPS); each range runs its own online softmax over
+    sub-tiles of SUB positions (a position not ``mapped`` scores NEG_INF and
+    weighs 0), so an empty range is (NEG_INF, 0, 0); the partials merge by
+    rescaling to the largest m, and a row with nothing to read gives
+    0 / max(0, 1e-30) = 0.
+
+    q: (B, 1, H, D); k/v: (B, S, Hk, D); lengths: (B,); mapped: (B, S) bool
+    or None (all).  It models the algorithm, not the kernel: only
+    ``chip_smoke.py`` holds the kernel."""
+    B, _, H, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    qg = q[:, 0].float().reshape(B, Hk, G, D)
+    out = torch.zeros(B, Hk, G, D)
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), S))
+        per = -(-n // N_WARPS)
+        parts = []
+        for w in range(N_WARPS):
+            m = torch.full((Hk, G), NEG_INF)
+            l = torch.zeros(Hk, G)
+            acc = torch.zeros(Hk, G, D)
+            lo, hi = min(n, w * per), min(n, (w + 1) * per)
+            for base in range(lo, hi, SUB):
+                pos = torch.arange(base, min(base + SUB, hi))
+                live = torch.ones(len(pos), dtype=torch.bool) if mapped is None \
+                    else mapped[b, pos]
+                s = torch.einsum("hgd,thd->hgt", qg[b], k[b, pos].float()) / math.sqrt(D)
+                s = torch.where(live, s, torch.tensor(NEG_INF))
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                c = torch.exp(m - m_new)
+                p = torch.where(live, torch.exp(s - m_new[..., None]), torch.tensor(0.0))
+                l = l * c + p.sum(dim=-1)
+                acc = acc * c[..., None] + torch.einsum("hgt,thd->hgd", p, v[b, pos].float())
+                m = m_new
+            parts.append((m, l, acc))
+        m_all = torch.stack([m for m, _, _ in parts])                        # (W, Hk, G)
+        mx = m_all.amax(dim=0)
+        c = torch.exp(m_all - mx)
+        l_sum = sum(c[w] * parts[w][1] for w in range(N_WARPS))
+        a_sum = sum(c[w][..., None] * parts[w][2] for w in range(N_WARPS))
+        out[b] = a_sum / l_sum.clamp_min(1e-30)[..., None]
+    return out.reshape(B, 1, H, D)
+
+
+# lengths at the split's edges for N_WARPS and SUB, on a cache of S = 72
+# positions in pages of 8: 0, 1 and page - 1; warps left empty (N_WARPS ± 1);
+# one and two sub-tiles a warp ± 1; exactly S and past it
+_SPLIT_S, _SPLIT_PS = 72, 8
+_SPLIT_LENGTHS = {
+    "short": [0, 1, _SPLIT_PS - 1],
+    "warps": [N_WARPS - 1, N_WARPS, N_WARPS + 1],
+    "one-sub-tile": [N_WARPS * SUB - 1, N_WARPS * SUB, N_WARPS * SUB + 1],
+    "two-sub-tiles": [2 * N_WARPS * SUB - 1, 2 * N_WARPS * SUB, 2 * N_WARPS * SUB + 1],
+    "capacity": [_SPLIT_S, _SPLIT_S + 5],
+}
+
+
+@pytest.mark.parametrize("retired", [False, True])
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("group", list(_SPLIT_LENGTHS))
+def test_split_decode_arithmetic_matches_plain_jax_and_pallas(group, G, retired):
+    """The warp split with empty ranges as (NEG_INF, 0, 0) gives what the
+    plain versions, ``_decode_jnp`` and the Pallas paged kernel (interpret
+    mode) give, at the split's edge lengths; a retired row (all-sentinel
+    table, stale length) gives zeros through the page mask."""
+    Hk, D = (2 if G < 16 else 1), 16
+    lengths = list(_SPLIT_LENGTHS[group]) + ([40] if retired else [])
+    B, H = len(lengths), G * Hk
+    rng = np.random.default_rng(7 * G + len(group) + retired)
+    (q, jq), (k, jk), (v, jv) = _arrs(rng, "float32", (B, 1, H, D), (B, _SPLIT_S, Hk, D),
+                                      (B, _SPLIT_S, Hk, D))
+    lens = np.asarray(lengths, np.int32)
+
+    # contiguous cache: against the plain version and _decode_jnp
+    got = _split_decode(q, k, v, lens)
+    _close(got, decode_attention_plain(q, k, v, torch.from_numpy(lens)), "float32")
+    _close(got, jops._decode_jnp(jq, jk, jv, jnp.asarray(lens)), "float32")
+    assert torch.equal(got[lens == 0], torch.zeros_like(got[lens == 0]))
+
+    # the same rows through a shuffled page pool; the retired row's table is
+    # all sentinels, so it sees nothing whatever its length
+    k_pool, v_pool, table = _paginate(rng, k, v, _SPLIT_PS, lens)
+    if retired:
+        table[-1] = k_pool.shape[0]
+    mapped = torch.from_numpy(table < k_pool.shape[0]).repeat_interleave(_SPLIT_PS, dim=1)
+    got = _split_decode(q, k, v, lens, mapped)
+    (kp, jkp), (vp, jvp) = _both(k_pool, "float32"), _both(v_pool, "float32")
+    tab, tlen = torch.from_numpy(table), torch.from_numpy(lens)
+    _close(got, paged_attention_plain(q, kp, vp, tab, tlen), "float32")
+    _close(got, paged_attention_pallas(jq, jkp, jvp, jnp.asarray(table), jnp.asarray(lens),
+                                       interpret=True), "float32")
+    empty = (lens == 0) | ~mapped.any(dim=1).numpy()
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+# ---------------------------------------------------------------------------
 # dispatch: a CPU tensor takes the plain version; the kernel needs the card
 # ---------------------------------------------------------------------------
 
