@@ -6,209 +6,551 @@
 //     o_t = r_t · (S + diag(u) k_tᵀ v_t),   S ← diag(w_t) S + k_tᵀ v_t
 // r, k, v (B, T, H, D) and u (H, D) in the model dtype (float32 or
 // bfloat16), w (B, T, H, D) in float32, state (B, H, D, D) float32; returns
-// o (B, T, H, D) in the model dtype and the final state in float32.
+// o (B, T, H, D) in the model dtype, rounded once, and the final state in
+// float32.
 //
-// Unlike the TPU kernel, no exponent is clamped.  Within a chunk of C
-// tokens, with L the inclusive cumulative log-decay per channel, Le its
-// exclusive version and LC the chunk's total, every decay is exp of a
+// Unlike the TPU kernel, no exponent is clamped.  Within a chunk of C = 32
+// tokens, with L the inclusive cumulative log-decay per channel, Le = L − lw
+// its exclusive version and LC the chunk's total, every decay is exp of a
 // non-positive number:
 //     o_t  = Σ_d r_td e^{Le_td} S_de + Σ_{s<t} (Σ_d r_td k_sd e^{Le_td − L_sd}) v_s
 //            + (Σ_d r_td u_d k_td) v_t
-//     S_de ← e^{LC_d} S_de + Σ_s k_sd e^{LC_d − L_sd} v_se
+//     S_de ← e^{LC_d} S_de + ΔS_de,   ΔS_de = Σ_s k_sd e^{LC_d − L_sd} v_se
 // so the result is exact to fp32 rounding for any w in (0, 1].  (The TPU
 // kernel factors e^{Le_t − L_s} as e^{clip(Le_t)} · e^{clip(−L_s)}, clipped
 // at ±30, which is wrong once a chunk's log-decay falls below −30; RWKV6's
-// own decay init reaches −19 to −53 over a chunk of 32.)  A chunk cut short
-// by the end of the sequence (T = 1 at every decode step) runs over its
-// valid tokens only, which is what padding with w = 1 and r = k = v = 0
-// gives.
+// own decay init reaches −19 to −53 over a chunk of 32.)  L is a running
+// fp32 sum token by token and Le is taken as L − lw, as the plain version
+// takes them (torch.cumsum along the tokens, then Lc − lwc): with |L| in the
+// tens to hundreds another rounding of Le would move the state by more than
+// the card's check allows.  A chunk cut short by the end of the sequence
+// runs as if padded with w = 1 and r = k = v = 0.
 //
-// What bounds it on the H100: at prefill (T = 512) the bytes of r, k, v, w
-// and the output and the fp32 arithmetic are of one order (about 5·D² FLOPs
-// per token and head against 7·D bytes); at decode (T = 1) reading and
-// writing the (D, D) state dominates.
+// Two paths behind the one entry, chosen by the number of tokens.
 //
-// What the design does about it:
-//  * One block per (row, head); the TPU kernel's sequential chunk axis is a
-//    loop inside the block, and the state stays in shared memory across all
-//    chunks, read from and written to device memory once per call.
-//  * A chunk's r, k, v and log-decays are staged in shared memory with
-//    16-byte loads (rows padded by one float, so the pair loop is free of
-//    bank conflicts); the pair decays, the decayed r and k, and the
-//    products over the chunk are then computed there, one output element
-//    per thread in turn.
+// Prefill (T > 1): a chunk-parallel scan in three kernels.  Only two terms
+// chain across chunks, S_c = e^{LC_c} ⊙ S_{c−1} + ΔS_c and the state read
+// (r e^{Le}) S_{c−1}; everything else in a chunk depends on its own tokens
+// alone.  What bounds it on the H100: about 5·D² fp32 FLOPs per token and
+// head (0.025 ms at RWKV6-3B's prefill, against 0.020 ms for the bytes of
+// r, k, v, w and o); the serial walk over chunks inside one block per
+// (row, head), which bounded the kernel this one replaces (160 blocks on
+// 132 SMs, each a chain of 16 chunks), is gone.  The design:
+//  * wkv6_chunk_kernel, one block per (chunk, head, row): 2,560 blocks at
+//    RWKV6-3B's prefill.  It stages the chunk's k and v with 16-byte loads
+//    while two warps run the cumulative log-decays (w read straight into
+//    registers, the 32 loads of a lane in flight together), then writes
+//    ΔS_c (a register-tiled (D × C)·(C × D) product, 4 × 4 a thread) and
+//    e^{LC_c} to an fp32 scratch of (B, H, chunks, D·D + D).
+//  * wkv6_chain_kernel, one thread per (row, head, key channel, four value
+//    channels): walks the chunks with every load of a batch of 8 in flight,
+//    overwrites each ΔS slot with the state that enters that chunk, and
+//    writes the final state.  Its product is taken as the plain version
+//    takes it, e^{LC} · S then + ΔS, each rounded.
+//  * wkv6_output_kernel, one block per (chunk, head, row): stages r, k, v
+//    and the chunk's incoming state (cp.async), reruns the cumulative sums,
+//    then takes the pair scores over the 36 lower 4 × 4 (t, s) tiles only
+//    (28 below the diagonal, 8 lanes each; 8 on it, 4 lanes each, where
+//    s = t gives the bonus term): every loaded operand feeds four pairs,
+//    each pair decay is one ex2 of the log2-scaled difference, and a
+//    warp's items are all of one kind.  The output is then one
+//    register-tiled pass over [r e^{Le} | att] · [S_in ; V] (2 tokens × 4
+//    columns a thread at D = 64), the state, intra-chunk and bonus terms
+//    summed apart and added in the plain version's order, rounded once.
+//  All products run on fp32 CUDA cores: TF32 tensor cores lose the state's
+//  fp32 check.
+//
+// Step (T == 1): wkv6_step_kernel.  Bound by bytes: the fp32 state is read
+// and written once (5.2 MB at B = 4, H = 40, D = 64: 0.0016 ms).  The
+// padded chunk of one token reduces to
+//     o_e = Σ_d r_d S_de + (Σ_d r_d u_d k_d) v_e,   S'_de = w'_d S_de + k_d v_e
+// with w'_d = exp(log(clamp(w_d))), as the plain version gives it.  One
+// warp per (row, head, 16 value columns); a lane holds 4 columns of D/8
+// consecutive rows, loads them as 16-byte vectors all in flight before the
+// first use, sums over d in registers and then by xor-shuffles across the
+// warp, and writes S' back in 16-byte stores: S never passes through shared
+// memory.
 #include "common.cuh"
 
 namespace {
 
-constexpr int C = 32;     // tokens per chunk
-constexpr int NT = 256;   // threads per block
-constexpr int NWARP = NT / 32;
+constexpr int C = 32;      // tokens per chunk
+constexpr int NT = 256;    // threads a prefill block
+constexpr int CHAIN_NT = 256;
+constexpr int CHAIN_BATCH = 8;   // chunks whose loads a chain thread keeps in flight
+constexpr float LOG2E = 1.4426950408889634f;
+
+// e^x for x ≤ 0 (a pair decay) as one ex2 on the SFU: relative error ~2^-22.
+__device__ __forceinline__ float exp_nonpos(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * LOG2E));
+  return y;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
+
+// Stage rows [0, n) of a chunk of X (model dtype; row t at src + t·row_stride)
+// into dst (C × D fp32) with 16-byte loads, zeros for rows [n, C).  Threads
+// [first, first + count) take part.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, size_t row_stride, int n,
+                                           int first, int count) {
+  constexpr int VEC = Vec<T>::N;
+  constexpr int VPR = D / VEC;
+  for (int i = threadIdx.x - first; i < C * VPR; i += count) {
+    const int t = i / VPR;
+    const int col = (i - t * VPR) * VEC;
+    if (t < n) {
+      store_widened(dst + t * D + col, load_vec(src + t * row_stride + col), T());
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) dst[t * D + col + j] = 0.f;
+    }
+  }
+}
+
+// The chunk's cumulative log-decays, one thread per channel d < D (threads
+// [0, D)): L (inclusive, a running fp32 sum token by token) and, if Le is
+// given, Le = L − lw; rows past n see w = 1.  Returns LC_d, the chunk's total.
+template <int D>
+__device__ __forceinline__ float cumulative_log_decay(const float* w_chunk, size_t row_stride,
+                                                      int n, int d, float* L, float* Le) {
+  float lw[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) lw[t] = t < n ? w_chunk[t * row_stride + d] : 1.f;
+  float run = 0.f;
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    const float l = logf(fminf(fmaxf(lw[t], 1e-12f), 1.f));
+    run += l;
+    L[t * D + d] = run;
+    if (Le != nullptr) Le[t * D + d] = run - l;
+  }
+  return run;
+}
 
 template <int D>
-constexpr size_t smem_floats() {
-  // S (D x D); r, k, v, L, Le, r·e^{Le}, k·e^{LC−L} (C x (D + 1) each);
-  // pair scores (C x C); bonus term per token (C); u (D); LC (D)
-  return (size_t)D * D + 7 * (size_t)C * (D + 1) + (size_t)C * C + C + 2 * (size_t)D;
+struct Tiles {
+  static constexpr int CW = (D + 31) / 32;       // warps that run the cumulative sums
+  // pair scores: 4 × 4 (t, s) tiles, NQ lanes a tile below the diagonal
+  // (D / NQ channels each, in float4 groups), NQ / 2 a tile on it
+  static constexpr int NQ = D / 4 < 8 ? D / 4 : 8;
+  static constexpr int NQD = NQ / 2;
+  static constexpr int NOFF = (C / 4) * (C / 4 - 1) / 2;   // 28 tiles below the diagonal
+  static constexpr int NITEM = NOFF * NQ + (C / 4) * NQD;
+  // output product: TT tokens × 4 columns a thread
+  static constexpr int NEG = D / 4;
+  static constexpr int NTG = NT / NEG < C ? NT / NEG : C;
+  static constexpr int TT = C / NTG;
+  static_assert(D % 16 == 0 && NITEM <= NT && NT % NEG == 0 && C % NTG == 0 &&
+                    (TT == 1 || TT == 2),
+                "tiling");
+};
+
+// ---- prefill 1: ΔS and e^{LC} of every chunk --------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+wkv6_chunk_kernel(const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ w,
+                  float* __restrict__ scratch, int T_len, int H) {
+  using K = Tiles<D>;
+  __shared__ __align__(16) float ks[C * D];   // k, then k_sd e^{LC_d − L_sd}
+  __shared__ __align__(16) float vs[C * D];
+  __shared__ __align__(16) float Ls[C * D];
+  __shared__ float LC[D];
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int c0 = c * C;
+  const int n = min(C, T_len - c0);
+  const int tid = threadIdx.x;
+  const size_t stride = (size_t)H * D;                       // one token's row
+  const size_t base = ((size_t)b * T_len + c0) * stride + (size_t)h * D;
+  float* slot = scratch + (((size_t)b * H + h) * n_chunks + c) * (D * D + D);
+
+  if (tid < K::CW * 32) {
+    if (tid < D) LC[tid] = cumulative_log_decay<D>(w + base, stride, n, tid, Ls, nullptr);
+  } else {
+    stage_rows<T, D>(ks, k + base, stride, n, K::CW * 32, NT - K::CW * 32);
+    stage_rows<T, D>(vs, v + base, stride, n, K::CW * 32, NT - K::CW * 32);
+  }
+  __syncthreads();
+  for (int i = tid; i < C * D; i += NT) {
+    const int d = i % D;
+    ks[i] *= expf(LC[d] - Ls[i]);
+  }
+  if (tid < D) slot[D * D + tid] = expf(LC[tid]);
+  __syncthreads();
+  // ΔS[d][e] = Σ_s kd[s][d] v[s][e], 4 × 4 a thread
+  for (int g = tid; g < K::NEG * K::NEG; g += NT) {
+    const int d0 = 4 * (g / K::NEG), e0 = 4 * (g % K::NEG);
+    float acc[4][4] = {};
+#pragma unroll 8
+    for (int s = 0; s < C; ++s) {
+      const float4 a = ld4(ks + s * D + d0), bv = ld4(vs + s * D + e0);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st4(slot + (d0 + i) * D + e0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+}
+
+// ---- prefill 2: the chain over chunks ------------------------------------
+
+// One thread per (row, head, d, four e): S ← e^{LC_c} S + ΔS_c over the
+// chunks; slot c's ΔS is replaced by the state that enters chunk c.
+template <int D>
+__global__ void __launch_bounds__(CHAIN_NT)
+wkv6_chain_kernel(const float* __restrict__ s0, float* scratch, float* __restrict__ sT,
+                  int n_chunks) {
+  constexpr int Q = D * D / 4;                       // float4s of one state
+  const int i = blockIdx.x * CHAIN_NT + threadIdx.x;
+  if (i >= Q) return;
+  const size_t bh = blockIdx.y;
+  const int d = (4 * i) / D;
+  float4 S = ld4(s0 + bh * D * D + 4 * i);
+  float* slots = scratch + bh * n_chunks * (D * D + D);
+  for (int c0 = 0; c0 < n_chunks; c0 += CHAIN_BATCH) {
+    const int m = min(CHAIN_BATCH, n_chunks - c0);
+    float4 dS[CHAIN_BATCH];
+    float a[CHAIN_BATCH];
+#pragma unroll
+    for (int j = 0; j < CHAIN_BATCH; ++j) {
+      if (j < m) {
+        const float* slot = slots + (size_t)(c0 + j) * (D * D + D);
+        dS[j] = ld4(slot + 4 * i);
+        a[j] = slot[D * D + d];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CHAIN_BATCH; ++j) {
+      if (j < m) {
+        st4(slots + (size_t)(c0 + j) * (D * D + D) + 4 * i, S);
+        S.x = __fadd_rn(__fmul_rn(a[j], S.x), dS[j].x);
+        S.y = __fadd_rn(__fmul_rn(a[j], S.y), dS[j].y);
+        S.z = __fadd_rn(__fmul_rn(a[j], S.z), dS[j].z);
+        S.w = __fadd_rn(__fmul_rn(a[j], S.w), dS[j].w);
+      }
+    }
+  }
+  st4(sT + bh * D * D + 4 * i, S);
+}
+
+// ---- prefill 3: the outputs ------------------------------------------------
+
+template <int D>
+struct OutSmem {
+  float r[C * D], k[C * D], v[C * D];
+  float L[C * D], Le[C * D];
+  float S[D * D];          // the state entering the chunk
+  float q[C * D];          // r_td e^{Le_td}
+  float attT[C * C];       // attT[s][t] = Σ_d r_td k_sd e^{Le_td − L_sd}, s < t; else 0
+  float bonus[C];          // Σ_d r_td u_d k_td
+  float u[D];
+};
+
+// One item of the pair phase: tile (ti, sj) over the channels 4·dq + 4·NQX·j,
+// summed into acc[a][b] for t = 4ti + a, s = 4sj + b.  DIAG (ti == sj):
+// s < t takes the decay, s == t takes u, s > t stays 0.
+template <int D, bool DIAG, int NQX>
+__device__ __forceinline__ void pair_tile(const OutSmem<D>& sm, int ti, int sj, int dq,
+                                          float (&acc)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < D / (4 * NQX); ++j) {
+    const int d = 4 * dq + 4 * NQX * j;
+    float4 rt[4], le[4], kk[4], ls[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      rt[a] = ld4(sm.r + (4 * ti + a) * D + d);
+      le[a] = ld4(sm.Le + (4 * ti + a) * D + d);
+    }
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb) {
+      kk[bb] = ld4(sm.k + (4 * sj + bb) * D + d);
+      ls[bb] = ld4(sm.L + (4 * sj + bb) * D + d);
+    }
+    float4 uu = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (DIAG) uu = ld4(sm.u + d);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        if (DIAG && bb > a) continue;
+        const float r4[4] = {rt[a].x, rt[a].y, rt[a].z, rt[a].w};
+        const float e4[4] = {le[a].x, le[a].y, le[a].z, le[a].w};
+        const float k4[4] = {kk[bb].x, kk[bb].y, kk[bb].z, kk[bb].w};
+        const float l4[4] = {ls[bb].x, ls[bb].y, ls[bb].z, ls[bb].w};
+        const float u4[4] = {uu.x, uu.y, uu.z, uu.w};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float f = (DIAG && bb == a) ? u4[x] : exp_nonpos(e4[x] - l4[x]);
+          acc[a][bb] = fmaf(r4[x] * f, k4[x], acc[a][bb]);
+        }
+      }
+  }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-            const float* __restrict__ w, const T* __restrict__ u,
-            const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT, int T_len,
-            int H) {
-  constexpr int DP = D + 1;
-  extern __shared__ __align__(16) float sm[];
-  float* S = sm;                  // D x D: S[d][e], d a key channel, e a value channel
-  float* rs = S + D * D;          // C x DP
-  float* ks = rs + C * DP;
-  float* vs = ks + C * DP;
-  float* Ls = vs + C * DP;        // inclusive cumulative log-decay
-  float* Les = Ls + C * DP;       // log-decay, then the exclusive cumulative one
-  float* qd = Les + C * DP;       // r_td e^{Le_td}
-  float* kd = qd + C * DP;        // k_sd e^{LC_d − L_sd}
-  float* att = kd + C * DP;       // C x C: Σ_d r_td k_sd e^{Le_td − L_sd}, s < t
-  float* dg = att + C * C;        // C: Σ_d r_td u_d k_td
-  float* us = dg + C;             // D
-  float* LC = us + D;             // D
+wkv6_output_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ w, const T* __restrict__ u,
+                   const float* __restrict__ scratch, T* __restrict__ o, int T_len, int H) {
+  using K = Tiles<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  OutSmem<D>& sm = *reinterpret_cast<OutSmem<D>*>(smem_raw);
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int c0 = c * C;
+  const int n = min(C, T_len - c0);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const size_t s_off = ((size_t)b * H + h) * D * D;
+  const size_t stride = (size_t)H * D;
+  const size_t base = ((size_t)b * T_len + c0) * stride + (size_t)h * D;
+  const float* S_in = scratch + (((size_t)b * H + h) * n_chunks + c) * (D * D + D);
 
-  for (int i = tid; i < D * D; i += NT) S[i] = s0[s_off + i];
-  for (int d = tid; d < D; d += NT) us[d] = to_float(u[(size_t)h * D + d]);
+  for (int i = tid; i < D * D / 4; i += NT) cp_async16(sm.S + 4 * i, S_in + 4 * i, 16);
+  if (tid < K::CW * 32) {
+    if (tid < D) cumulative_log_decay<D>(w + base, stride, n, tid, sm.L, sm.Le);
+  } else {
+    constexpr int F = K::CW * 32, NS = NT - K::CW * 32;
+    stage_rows<T, D>(sm.r, r + base, stride, n, F, NS);
+    stage_rows<T, D>(sm.k, k + base, stride, n, F, NS);
+    stage_rows<T, D>(sm.v, v + base, stride, n, F, NS);
+    for (int i = tid - F; i < C * C; i += NS) sm.attT[i] = 0.f;
+    for (int d = tid - F; d < D; d += NS) sm.u[d] = to_float(u[(size_t)h * D + d]);
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-  constexpr int VEC = Vec<T>::N;   // elements of T per 16-byte load
-  constexpr int VPR = D / VEC;     // vectors per r/k/v row
-  constexpr int WPR = D / 4;       // vectors per w row (float32)
-  constexpr int DW = (D + 31) / 32;  // warps that run the cumulative sums
-
-  for (int c0 = 0; c0 < T_len; c0 += C) {
-    const int n = min(C, T_len - c0);
-    __syncthreads();  // the previous chunk is consumed (and S, u are in place)
-    // ---- stage r, k, v and log(w) of the chunk's valid tokens ----
-    for (int i = tid; i < n * VPR; i += NT) {
-      const int t = i / VPR;
-      const int col = (i % VPR) * VEC;
-      const size_t off = (((size_t)b * T_len + c0 + t) * H + h) * D + col;
-      const uint4 rr = load_vec(r + off), kr = load_vec(k + off), vr = load_vec(v + off);
-      store_widened(rs + t * DP + col, rr, T());
-      store_widened(ks + t * DP + col, kr, T());
-      store_widened(vs + t * DP + col, vr, T());
-    }
-    for (int i = tid; i < n * WPR; i += NT) {
-      const int t = i / WPR;
-      const int col = (i % WPR) * 4;
-      const size_t off = (((size_t)b * T_len + c0 + t) * H + h) * D + col;
-      const float4 wv = *reinterpret_cast<const float4*>(w + off);
-      const float wf[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Les[t * DP + col + j] = logf(fminf(fmaxf(wf[j], 1e-12f), 1.f));
-    }
-    __syncthreads();
-    // ---- cumulative log-decays (warps < DW); bonus terms (the other warps) ----
-    if (warp < DW) {
-      const int d = tid;
-      if (d < D) {
-        float run = 0.f;
-        for (int t = 0; t < n; ++t) {
-          const float lw = Les[t * DP + d];
-          run += lw;
-          Ls[t * DP + d] = run;
-          Les[t * DP + d] = run - lw;
-        }
-        LC[d] = run;
-      }
+  // ---- pair scores: the 28 tiles below the diagonal first, NQ lanes each,
+  // then the 8 on it, NQD lanes each; an item's lanes are adjacent ----
+  {
+    const int item = tid;
+    const bool diag = item >= K::NOFF * K::NQ;
+    const int nq = diag ? K::NQD : K::NQ;
+    const int di = diag ? item - K::NOFF * K::NQ : item;
+    const int tile = di / nq, dq = di % nq;
+    int ti, sj;
+    if (diag) {
+      ti = sj = tile;
     } else {
-      for (int t = warp - DW; t < n; t += NWARP - DW) {
-        float a = 0.f;
-        for (int d = lane; d < D; d += 32) a += rs[t * DP + d] * (us[d] * ks[t * DP + d]);
-        a = warp_sum(a);
-        if (lane == 0) dg[t] = a;
-      }
+      ti = 1;                                   // tile = ti (ti − 1) / 2 + sj, sj < ti
+      while ((ti + 1) * ti / 2 <= tile) ++ti;
+      sj = tile - ti * (ti - 1) / 2;
     }
-    __syncthreads();
-    // ---- pair scores, decayed r and decayed k ----
-    for (int i = tid; i < C * C; i += NT) {
-      const int t = i / C;
-      const int s = i - t * C;
-      if (t < n && s < t) {
-        const float* rt = rs + t * DP;
-        const float* le = Les + t * DP;
-        const float* kk = ks + s * DP;
-        const float* ll = Ls + s * DP;
-        float a = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) a += rt[d] * expf(le[d] - ll[d]) * kk[d];
-        att[i] = a;
-      }
+    const bool live = item < K::NITEM && 4 * ti < n;
+    float acc[4][4] = {};
+    if (live) {
+      if (diag)
+        pair_tile<D, true, K::NQD>(sm, ti, sj, dq, acc);
+      else
+        pair_tile<D, false, K::NQ>(sm, ti, sj, dq, acc);
     }
-    for (int i = tid; i < n * D; i += NT) {
-      const int t = i / D;
-      const int d = i - t * D;
-      qd[t * DP + d] = rs[t * DP + d] * expf(Les[t * DP + d]);
-      kd[t * DP + d] = ks[t * DP + d] * expf(LC[d] - Ls[t * DP + d]);
-    }
-    __syncthreads();
-    // ---- outputs: state term + intra-chunk term + bonus term ----
-    for (int i = tid; i < n * D; i += NT) {
-      const int t = i / D;
-      const int e = i - t * D;
-      const float* q = qd + t * DP;
-      float o_state = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) o_state += q[d] * S[d * D + e];
-      float o_intra = 0.f;
-      for (int s = 0; s < t; ++s) o_intra += att[t * C + s] * vs[s * DP + e];
-      const float o_diag = dg[t] * vs[t * DP + e];
-      o[(((size_t)b * T_len + c0 + t) * H + h) * D + e] = from_float<T>(o_state + o_intra + o_diag);
-    }
-    __syncthreads();
-    // ---- state update ----
-    for (int i = tid; i < D * D; i += NT) {
-      const int d = i / D;
-      const int e = i - d * D;
-      float a = 0.f;
-      for (int s = 0; s < n; ++s) a += kd[s * DP + d] * vs[s * DP + e];
-      S[i] = expf(LC[d]) * S[i] + a;
+#pragma unroll
+    for (int off = 1; off < K::NQ; off <<= 1)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const float other = __shfl_xor_sync(0xffffffffu, acc[a][bb], off);
+          if (off < nq) acc[a][bb] += other;
+        }
+    if (live && dq == 0) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          if (!diag)
+            sm.attT[(4 * sj + bb) * C + 4 * ti + a] = acc[a][bb];
+          else if (bb < a)
+            sm.attT[(4 * sj + bb) * C + 4 * ti + a] = acc[a][bb];
+          else if (bb == a)
+            sm.bonus[4 * ti + a] = acc[a][a];
+        }
     }
   }
+  // ---- decayed r ----
+  for (int i = tid; i < C * D; i += NT) sm.q[i] = sm.r[i] * expf(sm.Le[i]);
   __syncthreads();
-  for (int i = tid; i < D * D; i += NT) sT[s_off + i] = S[i];
+
+  // ---- o = (r e^{Le}) S_in + att · V + bonus · v: TT tokens × 4 columns ----
+  if (tid < K::NTG * K::NEG) {
+    constexpr int TT = K::TT;
+    const int eg = tid % K::NEG, tg = tid / K::NEG;
+    const int t0 = tg * TT, e0 = 4 * eg;
+    float acc_s[TT][4] = {}, acc_i[TT][4] = {};
+    auto load_tt = [&](const float* p, float (&x)[TT]) {
+      if constexpr (TT == 2) {
+        const float2 f = *reinterpret_cast<const float2*>(p);
+        x[0] = f.x; x[1] = f.y;
+      } else {
+        x[0] = p[0];
+      }
+    };
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float a[TT][4];
+#pragma unroll
+      for (int i = 0; i < TT; ++i) {
+        const float4 f = ld4(sm.q + (t0 + i) * D + d);
+        a[i][0] = f.x; a[i][1] = f.y; a[i][2] = f.z; a[i][3] = f.w;
+      }
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const float4 s4 = ld4(sm.S + (d + dd) * D + e0);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int i = 0; i < TT; ++i)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc_s[i][x] = fmaf(a[i][dd], sv[x], acc_s[i][x]);
+      }
+    }
+#pragma unroll 8
+    for (int s = 0; s < C; ++s) {
+      float a[TT];
+      load_tt(sm.attT + s * C + t0, a);
+      const float4 v4 = ld4(sm.v + s * D + e0);
+      const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int i = 0; i < TT; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc_i[i][x] = fmaf(a[i], vv[x], acc_i[i][x]);
+    }
+#pragma unroll
+    for (int i = 0; i < TT; ++i) {
+      const int t = t0 + i;
+      if (t >= n) continue;
+      const float4 vt = ld4(sm.v + t * D + e0);
+      const float vv[4] = {vt.x, vt.y, vt.z, vt.w};
+      T* dst = o + base + (size_t)t * stride + e0;
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        dst[x] = from_float<T>((acc_s[i][x] + acc_i[i][x]) + sm.bonus[t] * vv[x]);
+    }
+  }
 }
+
+// ---- step: T == 1 ------------------------------------------------------------
+
+constexpr int STEP_E = 16;   // value columns a step block
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32)
+wkv6_step_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                 const float* __restrict__ w, const T* __restrict__ u,
+                 const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
+                 int H) {
+  constexpr int QE = STEP_E / 4;      // lanes across a tile's columns
+  constexpr int RG = 32 / QE;         // lanes down the rows
+  constexpr int RPL = D / RG;         // consecutive rows a lane
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x;
+  const int quad = lane % QE, rg = lane / QE;
+  const int e0 = tile * STEP_E + 4 * quad, d0 = rg * RPL;
+  const size_t row = ((size_t)b * H + h) * D;            // r, k, v, w of (b, 0, h)
+  const size_t s_off = ((size_t)b * H + h) * D * D;
+
+  // every load first: the state's 16-byte vectors, then the token's vectors
+  float4 S[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) S[i] = ld4(s0 + s_off + (size_t)(d0 + i) * D + e0);
+  float rr[RPL], kk[RPL], ww[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    rr[i] = to_float(r[row + d0 + i]);
+    kk[i] = to_float(k[row + d0 + i]);
+    ww[i] = w[row + d0 + i];
+  }
+  float vv[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) vv[x] = to_float(v[row + e0 + x]);
+  float bonus = 0.f;
+  for (int d = lane; d < D; d += 32)
+    bonus += to_float(r[row + d]) * (to_float(u[(size_t)h * D + d]) * to_float(k[row + d]));
+  bonus = warp_sum(bonus);
+
+  float acc[4] = {};
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    const float s4[4] = {S[i].x, S[i].y, S[i].z, S[i].w};
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[x] = fmaf(rr[i], s4[x], acc[x]);
+  }
+#pragma unroll
+  for (int off = QE; off < 32; off <<= 1)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[x] += __shfl_xor_sync(0xffffffffu, acc[x], off);
+  if (rg == 0) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[row + e0 + x] = from_float<T>(acc[x] + bonus * vv[x]);
+  }
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    const float wd = expf(logf(fminf(fmaxf(ww[i], 1e-12f), 1.f)));
+    const float s4[4] = {S[i].x, S[i].y, S[i].z, S[i].w};
+    float n4[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) n4[x] = __fadd_rn(__fmul_rn(wd, s4[x]), __fmul_rn(kk[i], vv[x]));
+    st4(sT + s_off + (size_t)(d0 + i) * D + e0, make_float4(n4[0], n4[1], n4[2], n4[3]));
+  }
+}
+
+// ---- launches ------------------------------------------------------------------
 
 template <typename T, int D>
 int launch(const void* r, const void* k, const void* v, const float* w, const void* u,
-           const float* s0, void* o, float* sT, int B, int T_len, int H, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wkv6_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+           const float* s0, void* o, float* sT, float* scratch, int B, int T_len, int H,
+           cudaStream_t stream) {
+  const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ut = static_cast<const T*>(u);
+  T* ot = static_cast<T*>(o);
+  if (T_len == 1) {
+    const dim3 grid((D + STEP_E - 1) / STEP_E, H, B);
+    wkv6_step_kernel<T, D><<<grid, 32, 0, stream>>>(rt, kt, vt, w, ut, s0, ot, sT, H);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid(H, B);
-  wkv6_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), w,
-      static_cast<const T*>(u), s0, static_cast<T*>(o), sT, T_len, H);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int n_chunks = (T_len + C - 1) / C;
+  const dim3 grid(n_chunks, H, B);
+  wkv6_chunk_kernel<T, D><<<grid, NT, 0, stream>>>(kt, vt, w, scratch, T_len, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 cgrid((D * D / 4 + CHAIN_NT - 1) / CHAIN_NT, B * H);
+  wkv6_chain_kernel<D><<<cgrid, CHAIN_NT, 0, stream>>>(s0, scratch, sT, n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  constexpr size_t smem = sizeof(OutSmem<D>);
+  static bool attr_set = false;   // once per instantiation
+  if (smem > 48 * 1024 && !attr_set) {
+    err = cudaFuncSetAttribute(wkv6_output_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  wkv6_output_kernel<T, D><<<grid, NT, smem, stream>>>(rt, kt, vt, w, ut, scratch, ot, T_len,
+                                                       H);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* r, const void* k, const void* v, const float* w, const void* u,
-             const float* s0, void* o, float* sT, int B, int T_len, int H, int D,
+             const float* s0, void* o, float* sT, float* scratch, int B, int T_len, int H, int D,
              cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(r, k, v, w, u, s0, o, sT, B, T_len, H, stream);
+      return launch<T, 16>(r, k, v, w, u, s0, o, sT, scratch, B, T_len, H, stream);
     case 32:
-      return launch<T, 32>(r, k, v, w, u, s0, o, sT, B, T_len, H, stream);
+      return launch<T, 32>(r, k, v, w, u, s0, o, sT, scratch, B, T_len, H, stream);
     case 64:
-      return launch<T, 64>(r, k, v, w, u, s0, o, sT, B, T_len, H, stream);
+      return launch<T, 64>(r, k, v, w, u, s0, o, sT, scratch, B, T_len, H, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -218,19 +560,22 @@ int launch_d(const void* r, const void* k, const void* v, const float* w, const 
 
 // r, k, v: (B, T, H, D) of dtype (0 float32, 1 bfloat16); w: (B, T, H, D)
 // float32; u: (H, D) of dtype; state: (B, H, D, D) float32; o: (B, T, H, D)
-// of dtype; s_out: (B, H, D, D) float32.  All contiguous and 16-byte
-// aligned.  Returns cudaGetLastError() after the launch (0 on success).
+// of dtype; s_out: (B, H, D, D) float32; scratch: float32, (B, H,
+// ceil(T / 32), D·D + D) for T > 1 (unused, and may be null, at T == 1).
+// All contiguous and 16-byte aligned.  Returns cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const void* w,
-                          const void* u, const void* state, void* o, void* s_out, int B,
-                          int T_len, int H, int D, int dtype, void* stream) {
+                          const void* u, const void* state, void* o, void* s_out, void* scratch,
+                          int B, int T_len, int H, int D, int dtype, void* stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const float* wf = static_cast<const float*>(w);
   const float* s0 = static_cast<const float*>(state);
   float* sT = static_cast<float*>(s_out);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_d<float>(r, k, v, wf, u, s0, o, sT, B, T_len, H, D, st);
+    return launch_d<float>(r, k, v, wf, u, s0, o, sT, sc, B, T_len, H, D, st);
   if (dtype == kBFloat16)
-    return launch_d<__nv_bfloat16>(r, k, v, wf, u, s0, o, sT, B, T_len, H, D, st);
+    return launch_d<__nv_bfloat16>(r, k, v, wf, u, s0, o, sT, sc, B, T_len, H, D, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,9 @@ The recurrence, per (row, head), with an fp32 (D, D) state S::
     S  ← diag(w_t) S + k_tᵀ v_t
 
 ``wkv6_cuda`` launches ``csrc/rwkv6_scan.cu``, the port of the JAX
-package's ``wkv6_pallas``.  ``wkv6_plain`` is the same function in plain
+package's ``wkv6_pallas``: at T > 1 a chunk-parallel scan (each chunk's own
+terms, then the chain of states across chunks, then the outputs), at T = 1
+one streaming pass over the state.  ``wkv6_plain`` is the same function in plain
 PyTorch, chunked like the JAX package's ``ops._wkv6_jnp``: the CPU path and
 the reference the kernel is held against on the card.
 
@@ -86,7 +88,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("rwkv6_scan")
     fn = lib.repro_wkv6
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -98,7 +100,9 @@ def wkv6_cuda(r, k, v, w, u, state=None):
     (B, H, D, D) contiguous float32, or None for zeros.  All on one CUDA
     device, D in ``HEAD_DIMS``.  Returns ``(out (B, T, H, D) in r's dtype,
     final state (B, H, D, D) float32)`` as new tensors.  Raises on anything
-    else, and counts each launch in ``wkv6_cuda.launches``."""
+    else, and counts each call that launches in ``wkv6_cuda.launches`` (at
+    T > 1 a call runs three device kernels over an fp32 scratch of
+    (B, H, ceil(T / CHUNK), D·D + D), taken from the caching allocator)."""
     B, T, H, D = r.shape
     if state is None:
         state = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
@@ -131,9 +135,14 @@ def wkv6_cuda(r, k, v, w, u, state=None):
         s_out.copy_(state)
         return out, s_out
     lib = _lib()
+    scratch = None
+    if T > 1:      # ΔS, then the incoming state, and e^{LC} of every chunk
+        scratch = torch.empty((B, H, -(-T // CHUNK), D * D + D), dtype=torch.float32,
+                              device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.repro_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                         state.data_ptr(), out.data_ptr(), s_out.data_ptr(), B, T, H, D,
+                         state.data_ptr(), out.data_ptr(), s_out.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(), B, T, H, D,
                          _DTYPE_CODE[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"wkv6_cuda: launch failed with CUDA error {err}")
