@@ -28,35 +28,45 @@
 //
 // Two paths behind the one entry, chosen by the number of tokens.
 //
-// Prefill (T > 1): a chunk-parallel scan in three kernels.  Only two terms
-// chain across chunks, S_c = e^{LC_c} ⊙ S_{c−1} + ΔS_c and the state read
-// (r e^{Le}) S_{c−1}; everything else in a chunk depends on its own tokens
-// alone.  What bounds it on the H100: about 5·D² fp32 FLOPs per token and
-// head (0.025 ms at RWKV6-3B's prefill, against 0.020 ms for the bytes of
-// r, k, v, w and o); the serial walk over chunks inside one block per
-// (row, head), which bounded the kernel this one replaces (160 blocks on
-// 132 SMs, each a chain of 16 chunks), is gone.  The design:
-//  * wkv6_chunk_kernel, one block per (chunk, head, row): 2,560 blocks at
-//    RWKV6-3B's prefill.  It stages the chunk's k and v with 16-byte loads
-//    while two warps run the cumulative log-decays (w read straight into
-//    registers, the 32 loads of a lane in flight together), then writes
-//    ΔS_c (a register-tiled (D × C)·(C × D) product, 4 × 4 a thread) and
-//    e^{LC_c} to an fp32 scratch of (B, H, chunks, D·D + D).
-//  * wkv6_chain_kernel, one thread per (row, head, key channel, four value
-//    channels): walks the chunks with every load of a batch of 8 in flight,
-//    overwrites each ΔS slot with the state that enters that chunk, and
-//    writes the final state.  Its product is taken as the plain version
-//    takes it, e^{LC} · S then + ΔS, each rounded.
-//  * wkv6_output_kernel, one block per (chunk, head, row): stages r, k, v
-//    and the chunk's incoming state (cp.async), reruns the cumulative sums,
-//    then takes the pair scores over the 36 lower 4 × 4 (t, s) tiles only
-//    (28 below the diagonal, 8 lanes each; 8 on it, 4 lanes each, where
-//    s = t gives the bonus term): every loaded operand feeds four pairs,
-//    each pair decay is one ex2 of the log2-scaled difference, and a
-//    warp's items are all of one kind.  The output is then one
-//    register-tiled pass over [r e^{Le} | att] · [S_in ; V] (2 tokens × 4
-//    columns a thread at D = 64), the state, intra-chunk and bonus terms
-//    summed apart and added in the plain version's order, rounded once.
+// Prefill (T > 1): a chunk-parallel scan, wkv6_prefill_kernel, one block
+// per (chunk, head, row): 2,560 blocks at RWKV6-3B's prefill, against 160
+// in the kernel this one replaces, which walked a (row, head)'s 16 chunks
+// in series inside one block.  Only two terms chain across chunks,
+// S_c = e^{LC_c} ⊙ S_{c−1} + ΔS_c and the state read (r e^{Le}) S_{c−1};
+// ΔS_c, e^{LC_c}, the pair scores and the bonus terms depend on the chunk's
+// own tokens alone.  What bounds it on the H100: about 5·D² fp32 FLOPs per
+// token and head (0.025 ms at RWKV6-3B's prefill, against 0.020 ms for the
+// bytes of r, k, v, w and o) plus one ex2 per (pair, channel) on the SFU.
+// The design:
+//  * Tickets, not blockIdx, order the blocks: a block takes the next
+//    ticket of an atomic counter, chunk-major, so the chunk it waits on
+//    belongs to a block that is already running, and every wait ends.
+//  * Everything that does not need the incoming state comes first: r, k, v
+//    and log w staged with 16-byte loads by every warp, all of a thread's
+//    loads in flight together, then the running sums by one thread a
+//    channel; the pair scores over the 36 lower 4 × 4 (t, s)
+//    tiles only (28 below the diagonal, 8 lanes each; 8 on it, 4 lanes
+//    each, where s = t gives the bonus term), every loaded operand feeding
+//    four pairs, each pair decay one ex2 of the log2-scaled difference, a
+//    warp's items all of one kind; then ΔS_c as a register-tiled
+//    (D × C)·(C × D) product, 4 × 4 a thread.
+//  * The chain step: after the pair scores thread 0 waits on the
+//    predecessor's flag with an acquire load (by then it has nearly always
+//    published), the block loads S_{c−1} from the (row, head)'s slot
+//    through L2 while it takes the decays and ΔS_c, then writes
+//    S_c = e^{LC} S_{c−1} + ΔS_c (each product and sum rounded as the plain
+//    version rounds them) to the other slot, or to the final state, and
+//    publishes it with a fence and a release store.
+//    Two slots a (row, head) suffice: a slot is rewritten only after the
+//    block that read it has published.  The scratch is 2·D² floats a
+//    (row, head), 5.2 MB at RWKV6-3B's prefill, against 42 MB for a slot a
+//    chunk, and r, k, v, w are read once.
+//  * Last, the output as one register-tiled pass over
+//    [r e^{Le} | att] · [S_{c−1} ; V] (2 tokens × 4 columns a thread at
+//    D = 64; a warp spans 8 tokens × 16 columns, and r's rows are padded
+//    so its 8 token rows fall on distinct banks), the state, intra-chunk
+//    and bonus terms summed apart, added in the plain version's order and
+//    rounded once.
 //  All products run on fp32 CUDA cores: TF32 tensor cores lose the state's
 //  fp32 check.
 //
@@ -76,8 +86,6 @@ namespace {
 
 constexpr int C = 32;      // tokens per chunk
 constexpr int NT = 256;    // threads a prefill block
-constexpr int CHAIN_NT = 256;
-constexpr int CHAIN_BATCH = 8;   // chunks whose loads a chain thread keeps in flight
 constexpr float LOG2E = 1.4426950408889634f;
 
 // e^x for x ≤ 0 (a pair decay) as one ex2 on the SFU: relative error ~2^-22.
@@ -90,176 +98,129 @@ __device__ __forceinline__ float exp_nonpos(float x) {
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
 
-// Stage rows [0, n) of a chunk of X (model dtype; row t at src + t·row_stride)
-// into dst (C × D fp32) with 16-byte loads, zeros for rows [n, C).  Threads
-// [first, first + count) take part.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, size_t row_stride, int n,
-                                           int first, int count) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x - first; i < C * VPR; i += count) {
-    const int t = i / VPR;
-    const int col = (i - t * VPR) * VEC;
-    if (t < n) {
-      store_widened(dst + t * D + col, load_vec(src + t * row_stride + col), T());
-    } else {
+// Stage the chunk's rows [0, n) of r, k, v (model dtype) and log(clamp(w))
+// into shared memory as fp32 (r's rows RS apart, the others D apart), with
+// zeros (and log w = 0, i.e. w = 1) for rows [n, C).  Every 16-byte load of
+// a thread is issued before its first store.
+template <typename T, int D, int RS>
+__device__ __forceinline__ void stage_chunk(float* rs, float* ks, float* vs, float* lw,
+                                            const T* r, const T* k, const T* v, const float* w,
+                                            size_t row_stride, int n) {
+  constexpr int VEC = Vec<T>::N, VPR = D / VEC, NV = (C * VPR + NT - 1) / NT;
+  constexpr int WPR = D / 4, NW = (C * WPR + NT - 1) / NT;
+  const int tid = threadIdx.x;
+  uint4 rv[NV], kv[NV], vv[NV];
+  float4 wv[NW];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) dst[t * D + col + j] = 0.f;
+  for (int j = 0; j < NV; ++j) {
+    const int i = tid + j * NT, t = i / VPR, col = (i % VPR) * VEC;
+    rv[j] = kv[j] = vv[j] = make_uint4(0u, 0u, 0u, 0u);
+    if (i < C * VPR && t < n) {
+      const size_t off = t * row_stride + col;
+      rv[j] = load_vec(r + off);
+      kv[j] = load_vec(k + off);
+      vv[j] = load_vec(v + off);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int i = tid + j * NT, t = i / WPR, col = 4 * (i % WPR);
+    wv[j] = make_float4(1.f, 1.f, 1.f, 1.f);
+    if (i < C * WPR && t < n) wv[j] = *reinterpret_cast<const float4*>(w + t * row_stride + col);
+  }
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = tid + j * NT, t = i / VPR, col = (i % VPR) * VEC;
+    if (i < C * VPR) {
+      store_widened(rs + t * RS + col, rv[j], T());
+      store_widened(ks + t * D + col, kv[j], T());
+      store_widened(vs + t * D + col, vv[j], T());
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int i = tid + j * NT, t = i / WPR, col = 4 * (i % WPR);
+    if (i < C * WPR) {
+      const float f[4] = {wv[j].x, wv[j].y, wv[j].z, wv[j].w};
+      float l[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) l[x] = logf(fminf(fmaxf(f[x], 1e-12f), 1.f));
+      *reinterpret_cast<float4*>(lw + t * D + col) = make_float4(l[0], l[1], l[2], l[3]);
     }
   }
 }
 
-// The chunk's cumulative log-decays, one thread per channel d < D (threads
-// [0, D)): L (inclusive, a running fp32 sum token by token) and, if Le is
-// given, Le = L − lw; rows past n see w = 1.  Returns LC_d, the chunk's total.
+// The chunk's cumulative log-decays for channel d, from the logs in Le:
+// L (inclusive, a running fp32 sum token by token) and Le = L − lw in place
+// of the logs.  Returns LC_d, the chunk's total.
 template <int D>
-__device__ __forceinline__ float cumulative_log_decay(const float* w_chunk, size_t row_stride,
-                                                      int n, int d, float* L, float* Le) {
+__device__ __forceinline__ float cumulative_log_decay(int d, float* L, float* Le) {
   float lw[C];
 #pragma unroll
-  for (int t = 0; t < C; ++t) lw[t] = t < n ? w_chunk[t * row_stride + d] : 1.f;
+  for (int t = 0; t < C; ++t) lw[t] = Le[t * D + d];
   float run = 0.f;
 #pragma unroll
   for (int t = 0; t < C; ++t) {
-    const float l = logf(fminf(fmaxf(lw[t], 1e-12f), 1.f));
-    run += l;
+    run += lw[t];
     L[t * D + d] = run;
-    if (Le != nullptr) Le[t * D + d] = run - l;
+    Le[t * D + d] = run - lw[t];
   }
   return run;
 }
 
 template <int D>
 struct Tiles {
-  static constexpr int CW = (D + 31) / 32;       // warps that run the cumulative sums
   // pair scores: 4 × 4 (t, s) tiles, NQ lanes a tile below the diagonal
   // (D / NQ channels each, in float4 groups), NQ / 2 a tile on it
   static constexpr int NQ = D / 4 < 8 ? D / 4 : 8;
   static constexpr int NQD = NQ / 2;
   static constexpr int NOFF = (C / 4) * (C / 4 - 1) / 2;   // 28 tiles below the diagonal
   static constexpr int NITEM = NOFF * NQ + (C / 4) * NQD;
-  // output product: TT tokens × 4 columns a thread
+  // output product: TT tokens (NTG apart) × 4 columns a thread; a warp
+  // covers 8 token groups × 4 column groups
   static constexpr int NEG = D / 4;
   static constexpr int NTG = NT / NEG < C ? NT / NEG : C;
   static constexpr int TT = C / NTG;
-  static_assert(D % 16 == 0 && NITEM <= NT && NT % NEG == 0 && C % NTG == 0 &&
-                    (TT == 1 || TT == 2),
+  static constexpr int RS = D + 4;     // row stride of r / q: 8 rows, 8 distinct bank groups
+  static_assert(D % 16 == 0 && NITEM <= NT && NEG * NEG <= NT && NT % NEG == 0 && C % NTG == 0 &&
+                    NTG % 8 == 0 && NEG % 4 == 0,
                 "tiling");
 };
 
-// ---- prefill 1: ΔS and e^{LC} of every chunk --------------------------------
+// ---- prefill: one launch, chunks in ticket order ---------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-wkv6_chunk_kernel(const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ w,
-                  float* __restrict__ scratch, int T_len, int H) {
-  using K = Tiles<D>;
-  __shared__ __align__(16) float ks[C * D];   // k, then k_sd e^{LC_d − L_sd}
-  __shared__ __align__(16) float vs[C * D];
-  __shared__ __align__(16) float Ls[C * D];
-  __shared__ float LC[D];
+// A wait this long for the predecessor's state means a fault in the kernel:
+// trap (the call then fails) rather than hang the card.
+constexpr long long WAIT_LIMIT = 1ll << 32;   // cycles, ~2.4 s
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_chunks = gridDim.x;
-  const int c0 = c * C;
-  const int n = min(C, T_len - c0);
-  const int tid = threadIdx.x;
-  const size_t stride = (size_t)H * D;                       // one token's row
-  const size_t base = ((size_t)b * T_len + c0) * stride + (size_t)h * D;
-  float* slot = scratch + (((size_t)b * H + h) * n_chunks + c) * (D * D + D);
-
-  if (tid < K::CW * 32) {
-    if (tid < D) LC[tid] = cumulative_log_decay<D>(w + base, stride, n, tid, Ls, nullptr);
-  } else {
-    stage_rows<T, D>(ks, k + base, stride, n, K::CW * 32, NT - K::CW * 32);
-    stage_rows<T, D>(vs, v + base, stride, n, K::CW * 32, NT - K::CW * 32);
-  }
-  __syncthreads();
-  for (int i = tid; i < C * D; i += NT) {
-    const int d = i % D;
-    ks[i] *= expf(LC[d] - Ls[i]);
-  }
-  if (tid < D) slot[D * D + tid] = expf(LC[tid]);
-  __syncthreads();
-  // ΔS[d][e] = Σ_s kd[s][d] v[s][e], 4 × 4 a thread
-  for (int g = tid; g < K::NEG * K::NEG; g += NT) {
-    const int d0 = 4 * (g / K::NEG), e0 = 4 * (g % K::NEG);
-    float acc[4][4] = {};
-#pragma unroll 8
-    for (int s = 0; s < C; ++s) {
-      const float4 a = ld4(ks + s * D + d0), bv = ld4(vs + s * D + e0);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bb[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      st4(slot + (d0 + i) * D + e0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned x;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(x) : "l"(p) : "memory");
+  return x;
+}
+__device__ __forceinline__ void st_release(unsigned* p, unsigned x) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(x) : "memory");
 }
 
-// ---- prefill 2: the chain over chunks ------------------------------------
-
-// One thread per (row, head, d, four e): S ← e^{LC_c} S + ΔS_c over the
-// chunks; slot c's ΔS is replaced by the state that enters chunk c.
 template <int D>
-__global__ void __launch_bounds__(CHAIN_NT)
-wkv6_chain_kernel(const float* __restrict__ s0, float* scratch, float* __restrict__ sT,
-                  int n_chunks) {
-  constexpr int Q = D * D / 4;                       // float4s of one state
-  const int i = blockIdx.x * CHAIN_NT + threadIdx.x;
-  if (i >= Q) return;
-  const size_t bh = blockIdx.y;
-  const int d = (4 * i) / D;
-  float4 S = ld4(s0 + bh * D * D + 4 * i);
-  float* slots = scratch + bh * n_chunks * (D * D + D);
-  for (int c0 = 0; c0 < n_chunks; c0 += CHAIN_BATCH) {
-    const int m = min(CHAIN_BATCH, n_chunks - c0);
-    float4 dS[CHAIN_BATCH];
-    float a[CHAIN_BATCH];
-#pragma unroll
-    for (int j = 0; j < CHAIN_BATCH; ++j) {
-      if (j < m) {
-        const float* slot = slots + (size_t)(c0 + j) * (D * D + D);
-        dS[j] = ld4(slot + 4 * i);
-        a[j] = slot[D * D + d];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < CHAIN_BATCH; ++j) {
-      if (j < m) {
-        st4(slots + (size_t)(c0 + j) * (D * D + D) + 4 * i, S);
-        S.x = __fadd_rn(__fmul_rn(a[j], S.x), dS[j].x);
-        S.y = __fadd_rn(__fmul_rn(a[j], S.y), dS[j].y);
-        S.z = __fadd_rn(__fmul_rn(a[j], S.z), dS[j].z);
-        S.w = __fadd_rn(__fmul_rn(a[j], S.w), dS[j].w);
-      }
-    }
-  }
-  st4(sT + bh * D * D + 4 * i, S);
-}
-
-// ---- prefill 3: the outputs ------------------------------------------------
-
-template <int D>
-struct OutSmem {
-  float r[C * D], k[C * D], v[C * D];
-  float L[C * D], Le[C * D];
+struct PrefillSmem {
+  float r[C * (D + 4)];    // r, then q = r_td e^{Le_td}; rows D + 4 apart
+  float k[C * D];          // k, then kd = k_sd e^{LC_d − L_sd}
+  float v[C * D];
+  float L[C * D], Le[C * D];   // then ΔS (D × D fits in their 2·C·D floats)
   float S[D * D];          // the state entering the chunk
-  float q[C * D];          // r_td e^{Le_td}
   float attT[C * C];       // attT[s][t] = Σ_d r_td k_sd e^{Le_td − L_sd}, s < t; else 0
   float bonus[C];          // Σ_d r_td u_d k_td
-  float u[D];
+  float u[D], LC[D], eLC[D];
+  unsigned ticket;
+  static_assert(2 * C * D >= D * D, "ΔS reuses L and Le");
 };
 
 // One item of the pair phase: tile (ti, sj) over the channels 4·dq + 4·NQX·j,
 // summed into acc[a][b] for t = 4ti + a, s = 4sj + b.  DIAG (ti == sj):
 // s < t takes the decay, s == t takes u, s > t stays 0.
 template <int D, bool DIAG, int NQX>
-__device__ __forceinline__ void pair_tile(const OutSmem<D>& sm, int ti, int sj, int dq,
+__device__ __forceinline__ void pair_tile(const PrefillSmem<D>& sm, int ti, int sj, int dq,
                                           float (&acc)[4][4]) {
 #pragma unroll
   for (int j = 0; j < D / (4 * NQX); ++j) {
@@ -267,7 +228,7 @@ __device__ __forceinline__ void pair_tile(const OutSmem<D>& sm, int ti, int sj, 
     float4 rt[4], le[4], kk[4], ls[4];
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      rt[a] = ld4(sm.r + (4 * ti + a) * D + d);
+      rt[a] = ld4(sm.r + (4 * ti + a) * (D + 4) + d);
       le[a] = ld4(sm.Le + (4 * ti + a) * D + d);
     }
 #pragma unroll
@@ -296,36 +257,38 @@ __device__ __forceinline__ void pair_tile(const OutSmem<D>& sm, int ti, int sj, 
   }
 }
 
+// scratch: the two state slots of every (row, head), B·H × 2 × D·D floats,
+// then B·H flags (chunks whose outgoing state is published) and the ticket
+// counter, zeroed by wkv6_clear_kernel just before the launch.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-wkv6_output_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ w, const T* __restrict__ u,
-                   const float* __restrict__ scratch, T* __restrict__ o, int T_len, int H) {
+__global__ void __launch_bounds__(NT, 3)
+wkv6_prefill_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ w, const T* __restrict__ u,
+                    const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sT,
+                    float* slots, unsigned* sync, int T_len, int H, int n_chunks) {
   using K = Tiles<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  OutSmem<D>& sm = *reinterpret_cast<OutSmem<D>*>(smem_raw);
-
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_chunks = gridDim.x;
+  PrefillSmem<D>& sm = *reinterpret_cast<PrefillSmem<D>*>(smem_raw);
+  const int BH = gridDim.x / n_chunks;
+  const int tid = threadIdx.x;
+  // chunk-major tickets: a block waits only on a block with a smaller
+  // ticket, which is already running, so every wait ends
+  if (tid == 0) sm.ticket = atomicAdd(sync + BH, 1u);
+  __syncthreads();
+  const int c = sm.ticket / BH, bh = sm.ticket % BH;
+  const int b = bh / H, h = bh % H;
   const int c0 = c * C;
   const int n = min(C, T_len - c0);
-  const int tid = threadIdx.x;
   const size_t stride = (size_t)H * D;
   const size_t base = ((size_t)b * T_len + c0) * stride + (size_t)h * D;
-  const float* S_in = scratch + (((size_t)b * H + h) * n_chunks + c) * (D * D + D);
 
-  for (int i = tid; i < D * D / 4; i += NT) cp_async16(sm.S + 4 * i, S_in + 4 * i, 16);
-  if (tid < K::CW * 32) {
-    if (tid < D) cumulative_log_decay<D>(w + base, stride, n, tid, sm.L, sm.Le);
-  } else {
-    constexpr int F = K::CW * 32, NS = NT - K::CW * 32;
-    stage_rows<T, D>(sm.r, r + base, stride, n, F, NS);
-    stage_rows<T, D>(sm.k, k + base, stride, n, F, NS);
-    stage_rows<T, D>(sm.v, v + base, stride, n, F, NS);
-    for (int i = tid - F; i < C * C; i += NS) sm.attT[i] = 0.f;
-    for (int d = tid - F; d < D; d += NS) sm.u[d] = to_float(u[(size_t)h * D + d]);
-  }
-  cp_async_wait_all();
+  // ---- stage r, k, v and log w; then one thread a channel takes L, Le ----
+  stage_chunk<T, D, K::RS>(sm.r, sm.k, sm.v, sm.Le, r + base, k + base, v + base, w + base,
+                           stride, n);
+  for (int i = tid; i < C * C; i += NT) sm.attT[i] = 0.f;
+  if (tid < D) sm.u[tid] = to_float(u[(size_t)h * D + tid]);
+  __syncthreads();
+  if (tid < D) sm.LC[tid] = cumulative_log_decay<D>(tid, sm.L, sm.Le);
   __syncthreads();
 
   // ---- pair scores: the 28 tiles below the diagonal first, NQ lanes each,
@@ -375,30 +338,95 @@ wkv6_output_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __
         }
     }
   }
-  // ---- decayed r ----
-  for (int i = tid; i < C * D; i += NT) sm.q[i] = sm.r[i] * expf(sm.Le[i]);
+  // ---- wait for the state that enters this chunk (its predecessor has
+  // usually published it by now), then load it while the decays and ΔS
+  // are computed ----
+  unsigned* flag = sync + bh;
+  if (c > 0 && tid == 0) {
+    const long long t0 = clock64();
+    while (ld_acquire(flag) < (unsigned)c) {
+      if (clock64() - t0 > WAIT_LIMIT) __trap();
+      __nanosleep(32);
+    }
+  }
+  __syncthreads();
+  constexpr int PER = (D * D / 4 + NT - 1) / NT;   // float4s of S a thread
+  float4 s_in[PER];
+  {
+    const float* src = c == 0 ? s0 + (size_t)bh * D * D
+                              : slots + ((size_t)bh * 2 + (c & 1)) * D * D;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (tid + j * NT < D * D / 4)
+        s_in[j] = __ldcg(reinterpret_cast<const float4*>(src) + tid + j * NT);
+  }
+
+  // ---- decayed r and k in place; the chunk's state decay ----
+  for (int i = tid; i < C * D; i += NT) {
+    sm.r[(i / D) * K::RS + i % D] *= expf(sm.Le[i]);
+    sm.k[i] *= expf(sm.LC[i % D] - sm.L[i]);
+  }
+  if (tid < D) sm.eLC[tid] = expf(sm.LC[tid]);
   __syncthreads();
 
-  // ---- o = (r e^{Le}) S_in + att · V + bonus · v: TT tokens × 4 columns ----
+  // ---- ΔS[d][e] = Σ_s kd[s][d] v[s][e], 4 × 4 a thread, into L/Le ----
+  float* dS = sm.L;
+  if (tid < K::NEG * K::NEG) {
+    const int d0 = 4 * (tid / K::NEG), e0 = 4 * (tid % K::NEG);
+    float acc[4][4] = {};
+#pragma unroll 8
+    for (int s = 0; s < C; ++s) {
+      const float4 a = ld4(sm.k + s * D + d0), bv = ld4(sm.v + s * D + e0);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      st4(dS + (d0 + i) * D + e0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+  __syncthreads();
+  // ---- S_in to shared memory; S_out = e^{LC} S_in + ΔS to the next slot
+  // (the final state after the last chunk), each product and sum rounded
+  // as the plain version rounds them ----
+  {
+    float* dst = c + 1 == n_chunks ? sT + (size_t)bh * D * D
+                                   : slots + ((size_t)bh * 2 + ((c + 1) & 1)) * D * D;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * NT;
+      if (i >= D * D / 4) break;
+      const float4 x = s_in[j], d4 = ld4(dS + 4 * i);
+      const float a = sm.eLC[(4 * i) / D];
+      st4(sm.S + 4 * i, x);
+      __stcg(reinterpret_cast<float4*>(dst) + i,
+             make_float4(__fadd_rn(__fmul_rn(a, x.x), d4.x), __fadd_rn(__fmul_rn(a, x.y), d4.y),
+                         __fadd_rn(__fmul_rn(a, x.z), d4.z), __fadd_rn(__fmul_rn(a, x.w), d4.w)));
+    }
+  }
+  __syncthreads();
+  if (tid == 0 && c + 1 < n_chunks) {
+    __threadfence();
+    st_release(flag, (unsigned)(c + 1));
+  }
+
+  // ---- o = q S_in + att · V + bonus · v: TT tokens (NTG apart) × 4
+  // columns a thread; the state, intra-chunk and bonus terms summed apart,
+  // added in the plain version's order and rounded once ----
   if (tid < K::NTG * K::NEG) {
-    constexpr int TT = K::TT;
-    const int eg = tid % K::NEG, tg = tid / K::NEG;
-    const int t0 = tg * TT, e0 = 4 * eg;
+    constexpr int TT = K::TT, NTG = K::NTG;
+    const int lane = tid % 32, warp = tid / 32;
+    const int tg = (warp % (NTG / 8)) * 8 + lane % 8;
+    const int e0 = 4 * ((warp / (NTG / 8)) * 4 + lane / 8);
     float acc_s[TT][4] = {}, acc_i[TT][4] = {};
-    auto load_tt = [&](const float* p, float (&x)[TT]) {
-      if constexpr (TT == 2) {
-        const float2 f = *reinterpret_cast<const float2*>(p);
-        x[0] = f.x; x[1] = f.y;
-      } else {
-        x[0] = p[0];
-      }
-    };
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
       float a[TT][4];
 #pragma unroll
       for (int i = 0; i < TT; ++i) {
-        const float4 f = ld4(sm.q + (t0 + i) * D + d);
+        const float4 f = ld4(sm.r + (tg + i * NTG) * K::RS + d);
         a[i][0] = f.x; a[i][1] = f.y; a[i][2] = f.z; a[i][3] = f.w;
       }
 #pragma unroll
@@ -413,18 +441,18 @@ wkv6_output_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __
     }
 #pragma unroll 8
     for (int s = 0; s < C; ++s) {
-      float a[TT];
-      load_tt(sm.attT + s * C + t0, a);
       const float4 v4 = ld4(sm.v + s * D + e0);
       const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
-      for (int i = 0; i < TT; ++i)
+      for (int i = 0; i < TT; ++i) {
+        const float a = sm.attT[s * C + tg + i * NTG];
 #pragma unroll
-        for (int x = 0; x < 4; ++x) acc_i[i][x] = fmaf(a[i], vv[x], acc_i[i][x]);
+        for (int x = 0; x < 4; ++x) acc_i[i][x] = fmaf(a, vv[x], acc_i[i][x]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < TT; ++i) {
-      const int t = t0 + i;
+      const int t = tg + i * NTG;
       if (t >= n) continue;
       const float4 vt = ld4(sm.v + t * D + e0);
       const float vv[4] = {vt.x, vt.y, vt.z, vt.w};
@@ -434,6 +462,12 @@ wkv6_output_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __
         dst[x] = from_float<T>((acc_s[i][x] + acc_i[i][x]) + sm.bonus[t] * vv[x]);
     }
   }
+}
+
+// Zero the flags and the ticket counter of the prefill's scratch.
+__global__ void wkv6_clear_kernel(unsigned* sync, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    sync[i] = 0u;
 }
 
 // ---- step: T == 1 ------------------------------------------------------------
@@ -519,24 +553,22 @@ int launch(const void* r, const void* k, const void* v, const float* w, const vo
   }
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   const int n_chunks = (T_len + C - 1) / C;
-  const dim3 grid(n_chunks, H, B);
-  wkv6_chunk_kernel<T, D><<<grid, NT, 0, stream>>>(kt, vt, w, scratch, T_len, H);
+  unsigned* sync = reinterpret_cast<unsigned*>(scratch + (size_t)B * H * 2 * D * D);
+  const int n_sync = B * H + 1;
+  wkv6_clear_kernel<<<(n_sync + 255) / 256, 256, 0, stream>>>(sync, n_sync);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 cgrid((D * D / 4 + CHAIN_NT - 1) / CHAIN_NT, B * H);
-  wkv6_chain_kernel<D><<<cgrid, CHAIN_NT, 0, stream>>>(s0, scratch, sT, n_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  constexpr size_t smem = sizeof(OutSmem<D>);
+  constexpr size_t smem = sizeof(PrefillSmem<D>);
   static bool attr_set = false;   // once per instantiation
   if (smem > 48 * 1024 && !attr_set) {
-    err = cudaFuncSetAttribute(wkv6_output_kernel<T, D>,
+    err = cudaFuncSetAttribute(wkv6_prefill_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  wkv6_output_kernel<T, D><<<grid, NT, smem, stream>>>(rt, kt, vt, w, ut, scratch, ot, T_len,
-                                                       H);
+  const unsigned grid = (unsigned)n_chunks * B * H;
+  wkv6_prefill_kernel<T, D><<<grid, NT, smem, stream>>>(rt, kt, vt, w, ut, s0, ot, sT, scratch,
+                                                       sync, T_len, H, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -560,8 +592,10 @@ int launch_d(const void* r, const void* k, const void* v, const float* w, const 
 
 // r, k, v: (B, T, H, D) of dtype (0 float32, 1 bfloat16); w: (B, T, H, D)
 // float32; u: (H, D) of dtype; state: (B, H, D, D) float32; o: (B, T, H, D)
-// of dtype; s_out: (B, H, D, D) float32; scratch: float32, (B, H,
-// ceil(T / 32), D·D + D) for T > 1 (unused, and may be null, at T == 1).
+// of dtype; s_out: (B, H, D, D) float32; scratch: for T > 1, B·H·2·D·D + B·H
+// + 1 words of 4 bytes (two state slots a (row, head), then the flags and
+// the ticket counter, which a first small kernel zeroes); unused, and may be null, at
+// T == 1.
 // All contiguous and 16-byte aligned.  Returns cudaGetLastError() after the
 // launches (0 on success).
 extern "C" int repro_wkv6(const void* r, const void* k, const void* v, const void* w,

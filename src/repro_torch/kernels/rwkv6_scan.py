@@ -6,9 +6,9 @@ The recurrence, per (row, head), with an fp32 (D, D) state S::
     S  ← diag(w_t) S + k_tᵀ v_t
 
 ``wkv6_cuda`` launches ``csrc/rwkv6_scan.cu``, the port of the JAX
-package's ``wkv6_pallas``: at T > 1 a chunk-parallel scan (each chunk's own
-terms, then the chain of states across chunks, then the outputs), at T = 1
-one streaming pass over the state.  ``wkv6_plain`` is the same function in plain
+package's ``wkv6_pallas``: at T > 1 a chunk-parallel scan (one block per
+chunk, each taking its incoming state from the chunk before), at T = 1 one
+streaming pass over the state.  ``wkv6_plain`` is the same function in plain
 PyTorch, chunked like the JAX package's ``ops._wkv6_jnp``: the CPU path and
 the reference the kernel is held against on the card.
 
@@ -100,9 +100,10 @@ def wkv6_cuda(r, k, v, w, u, state=None):
     (B, H, D, D) contiguous float32, or None for zeros.  All on one CUDA
     device, D in ``HEAD_DIMS``.  Returns ``(out (B, T, H, D) in r's dtype,
     final state (B, H, D, D) float32)`` as new tensors.  Raises on anything
-    else, and counts each call that launches in ``wkv6_cuda.launches`` (at
-    T > 1 a call runs three device kernels over an fp32 scratch of
-    (B, H, ceil(T / CHUNK), D·D + D), taken from the caching allocator)."""
+    else, and counts each call that launches in ``wkv6_cuda.launches``.  At
+    T > 1 the call takes a scratch from the caching allocator: two fp32
+    state slots a (row, head), then B·H + 1 words of flags and a counter,
+    which the kernel's launch zeroes."""
     B, T, H, D = r.shape
     if state is None:
         state = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
@@ -136,8 +137,8 @@ def wkv6_cuda(r, k, v, w, u, state=None):
         return out, s_out
     lib = _lib()
     scratch = None
-    if T > 1:      # ΔS, then the incoming state, and e^{LC} of every chunk
-        scratch = torch.empty((B, H, -(-T // CHUNK), D * D + D), dtype=torch.float32,
+    if T > 1:
+        scratch = torch.empty(B * H * (2 * D * D + 1) + 1, dtype=torch.float32,
                               device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = lib.repro_wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
