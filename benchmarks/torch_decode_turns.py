@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Decode kernels of two source trees on one card, timed in turns.
+"""Decode and WKV6 kernels of two source trees on one card, timed in turns.
 
     python3 benchmarks/torch_decode_turns.py --parent DIR [--rounds 7]
 
 Times the port's paged and contiguous decode-attention kernels (D=64, the
-serving main path's shapes) from this checkout ("change") and from the tree
-unpacked at ``DIR`` ("parent", for example ``git archive`` of an earlier
-commit under the gitignored ``build/``), each through its own tree's
-wrapper (``kernels/paged_attention.py``, ``kernels/decode_attention.py``)
-and kernel library.  ``DIR``'s ``paged_attention.cu`` and
-``decode_attention.cu`` are compiled with ``nvcc`` and the port's own flags
-into ``DIR/build/turn_libs/``.
+serving main path's shapes) and its WKV6 kernel at RWKV6-3B's prefill
+(r/k/v (4, 512, 40, 64) bf16) and decode step ((4, 1, 40, 64)), both with a
+carried state, from this checkout ("change") and from the tree unpacked at
+``DIR`` ("parent", for example ``git archive`` of an earlier commit under
+the gitignored ``build/``), each through its own tree's wrapper
+(``kernels/paged_attention.py``, ``kernels/decode_attention.py``,
+``kernels/rwkv6_scan.py``) and kernel library.  ``DIR``'s
+``paged_attention.cu``, ``decode_attention.cu`` and ``rwkv6_scan.cu`` are
+compiled with ``nvcc`` and the port's own flags into
+``DIR/build/turn_libs/``.
 
 Each round times parent and change in turns (the order flips every round)
 after each of two L2 flushes of a 128 MB buffer: writing it (``timed_ms`` of
@@ -18,11 +21,13 @@ after each of two L2 flushes of a 128 MB buffer: writing it (``timed_ms`` of
 it times, in the same round and under the same flush, SDPA's masked call on
 the contiguous inputs (the contiguous kernel's ``library_ms``) and a no-op
 (one-element add), the floor that an event-timed launch cannot go below.
-Once per version it also reads each kernel's own device time from a
-torch.profiler trace (CUPTI), which leaves out any wait for the host, with
-the L2 warm and after each flush, and the host time of one wrapper call.  Every number is a CUDA-event or host
-clock mean in milliseconds; rounds go to ``chiprun_out/decode_turns.json``
-with the card's name and power limit from nvidia-smi.  Needs a CUDA device.
+Every round then reads each kernel's CUPTI device time a call from a
+torch.profiler trace (summed over the kernels a call runs; it leaves out any
+wait for the host) after the reading flush.  Once per version it also reads
+CUPTI with the L2 warm and after each flush, and the host time of one
+wrapper call.  Every number is a CUDA-event, CUPTI or host clock mean in
+milliseconds; rounds go to ``chiprun_out/decode_turns.json`` with the card's
+name and power limit from nvidia-smi.  Needs a CUDA device.
 """
 import argparse
 import ctypes
@@ -40,7 +45,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-NAMES = ("paged_attention", "decode_attention")
+NAMES = ("paged_attention", "decode_attention", "rwkv6_scan")
 LENGTHS = [210, 210, 210, 209, 213, 213, 212, 213]   # the serving path's recorded lengths
 SEED = 0
 
@@ -62,7 +67,7 @@ def timed_read_ms(fn, iters, flush):
 
 
 def build_parent(parent: Path, build):
-    """Compile the parent tree's two decode sources; returns name -> CDLL."""
+    """Compile the parent tree's sources of ``NAMES``; returns name -> CDLL."""
     out_dir = parent / "build" / "turn_libs"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
@@ -83,7 +88,7 @@ def build_parent(parent: Path, build):
 
 
 def load_wrappers(tree: Path):
-    """The tree's two wrapper modules, loaded from its files under their own
+    """The tree's wrapper modules of ``NAMES``, loaded from its files under their own
     names (they import ``build`` and the plain versions from this checkout's
     package, so ``build._loaded`` picks the library they launch)."""
     mods = {}
@@ -96,9 +101,10 @@ def load_wrappers(tree: Path):
 
 
 def device_ms(fn, kernel_substr, iters=50, before=None):
-    """Mean CUPTI device time of the kernels whose name holds
-    ``kernel_substr``, over ``iters`` launches, each after ``before()`` (an
-    L2 flush) when it is given."""
+    """CUPTI device time of one call of ``fn``: the self device time of every
+    kernel whose name holds ``kernel_substr``, summed over ``iters`` calls
+    (each after ``before()``, an L2 flush, when it is given) and divided by
+    ``iters``, so a call that runs several kernels counts them all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -111,8 +117,7 @@ def device_ms(fn, kernel_substr, iters=50, before=None):
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if kernel_substr in e.key]
     total = sum(e.self_device_time_total for e in rows)
-    count = sum(e.count for e in rows)
-    return None if not count else total / count / 1e3
+    return None if not rows else total / iters / 1e3
 
 
 def host_ms(fn, iters=200):
@@ -141,6 +146,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import rwkv6_scan as wkv6_mod
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -151,9 +157,11 @@ def main() -> int:
             "parent": build_parent(args.parent.resolve(), build)}
     parent_mods = load_wrappers(args.parent.resolve())
     wrappers = {"change": {"paged": paged_mod.paged_attention_cuda,
-                           "decode": decode_mod.decode_attention_cuda},
+                           "decode": decode_mod.decode_attention_cuda,
+                           "wkv6": wkv6_mod.wkv6_cuda},
                 "parent": {"paged": parent_mods["paged_attention"].paged_attention_cuda,
-                           "decode": parent_mods["decode_attention"].decode_attention_cuda}}
+                           "decode": parent_mods["decode_attention"].decode_attention_cuda,
+                           "wkv6": parent_mods["rwkv6_scan"].wkv6_cuda}}
 
     def use(version):
         for n in NAMES:
@@ -180,21 +188,51 @@ def main() -> int:
     noop_x = torch.zeros(1, device=dev)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
 
+    def wkv6_args(T, Bw=4, Hw=40, Dw=64):
+        """RWKV6-3B's shapes in bf16: RWKV6's own decay range, a carried state."""
+        r_, k_, v_ = (randn(Bw, T, Hw, Dw) for _ in range(3))
+        w_ = torch.exp(-torch.exp(torch.rand((Bw, T, Hw, Dw), generator=gen, device=dev) - 0.5))
+        u_ = (torch.rand((Hw, Dw), generator=gen, device=dev) - 0.5).to(torch.bfloat16)
+        s_ = 0.3 * torch.randn((Bw, Hw, Dw, Dw), generator=gen, device=dev)
+        return r_, k_, v_, w_, u_, s_
+
+    wkv6_prefill, wkv6_step = wkv6_args(512), wkv6_args(1)
+
     def calls(version):
         paged, decode = wrappers[version]["paged"], wrappers[version]["decode"]
+        wkv6 = wrappers[version]["wkv6"]
         return {"paged": lambda: paged(q, k_pool, v_pool, table, lengths),
-                "decode": lambda: decode(q, k, v, lengths)}
+                "decode": lambda: decode(q, k, v, lengths),
+                "wkv6_prefill": lambda: wkv6(*wkv6_prefill),
+                "wkv6_step": lambda: wkv6(*wkv6_step)}
 
     want = {"paged": paged_mod.paged_attention_plain(q, k_pool, v_pool, table, lengths),
-            "decode": decode_mod.decode_attention_plain(q, k, v, lengths)}
-    kernel_names = {"paged": "paged_decode_kernel", "decode": "decode_kernel"}
+            "decode": decode_mod.decode_attention_plain(q, k, v, lengths),
+            "wkv6_prefill": wkv6_mod.wkv6_plain(*wkv6_prefill),
+            "wkv6_step": wkv6_mod.wkv6_plain(*wkv6_step)}
+    kernel_names = {"paged": "paged_decode_kernel", "decode": "decode_kernel",
+                    "wkv6_prefill": "wkv6", "wkv6_step": "wkv6"}
+
+    def max_err(name, got):
+        """Max abs error of the output (decode), or of the output and the
+        state scaled by 1 + |plain| (WKV6, whose outputs run to tens); raises
+        past 2e-2 for a bf16 output or 2e-5 for an fp32 state."""
+        if not name.startswith("wkv6"):
+            err = (got.float() - want[name].float()).abs().max().item()
+            bad = err > 2e-2
+        else:
+            errs = [((g.float() - p.float()).abs() / (1 + p.float().abs())).max().item()
+                    for g, p in zip(got, want[name])]
+            err, bad = max(errs), errs[0] > 2e-2 or errs[1] > 2e-5
+        if bad:
+            raise SystemExit(f"{name}: error {err:.3g} past its tolerance")
+        return err
+
     diag = {}
     for version in ("parent", "change"):
         use(version)
         for name, fn in calls(version).items():
-            err = (fn().float() - want[name].float()).abs().max().item()
-            if err > 2e-2:
-                raise SystemExit(f"{version} {name}: max abs err {err:.3g} > 2e-2")
+            err = max_err(name, fn())
             kname = kernel_names[name]
             diag[f"{version} {name}"] = dict(
                 max_abs_err=err, device_ms=device_ms(fn, kname),
@@ -221,11 +259,17 @@ def main() -> int:
                     row[f"{mode} {version} {name}"] = timer(fn)
             row[f"{mode} sdpa"] = timer(lambda: sdpa(sq, sk, sv, attn_mask=smask))
             row[f"{mode} noop"] = timer(noop)
+        for version in order:
+            use(version)
+            for name, fn in calls(version).items():
+                row[f"cupti {version} {name}"] = device_ms(fn, kernel_names[name],
+                                                           before=flush.max)
         rounds.append(row)
         print(f"[round {r}] " + ", ".join(f"{key} {val:.4f}" for key, val in row.items()
                                           if isinstance(val, float)))
     summary = {key: [row[key] for row in rounds] for key in rounds[0]
                if isinstance(rounds[0][key], float)}
+    print(f"[summary] {smi}")
     for key, vals in summary.items():
         print(f"[summary] {key}: min {min(vals):.4f} median {float(np.median(vals)):.4f} "
               f"max {max(vals):.4f} ms")

@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit, as nvidia-smi reports them.
 2. Build: the five CUDA kernel sources compiled by nvcc from
    ``src/repro_torch/csrc``, one nvcc per source, all started together;
-   ptxas's report per kernel; ``cuobjdump -sass`` of the flash library must
-   show HGMMA (Hopper's tensor-core product) in the bf16 kernel at every
-   head width.
+   ptxas's report per kernel, and no spill in any WKV6 kernel;
+   ``cuobjdump -sass`` of the flash library must show HGMMA (Hopper's
+   tensor-core product) in the bf16 kernel at every head width.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
    at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32), at ragged
    GQA/window shapes (D=32 and 64 with windows, D=16 under MQA), at S=1,
@@ -28,9 +28,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    G in {1, 2, 4, 8, 16}, D=32 at G=3 and D=16: lengths 0, 1 and page-1,
    warps left empty, each warp-range and sub-tile boundary ±1, exactly the
    cache's capacity and past it, a retired row and a row whose table has a
-   hole of sentinel pages under two warps' ranges; WKV6 at H=40,
-   D=64, T in {1, 37, 512} with RWKV6's own decay range and a carried state,
-   also held against the token-by-token oracle in fp32; the RG-LRU scan at
+   hole of sentinel pages under two warps' ranges; WKV6 at H=40, D=64, T in
+   {1, 31, 32, 33, 37, 512} (the step, a chunk ± 1 and a short last chunk),
+   bf16 and fp32, with a carried state and decays from RWKV6's own range or
+   down to 1e-12, at B=4 and at B·H = 5 (fewer chunk blocks than SMs, so
+   the chain across chunks runs with no other work beside it), and at D=16
+   and 32; the fp32 ones also held against the token-by-token oracle (the
+   plain version's own distance from it printed beside); the RG-LRU scan at
    W=4096, T in {1, 37, 3072}, bf16 and fp32, with a carried state and
    log-gates mild, strong (down to −20) and within 1e-6 of 0, the fp32 ones
    also held against the token-by-token oracle.
@@ -56,14 +60,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    paged, decode and D=256 main-path entries are held row by row as well:
    the error of each output row over the row's largest plain value.  Each
    kernel is then timed, and held against its plain version, on inputs
-   recorded from its path (the shapes the main path gives it).
+   recorded from its path (the shapes the main path gives it): CUDA-event
+   times after a writing flush, then, after every event timing of the run,
+   each kernel's CUPTI device time a call (summed over the call's kernels)
+   after a reading flush.
 5. Parity in fp32, kernels against plain versions: both serving paths
    (prefill logits within 1e-3, identical greedy streams), RWKV6-3B and
    RecurrentGemma-9B at full depth (prefill logits within 1e-3, identical
    greedy streams over 32 steps).
 
 The line before the last is a JSON object with one entry per kernel (time,
-launches, bound, plain and library times); the last line is
+CUPTI time, launches, bound, plain and library times); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke_results.json``.  Needs a CUDA device and the
 repository's ``src/`` beside this file.
@@ -133,6 +140,26 @@ def timed_ms(fn, iters, flush):
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def device_ms(fn, kernel_substr, iters=50, before=None):
+    """CUPTI device time of one call of ``fn``: the self device time of every
+    kernel whose name holds ``kernel_substr``, summed over ``iters`` calls
+    (each after ``before()``, an L2 flush, when it is given) and divided by
+    ``iters``, so a call that runs several kernels counts them all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel_substr in e.key]
+    total = sum(e.self_device_time_total for e in rows)
+    return None if not rows else total / iters / 1e3
 
 
 def bound_ms(n_bytes, n_flops, dtype):
@@ -392,6 +419,9 @@ def main() -> int:
                     line = line.replace("ptxas info    : ", "").strip()
                     print(f"[build] {name}: {entry}: {line}")
                     results.setdefault("ptxas", []).append(f"{entry}: {line}")
+                    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                    check(name != "rwkv6_scan" or spill is None or spill[1] == spill[2] == "0",
+                          f"ptxas spills in {entry}: {line}")
     results["build_s"] = build_s
     sass = subprocess.run([str(Path(build.find_nvcc()).with_name("cuobjdump")), "-sass",
                            str(build.library_path("flash_attention"))], capture_output=True,
@@ -622,14 +652,20 @@ def main() -> int:
             decode_edges(dtype, D, G)
             paged_edges(dtype, D, G)
 
-    def wkv6_inputs(B, T, H, D, dtype):
-        """r/k/v ~ N(0, 1), RWKV6's own decay range exp(−exp(U(−0.5, 0.5))),
-        u ~ U(−0.5, 0.5) and a carried state."""
+    def wkv6_inputs(B, T, H, D, dtype, decays="rwkv"):
+        """r/k/v ~ N(0, 1), u ~ U(−0.5, 0.5), a carried state, and decays
+        from RWKV6's own range exp(−exp(U(−0.5, 0.5))) or (``tiny``)
+        U(1e-12, 1) with a sixteenth set to 1e-12, where a chunk's log-decay
+        sums run to hundreds."""
         r, k, v = (randn(B, T, H, D, dtype=dtype) for _ in range(3))
-        w_raw = torch.rand((B, T, H, D), generator=gen, device=dev) - 0.5
+        w_raw = torch.rand((B, T, H, D), generator=gen, device=dev)
+        if decays == "rwkv":
+            w = torch.exp(-torch.exp(w_raw - 0.5))
+        else:
+            w = w_raw.clamp(1e-12, 1.0)
+            w[torch.rand((B, T, H, D), generator=gen, device=dev) < 1 / 16] = 1e-12
         u = (torch.rand((H, D), generator=gen, device=dev) - 0.5).to(dtype)
-        return r, k, v, torch.exp(-torch.exp(w_raw)), u, 0.3 * randn(B, H, D, D,
-                                                                      dtype=torch.float32)
+        return r, k, v, w, u, 0.3 * randn(B, H, D, D, dtype=torch.float32)
 
     def scaled_err(got, want):
         """Max |got − want| and whether it is within TOL·(1 + |want|): the
@@ -638,8 +674,8 @@ def main() -> int:
         d = (got.float() - want.float()).abs()
         return d.max().item(), (d / (1 + want.float().abs())).max().item()
 
-    def wkv6_case(B, T, H, D, dtype):
-        args = wkv6_inputs(B, T, H, D, dtype)
+    def wkv6_case(B, T, H, D, dtype, decays="rwkv", timed=True):
+        args = wkv6_inputs(B, T, H, D, dtype, decays)
         out, st = wkv6_kernel(*args)
         out_p, st_p = wkv6_plain(*args)
         torch.cuda.synchronize()
@@ -647,29 +683,52 @@ def main() -> int:
         s_err, s_rel = scaled_err(st, st_p)
         tol = TOL[dtype]
         check(rel <= tol and s_rel <= TOL[torch.float32],
-              f"wkv6 T={T} {dtype}: kernel vs plain {err:.3g} (scaled {rel:.3g}), state "
-              f"{s_err:.3g} (scaled {s_rel:.3g})")
-        line = dict(kernel="wkv6", B=B, T=T, H=H, D=D, dtype=str(dtype), max_abs_err=err,
-                    scaled_err=rel, state_err=s_err, out_max=out_p.float().abs().max().item())
+              f"wkv6 B={B} T={T} H={H} D={D} {decays} {dtype}: kernel vs plain {err:.3g} "
+              f"(scaled {rel:.3g}), state {s_err:.3g} (scaled {s_rel:.3g})")
+        line = dict(kernel="wkv6", B=B, T=T, H=H, D=D, dtype=str(dtype), decays=decays,
+                    max_abs_err=err, scaled_err=rel, state_err=s_err,
+                    out_max=out_p.float().abs().max().item())
         if dtype == torch.float32:
+            # the plain version's own distance from the oracle beside the
+            # kernel's: the chunked fp32 form's error, which grows as the
+            # chunk's log-decay sums do
             out_r, st_r = ref.wkv6_ref(*args)
-            o_err, o_rel = scaled_err(out, out_r)
-            so_err, so_rel = scaled_err(st, st_r)
+            _, o_rel = scaled_err(out, out_r)
+            _, so_rel = scaled_err(st, st_r)
+            _, po_rel = scaled_err(out_p, out_r)
+            _, pso_rel = scaled_err(st_p, st_r)
             check(o_rel <= WKV_ORACLE_TOL and so_rel <= WKV_ORACLE_TOL,
-                  f"wkv6 T={T}: kernel vs oracle {o_err:.3g}, state {so_err:.3g}")
-            line.update(oracle_err=o_err, oracle_state_err=so_err)
-        line["ms"] = timed_ms(lambda: wkv6_kernel(*args), 20, flush)
-        line["plain_ms"] = timed_ms(lambda: wkv6_plain(*args), 3, flush)
-        print(f"[kernels] wkv6 B={B} T={T} H={H} D={D} {str(dtype)[6:]}: max|err| {err:.3g} "
-              f"(scaled {rel:.3g}, tol {tol}), state {s_err:.3g}, oracle "
-              f"{line.get('oracle_err', '-')}, kernel {line['ms']:.4f} ms, plain "
-              f"{line['plain_ms']:.4f} ms")
+                  f"wkv6 B={B} T={T} H={H} D={D} {decays}: kernel vs oracle {o_rel:.3g}, "
+                  f"state {so_rel:.3g} (plain {po_rel:.3g}, {pso_rel:.3g})")
+            line.update(oracle_err=o_rel, oracle_state_err=so_rel, plain_oracle_err=po_rel,
+                        plain_oracle_state_err=pso_rel)
+        if timed:
+            line["ms"] = timed_ms(lambda: wkv6_kernel(*args), 20, flush)
+            line["plain_ms"] = timed_ms(lambda: wkv6_plain(*args), 3, flush)
+        print(f"[kernels] wkv6 B={B} T={T} H={H} D={D} {decays} {str(dtype)[6:]}: max|err| "
+              f"{err:.3g} (scaled {rel:.3g}, tol {tol}), state {s_err:.3g} (scaled "
+              f"{s_rel:.3g}), oracle {line.get('oracle_err', '-')} (plain "
+              f"{line.get('plain_oracle_err', '-')})"
+              + (f", kernel {line['ms']:.4f} ms, plain {line['plain_ms']:.4f} ms" if timed
+                 else ""))
         results["cases"].append(line)
 
     for T in (1, 37, 512):
         for dtype in (torch.bfloat16, torch.float32):
             wkv6_case(4, T, 40, 64, dtype)
     wkv6_case(2, 45, 3, 16, torch.float32)
+    # the design's edges: the step, a chunk ± 1 and a short last chunk, decays
+    # down to 1e-12, and B·H = 5, where the 80 chunk blocks of T = 512 fill
+    # fewer than the card's SMs and the chain across chunks runs alone
+    for T in (1, 31, 32, 33, 37, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            if T in (31, 32, 33):
+                wkv6_case(4, T, 40, 64, dtype, timed=False)
+            wkv6_case(4, T, 40, 64, dtype, decays="tiny", timed=False)
+    for dtype in (torch.bfloat16, torch.float32):
+        for decays in ("rwkv", "tiny"):
+            wkv6_case(1, 512, 5, 64, dtype, decays, timed=False)
+    wkv6_case(2, 33, 3, 32, torch.float32, decays="tiny", timed=False)
 
     def rglru_inputs(B, T, W, dtype, gates):
         """x ~ N(0, 1), a carried state ~ N(0, 1), and log-gates ``mild``
@@ -1036,16 +1095,36 @@ def main() -> int:
         library_ms=timed_ms(lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50, flush),
         shape=dict(q=list(eq.shape), k=list(ek.shape), lengths=elen.tolist(),
                    dtype=str(eq.dtype))))
+    # CUPTI device time a call, read after every event timing of the run (a
+    # process that has run the profiler pays more host time a launch), each
+    # call after a reading flush of the 128 MB buffer; the name fragment
+    # takes in every kernel a call runs
+    (wpa, _), (wda, _) = wkv6_calls[0], wkv6_calls[rcfg.n_layers]
+    (gpa, _), (gda, _) = rglru_calls[0], rglru_calls[n_rec]
+    cupti = {"flash_attention": (lambda: flash_kernel(fq, fk, fv, **fkw), "flash_", 50),
+             "paged_attention": (lambda: paged_kernel(*pargs), "paged_decode_kernel", 50),
+             "decode_attention": (lambda: decode_kernel(dq, dk, dv, dlen), "decode_", 50),
+             "wkv6": (lambda: wkv6_kernel(*wpa), "wkv6_", 50),
+             "rglru_scan": (lambda: rglru_kernel(*gpa), "rglru_", 50),
+             "flash_attention_d256": (lambda: flash_kernel(gq, gk, gv, **gkw), "flash_", 20),
+             "decode_attention_d256": (lambda: decode_kernel(eq, ek, ev, elen), "decode_", 50)}
     for e in entries:
-        print(f"[main-path] {e['name']} {e['shape']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} "
-              f"ms by {e['bound_by']}), plain {e['plain_ms']:.4f} ms, library {e['library_ms']}, "
-              f"max|err| {e['max_abs_err']:.3g}"
+        fn, frag, iters = cupti[e["name"]]
+        e["cupti_ms"] = device_ms(fn, frag, iters, before=flush.max)
+    wkv6_extra["decode"]["cupti_ms"] = device_ms(lambda: wkv6_kernel(*wda), "wkv6_", 50,
+                                                 before=flush.max)
+    rglru_extra["decode"]["cupti_ms"] = device_ms(lambda: rglru_kernel(*gda), "rglru_", 50,
+                                                  before=flush.max)
+    for e in entries:
+        print(f"[main-path] {e['name']} {e['shape']}: {e['ms']:.4f} ms, CUPTI {e['cupti_ms']} ms "
+              f"(bound {e['bound_ms']:.4f} ms by {e['bound_by']}), plain {e['plain_ms']:.4f} ms, "
+              f"library {e['library_ms']}, max|err| {e['max_abs_err']:.3g}"
               + (f" (row-relative {e['row_rel_err']:.3g}, max|plain| {e['out_max']:.3g})"
                  if "row_rel_err" in e else "") + f", {e['launches']} launches")
     for name, wd in (("wkv6", wkv6_extra["decode"]), ("rglru", rglru_extra["decode"])):
-        print(f"[main-path] {name} decode step {wd['shape']}: {wd['ms']:.4f} ms (bound "
-              f"{wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain {wd['plain_ms']:.4f} ms, "
-              f"max|err| {wd['max_abs_err']:.3g}")
+        print(f"[main-path] {name} decode step {wd['shape']}: {wd['ms']:.4f} ms, CUPTI "
+              f"{wd['cupti_ms']} ms (bound {wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain "
+              f"{wd['plain_ms']:.4f} ms, max|err| {wd['max_abs_err']:.3g}")
 
     # ---- 5. parity in fp32: kernels vs plain versions ---------------------
     @contextlib.contextmanager
@@ -1131,7 +1210,7 @@ def main() -> int:
     # |plain| taken element by element, or (scale "row") as the max of the
     # output row (the last axis) the element lies in
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "atol", "rtol",
-            "scale", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "scale", "ms", "cupti_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for e in entries:
         e.setdefault("scale", "element")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))

@@ -95,7 +95,9 @@ __device__ __forceinline__ float exp_nonpos(float x) {
   return y;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 __device__ __forceinline__ void st4(float* p, float4 x) { *reinterpret_cast<float4*>(p) = x; }
 
 // Stage the chunk's rows [0, n) of r, k, v (model dtype) and log(clamp(w))

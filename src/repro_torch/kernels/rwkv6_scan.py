@@ -103,7 +103,7 @@ def wkv6_cuda(r, k, v, w, u, state=None):
     else, and counts each call that launches in ``wkv6_cuda.launches``.  At
     T > 1 the call takes a scratch from the caching allocator: two fp32
     state slots a (row, head), then B·H + 1 words of flags and a counter,
-    which the kernel's launch zeroes."""
+    which the call zeroes on the card first."""
     B, T, H, D = r.shape
     if state is None:
         state = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
@@ -137,7 +137,7 @@ def wkv6_cuda(r, k, v, w, u, state=None):
         return out, s_out
     lib = _lib()
     scratch = None
-    if T > 1:
+    if T > 1:      # freed on return: the allocator reuses it only after this stream's work
         scratch = torch.empty(B * H * (2 * D * D + 1) + 1, dtype=torch.float32,
                               device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
