@@ -30,11 +30,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    cache's capacity and past it, a retired row and a row whose table has a
    hole of sentinel pages under two warps' ranges; WKV6 at H=40, D=64, T in
    {1, 31, 32, 33, 37, 512} (the step, a chunk ± 1 and a short last chunk),
-   bf16 and fp32, with a carried state and decays from RWKV6's own range or
-   down to 1e-12, at B=4 and at B·H = 5 (fewer chunk blocks than SMs, so
-   the chain across chunks runs with no other work beside it), and at D=16
-   and 32; the fp32 ones also held against the token-by-token oracle (the
-   plain version's own distance from it printed beside); the RG-LRU scan at
+   bf16 and fp32, with a carried state and decays from RWKV6's own range,
+   U(1e-12, 1) with a sixteenth at 1e-12, and exp(−exp(U(−6, 3.32))) (as
+   many near 1 as near 1e-12, mixed within a chunk), at B=4 and at B·H = 5
+   (fewer chunk blocks than SMs, so the chain across chunks runs with no
+   other work beside it), and at D=16 and 32; the fp32 ones also held
+   against the token-by-token oracle (the plain version's own distance from
+   it printed beside); the RG-LRU scan at
    W=4096, T in {1, 37, 3072}, bf16 and fp32, with a carried state and
    log-gates mild, strong (down to −20) and within 1e-6 of 0, the fp32 ones
    also held against the token-by-token oracle.
@@ -654,13 +656,17 @@ def main() -> int:
 
     def wkv6_inputs(B, T, H, D, dtype, decays="rwkv"):
         """r/k/v ~ N(0, 1), u ~ U(−0.5, 0.5), a carried state, and decays
-        from RWKV6's own range exp(−exp(U(−0.5, 0.5))) or (``tiny``)
+        from RWKV6's own range exp(−exp(U(−0.5, 0.5))), or (``tiny``)
         U(1e-12, 1) with a sixteenth set to 1e-12, where a chunk's log-decay
-        sums run to hundreds."""
+        sums run to hundreds, or (``wide``) exp(−exp(U(−6, 3.32))), from
+        0.998 down to 1e-12 with as many near 1 as near 1e-12, so that decays
+        near 1 sit in a chunk beside sums of hundreds."""
         r, k, v = (randn(B, T, H, D, dtype=dtype) for _ in range(3))
         w_raw = torch.rand((B, T, H, D), generator=gen, device=dev)
         if decays == "rwkv":
             w = torch.exp(-torch.exp(w_raw - 0.5))
+        elif decays == "wide":
+            w = torch.exp(-torch.exp(-6.0 + 9.32 * w_raw))
         else:
             w = w_raw.clamp(1e-12, 1.0)
             w[torch.rand((B, T, H, D), generator=gen, device=dev) < 1 / 16] = 1e-12
@@ -724,11 +730,14 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             if T in (31, 32, 33):
                 wkv6_case(4, T, 40, 64, dtype, timed=False)
-            wkv6_case(4, T, 40, 64, dtype, decays="tiny", timed=False)
+            for decays in ("tiny", "wide"):
+                wkv6_case(4, T, 40, 64, dtype, decays, timed=False)
     for dtype in (torch.bfloat16, torch.float32):
-        for decays in ("rwkv", "tiny"):
+        for decays in ("rwkv", "tiny", "wide"):
             wkv6_case(1, 512, 5, 64, dtype, decays, timed=False)
-    wkv6_case(2, 33, 3, 32, torch.float32, decays="tiny", timed=False)
+    for decays in ("tiny", "wide"):
+        wkv6_case(2, 33, 3, 32, torch.float32, decays, timed=False)
+    wkv6_case(2, 45, 3, 16, torch.float32, decays="wide", timed=False)
 
     def rglru_inputs(B, T, W, dtype, gates):
         """x ~ N(0, 1), a carried state ~ N(0, 1), and log-gates ``mild``

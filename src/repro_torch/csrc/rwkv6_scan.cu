@@ -19,12 +19,22 @@
 // so the result is exact to fp32 rounding for any w in (0, 1].  (The TPU
 // kernel factors e^{Le_t − L_s} as e^{clip(Le_t)} · e^{clip(−L_s)}, clipped
 // at ±30, which is wrong once a chunk's log-decay falls below −30; RWKV6's
-// own decay init reaches −19 to −53 over a chunk of 32.)  L is a running
-// fp32 sum token by token and Le is taken as L − lw, as the plain version
-// takes them (torch.cumsum along the tokens, then Lc − lwc): with |L| in the
-// tens to hundreds another rounding of Le would move the state by more than
-// the card's check allows.  A chunk cut short by the end of the sequence
-// runs as if padded with w = 1 and r = k = v = 0.
+// own decay init reaches −19 to −53 over a chunk of 32.)  No exponent is
+// taken as a difference of two cumulative sums: with decays down to 1e-12
+// those run to hundreds, where their fp32 rounding moves a decay near 1 by
+// ~1e-4, and the outputs that far from the token-by-token oracle.  Each
+// exponent is instead a sum of log-decays of one sign, over the chunk's
+// groups of four tokens (the pair tiles' rows):
+//     A_t  = Σ lw over t's group before t,   B_s = Σ lw over s's group after s,
+//     P_g, Q_g = Σ group totals before, after g,  G_{g,h} = Σ those strictly
+//     between h < g,
+//     Le_t − L_s = (A_t + G) + B_s, or within one group the logs strictly
+//                  between s and t (none, lw_{s+1}, or lw_{s+1} + lw_{s+2}),
+//     Le_t = P_g + A_t,   LC − L_s = B_s + Q_g,   LC = Σ all totals,
+// so each is within a few fp32 roundings of its own size, and the kernel's
+// outputs stay within fp32's own error of the exact result (the plain
+// version computes in float64).  A chunk cut short by the end of the
+// sequence runs as if padded with w = 1 and r = k = v = 0.
 //
 // Two paths behind the one entry, chosen by the number of tokens.
 //
@@ -36,26 +46,28 @@
 // ΔS_c, e^{LC_c}, the pair scores and the bonus terms depend on the chunk's
 // own tokens alone.  What bounds it on the H100: about 5·D² fp32 FLOPs per
 // token and head (0.025 ms at RWKV6-3B's prefill, against 0.020 ms for the
-// bytes of r, k, v, w and o) plus one ex2 per (pair, channel) on the SFU.
+// bytes of r, k, v, w and o) plus an ex2 per (pair, channel) on the SFU.
 // The design:
 //  * Tickets, not blockIdx, order the blocks: a block takes the next
 //    ticket of an atomic counter, chunk-major, so the chunk it waits on
 //    belongs to a block that is already running, and every wait ends.
 //  * Everything that does not need the incoming state comes first: r, k, v
 //    and log w staged with 16-byte loads by every warp, all of a thread's
-//    loads in flight together, then the running sums by one thread a
+//    loads in flight together, then the group sums by one thread a
 //    channel; the pair scores over the 36 lower 4 × 4 (t, s)
 //    tiles only (28 below the diagonal, 8 lanes each; 8 on it, 4 lanes
 //    each, where s = t gives the bonus term), every loaded operand feeding
-//    four pairs, each pair decay one ex2 of the log2-scaled difference, a
-//    warp's items all of one kind; then ΔS_c as a register-tiled
+//    four pairs, each pair decay below the diagonal one ex2 of the
+//    log2-scaled exponent (three ex2 a channel on it), a warp's items all
+//    of one kind; then ΔS_c as a register-tiled
 //    (D × C)·(C × D) product, 4 × 4 a thread.
 //  * The chain step: after the pair scores thread 0 waits on the
 //    predecessor's flag with an acquire load (by then it has nearly always
-//    published), the block loads S_{c−1} from the (row, head)'s slot
-//    through L2 while it takes the decays and ΔS_c, then writes
-//    S_c = e^{LC} S_{c−1} + ΔS_c (each product and sum rounded as the plain
-//    version rounds them) to the other slot, or to the final state, and
+//    published), the block copies S_{c−1} from the (row, head)'s slot
+//    into shared memory through L2 (cp.async, no registers held) while it
+//    takes the decays and ΔS_c, then writes
+//    S_c = e^{LC} S_{c−1} + ΔS_c (the product and the sum rounded apart)
+//    to the other slot, or to the final state, and
 //    publishes it with a fence and a release store.
 //    Two slots a (row, head) suffice: a slot is rewritten only after the
 //    block that read it has published.  The scratch is 2·D² floats a
@@ -152,24 +164,6 @@ __device__ __forceinline__ void stage_chunk(float* rs, float* ks, float* vs, flo
   }
 }
 
-// The chunk's cumulative log-decays for channel d, from the logs in Le:
-// L (inclusive, a running fp32 sum token by token) and Le = L − lw in place
-// of the logs.  Returns LC_d, the chunk's total.
-template <int D>
-__device__ __forceinline__ float cumulative_log_decay(int d, float* L, float* Le) {
-  float lw[C];
-#pragma unroll
-  for (int t = 0; t < C; ++t) lw[t] = Le[t * D + d];
-  float run = 0.f;
-#pragma unroll
-  for (int t = 0; t < C; ++t) {
-    run += lw[t];
-    L[t * D + d] = run;
-    Le[t * D + d] = run - lw[t];
-  }
-  return run;
-}
-
 template <int D>
 struct Tiles {
   // pair scores: 4 × 4 (t, s) tiles, NQ lanes a tile below the diagonal
@@ -204,58 +198,141 @@ __device__ __forceinline__ void st_release(unsigned* p, unsigned x) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(x) : "memory");
 }
 
+constexpr int NG = C / 4;                  // groups of four tokens a chunk
+constexpr int NGP = NG * (NG - 1) / 2;     // pairs of groups h < g
+
 template <int D>
 struct PrefillSmem {
   float r[C * (D + 4)];    // r, then q = r_td e^{Le_td}; rows D + 4 apart
   float k[C * D];          // k, then kd = k_sd e^{LC_d − L_sd}
   float v[C * D];
-  float L[C * D], Le[C * D];   // then ΔS (D × D fits in their 2·C·D floats)
-  float S[D * D];          // the state entering the chunk
+  float A[C * D], B[C * D];   // A and B, then ΔS (D × D fits in their 2·C·D)
+  float G[NGP * D];        // G[g (g − 1) / 2 + h]: Σ group totals strictly between h < g
+  float P[NG * D], Q[NG * D];   // Σ group totals before, after g
+  float S[(D > C ? D : C) * D];   // log w (C × D) until the pair scores end; then the
+                                  // state entering the chunk (D × D)
   float attT[C * C];       // attT[s][t] = Σ_d r_td k_sd e^{Le_td − L_sd}, s < t; else 0
   float bonus[C];          // Σ_d r_td u_d k_td
-  float u[D], LC[D], eLC[D];
+  float u[D], eLC[D];
   unsigned ticket;
-  static_assert(2 * C * D >= D * D, "ΔS reuses L and Le");
+  static_assert(2 * C * D >= D * D, "ΔS reuses A and B");
 };
 
+// Channel d's log-decay sums, each over terms of one sign, from the logs
+// staged in S: A_t and B_t within t's group, P_g and Q_g over the groups
+// before and after g, G over the groups strictly between two, and e^{LC}.
+template <int D>
+__device__ __forceinline__ void log_decay_sums(int d, PrefillSmem<D>& sm) {
+  float tot[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    float lw[4], a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) lw[i] = sm.S[(4 * g + i) * D + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sm.A[(4 * g + i) * D + d] = a;
+      a += lw[i];
+    }
+#pragma unroll
+    for (int i = 3; i >= 0; --i) {
+      sm.B[(4 * g + i) * D + d] = b;
+      b += lw[i];
+    }
+    tot[g] = a;
+  }
+  float p = 0.f, q = 0.f;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    sm.P[g * D + d] = p;
+    p += tot[g];
+  }
+  sm.eLC[d] = expf(p);
+#pragma unroll
+  for (int g = NG - 1; g >= 0; --g) {
+    sm.Q[g * D + d] = q;
+    q += tot[g];
+  }
+#pragma unroll
+  for (int g = 1; g < NG; ++g) {
+    float x = 0.f;
+#pragma unroll
+    for (int h = g - 1; h >= 0; --h) {
+      sm.G[(g * (g - 1) / 2 + h) * D + d] = x;
+      x += tot[h];
+    }
+  }
+}
+
 // One item of the pair phase: tile (ti, sj) over the channels 4·dq + 4·NQX·j,
-// summed into acc[a][b] for t = 4ti + a, s = 4sj + b.  DIAG (ti == sj):
-// s < t takes the decay, s == t takes u, s > t stays 0.
+// summed into acc[a][b] for t = 4ti + a, s = 4sj + b.  Below the diagonal
+// the exponent is (A_t + G) + B_s.  On it (DIAG, ti == sj) s == t takes u,
+// s > t stays 0, and s < t takes the logs strictly between them, read from
+// S's room: none (a decay of 1), lw_{s+1}, or lw_{s+1} + lw_{s+2}; a
+// difference of two sums that include a large log would lose the decay's
+// low bits.
 template <int D, bool DIAG, int NQX>
 __device__ __forceinline__ void pair_tile(const PrefillSmem<D>& sm, int ti, int sj, int dq,
                                           float (&acc)[4][4]) {
+  const int gt = ti * (ti - 1) / 2 + sj;   // G's row of the pair of groups
 #pragma unroll
   for (int j = 0; j < D / (4 * NQX); ++j) {
     const int d = 4 * dq + 4 * NQX * j;
-    float4 rt[4], le[4], kk[4], ls[4];
+    float4 kk[4], bs[4];
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb) kk[bb] = ld4(sm.k + (4 * sj + bb) * D + d);
+    float g4[4], e1[4], e2[4], e12[4];   // below: G; on: u and the three decays
+    if (DIAG) {
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) bs[bb] = make_float4(0.f, 0.f, 0.f, 0.f);   // unused
+      const float4 uu = ld4(sm.u + d), l1 = ld4(sm.S + (4 * ti + 1) * D + d),
+                   l2 = ld4(sm.S + (4 * ti + 2) * D + d);
+      const float u4[4] = {uu.x, uu.y, uu.z, uu.w}, a1[4] = {l1.x, l1.y, l1.z, l1.w},
+                  a2[4] = {l2.x, l2.y, l2.z, l2.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        g4[x] = u4[x];
+        e1[x] = exp_nonpos(a1[x]);
+        e2[x] = exp_nonpos(a2[x]);
+        e12[x] = exp_nonpos(a1[x] + a2[x]);
+      }
+    } else {
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) bs[bb] = ld4(sm.B + (4 * sj + bb) * D + d);
+      const float4 gg = ld4(sm.G + gt * D + d);
+      g4[0] = gg.x; g4[1] = gg.y; g4[2] = gg.z; g4[3] = gg.w;
+    }
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      rt[a] = ld4(sm.r + (4 * ti + a) * (D + 4) + d);
-      le[a] = ld4(sm.Le + (4 * ti + a) * D + d);
-    }
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) {
-      kk[bb] = ld4(sm.k + (4 * sj + bb) * D + d);
-      ls[bb] = ld4(sm.L + (4 * sj + bb) * D + d);
-    }
-    float4 uu = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (DIAG) uu = ld4(sm.u + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
+      const float4 rt = ld4(sm.r + (4 * ti + a) * (D + 4) + d);
+      const float r4[4] = {rt.x, rt.y, rt.z, rt.w};
+      float a4[4] = {};
+      if (!DIAG) {
+        const float4 at = ld4(sm.A + (4 * ti + a) * D + d);
+        a4[0] = at.x; a4[1] = at.y; a4[2] = at.z; a4[3] = at.w;
+      }
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb) {
         if (DIAG && bb > a) continue;
-        const float r4[4] = {rt[a].x, rt[a].y, rt[a].z, rt[a].w};
-        const float e4[4] = {le[a].x, le[a].y, le[a].z, le[a].w};
         const float k4[4] = {kk[bb].x, kk[bb].y, kk[bb].z, kk[bb].w};
-        const float l4[4] = {ls[bb].x, ls[bb].y, ls[bb].z, ls[bb].w};
-        const float u4[4] = {uu.x, uu.y, uu.z, uu.w};
+        const float b4[4] = {bs[bb].x, bs[bb].y, bs[bb].z, bs[bb].w};
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          const float f = (DIAG && bb == a) ? u4[x] : exp_nonpos(e4[x] - l4[x]);
+          float f;
+          if (!DIAG)
+            f = exp_nonpos((a4[x] + g4[x]) + b4[x]);
+          else if (bb == a)
+            f = g4[x];
+          else if (a - bb == 1)
+            f = 1.f;
+          else if (a - bb == 2)
+            f = bb == 0 ? e1[x] : e2[x];
+          else
+            f = e12[x];
           acc[a][bb] = fmaf(r4[x] * f, k4[x], acc[a][bb]);
         }
       }
+    }
   }
 }
 
@@ -284,13 +361,13 @@ wkv6_prefill_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* _
   const size_t stride = (size_t)H * D;
   const size_t base = ((size_t)b * T_len + c0) * stride + (size_t)h * D;
 
-  // ---- stage r, k, v and log w; then one thread a channel takes L, Le ----
-  stage_chunk<T, D, K::RS>(sm.r, sm.k, sm.v, sm.Le, r + base, k + base, v + base, w + base,
+  // ---- stage r, k, v and log w; then one thread a channel takes the sums ----
+  stage_chunk<T, D, K::RS>(sm.r, sm.k, sm.v, sm.S, r + base, k + base, v + base, w + base,
                            stride, n);
   for (int i = tid; i < C * C; i += NT) sm.attT[i] = 0.f;
   if (tid < D) sm.u[tid] = to_float(u[(size_t)h * D + tid]);
   __syncthreads();
-  if (tid < D) sm.LC[tid] = cumulative_log_decay<D>(tid, sm.L, sm.Le);
+  if (tid < D) log_decay_sums<D>(tid, sm);
   __syncthreads();
 
   // ---- pair scores: the 28 tiles below the diagonal first, NQ lanes each,
@@ -353,26 +430,26 @@ wkv6_prefill_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* _
   }
   __syncthreads();
   constexpr int PER = (D * D / 4 + NT - 1) / NT;   // float4s of S a thread
-  float4 s_in[PER];
   {
     const float* src = c == 0 ? s0 + (size_t)bh * D * D
                               : slots + ((size_t)bh * 2 + (c & 1)) * D * D;
 #pragma unroll
-    for (int j = 0; j < PER; ++j)
-      if (tid + j * NT < D * D / 4)
-        s_in[j] = __ldcg(reinterpret_cast<const float4*>(src) + tid + j * NT);
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * NT;
+      if (i < D * D / 4) cp_async16(sm.S + 4 * i, src + 4 * i, 16);   // through L2
+    }
   }
 
   // ---- decayed r and k in place; the chunk's state decay ----
   for (int i = tid; i < C * D; i += NT) {
-    sm.r[(i / D) * K::RS + i % D] *= expf(sm.Le[i]);
-    sm.k[i] *= expf(sm.LC[i % D] - sm.L[i]);
+    const int t = i / D, d = i % D, g = t / 4;
+    sm.r[t * K::RS + d] *= expf(sm.P[g * D + d] + sm.A[i]);
+    sm.k[i] *= expf(sm.B[i] + sm.Q[g * D + d]);
   }
-  if (tid < D) sm.eLC[tid] = expf(sm.LC[tid]);
   __syncthreads();
 
-  // ---- ΔS[d][e] = Σ_s kd[s][d] v[s][e], 4 × 4 a thread, into L/Le ----
-  float* dS = sm.L;
+  // ---- ΔS[d][e] = Σ_s kd[s][d] v[s][e], 4 × 4 a thread, into A/B ----
+  float* dS = sm.A;
   if (tid < K::NEG * K::NEG) {
     const int d0 = 4 * (tid / K::NEG), e0 = 4 * (tid % K::NEG);
     float acc[4][4] = {};
@@ -390,9 +467,10 @@ wkv6_prefill_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* _
       st4(dS + (d0 + i) * D + e0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
   }
   __syncthreads();
-  // ---- S_in to shared memory; S_out = e^{LC} S_in + ΔS to the next slot
-  // (the final state after the last chunk), each product and sum rounded
-  // as the plain version rounds them ----
+  // ---- S_out = e^{LC} S_in + ΔS to the next slot (the final state after
+  // the last chunk), the product and the sum rounded apart; a thread reads
+  // back only the S_in it copied ----
+  cp_async_wait_all();
   {
     float* dst = c + 1 == n_chunks ? sT + (size_t)bh * D * D
                                    : slots + ((size_t)bh * 2 + ((c + 1) & 1)) * D * D;
@@ -400,9 +478,8 @@ wkv6_prefill_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* _
     for (int j = 0; j < PER; ++j) {
       const int i = tid + j * NT;
       if (i >= D * D / 4) break;
-      const float4 x = s_in[j], d4 = ld4(dS + 4 * i);
+      const float4 x = ld4(sm.S + 4 * i), d4 = ld4(dS + 4 * i);
       const float a = sm.eLC[(4 * i) / D];
-      st4(sm.S + 4 * i, x);
       __stcg(reinterpret_cast<float4*>(dst) + i,
              make_float4(__fadd_rn(__fmul_rn(a, x.x), d4.x), __fadd_rn(__fmul_rn(a, x.y), d4.y),
                          __fadd_rn(__fmul_rn(a, x.z), d4.z), __fadd_rn(__fmul_rn(a, x.w), d4.w)));
@@ -561,12 +638,10 @@ int launch(const void* r, const void* k, const void* v, const float* w, const vo
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   constexpr size_t smem = sizeof(PrefillSmem<D>);
-  static bool attr_set = false;   // once per instantiation
-  if (smem > 48 * 1024 && !attr_set) {
+  if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(wkv6_prefill_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
   }
   const unsigned grid = (unsigned)n_chunks * B * H;
   wkv6_prefill_kernel<T, D><<<grid, NT, smem, stream>>>(rt, kt, vt, w, ut, s0, ot, sT, scratch,

@@ -14,8 +14,14 @@ the reference the kernel is held against on the card.
 
 Both compute every decay as ``exp`` of a sum of log-decays that is ≤ 0 —
 intra-chunk pairs as ``exp(Le_t − L_s)``, the state read as ``exp(Le_t)``,
-the state update as ``exp(LC − L_s)`` and ``exp(LC)`` — with no clamp, so
-they are exact to fp32 rounding for any ``w`` in (0, 1].  ``wkv6_pallas``
+the state update as ``exp(LC − L_s)`` and ``exp(LC)`` — with no clamp, and
+neither takes such an exponent as a difference of two fp32 cumulative sums:
+once decays reach 1e-12 a chunk's sums run to hundreds, where such a
+difference loses ~1e-4 of a decay that is near 1 and moves the output that
+far from the token-by-token oracle.  The kernel sums log-decays of one sign
+(see its header); the plain version works in float64 from the fp32
+log-decays and rounds once at the end, so it stands for the exact result
+and the kernel is held to its own fp32 error.  ``wkv6_pallas``
 instead factors the pair decay as ``exp(clip(Le_t)) · exp(clip(−L_s))`` with
 a clip at ±30, which turns a decay below e⁻³⁰ into 1 once a chunk's
 cumulative log-decay falls under −30; the port does not copy that.
@@ -44,21 +50,24 @@ def wkv6_plain(r, k, v, w, u, state=None):
     ``_wkv6_jnp`` in PyTorch, with its default chunk of ``CHUNK`` tokens:
     T is padded to a chunk multiple with ``w = 1`` and zero r/k/v, each
     chunk's pair decays are taken pairwise (every exponent ≤ 0), and the
-    state carries across chunks in fp32.
+    state carries across chunks.  The log-decays are taken in fp32, as the
+    kernel takes them; everything after runs in float64, and the output is
+    rounded to fp32 and then to r's dtype, the state to fp32.
     """
     B, T, H, D = r.shape
     dev = r.device
     if state is None:
         state = torch.zeros((B, H, D, D), dtype=torch.float32, device=dev)
-    S = state.float()
+    S = state.double()
     pad = (-T) % CHUNK
-    r_, k_, v_, w_ = (x.float() for x in (r, k, v, w))
+    r_, k_, v_ = (x.double() for x in (r, k, v))
+    w_ = w.float()
     if pad:
         r_, k_, v_ = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (r_, k_, v_))
         w_ = F.pad(w_, (0, 0, 0, 0, 0, pad), value=1.0)
     n, C = (T + pad) // CHUNK, CHUNK
-    u32 = u.float()
-    lw = torch.log(w_.clamp(1e-12, 1.0))                 # logs ≤ 0
+    u64 = u.double()
+    lw = torch.log(w_.clamp(1e-12, 1.0)).double()       # logs ≤ 0
     tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), diagonal=-1)
     outs = []
     for c in range(n):
@@ -74,14 +83,14 @@ def wkv6_plain(r, k, v, w, u, state=None):
         att = torch.einsum("bthd,btshd,bshd->bths", rc, amp, kc)
         o_intra = torch.einsum("bths,bshe->bthe", att, vc)
         # current token via the bonus u: (Σ_d r_td u_d k_td) · v_t
-        o_diag = torch.einsum("bchd,bchd,bche->bche", rc, u32 * kc, vc)
+        o_diag = torch.einsum("bchd,bchd,bche->bche", rc, u64 * kc, vc)
         outs.append(o_state + o_intra + o_diag)
         # S' = diag(exp(L_C)) S + Σ_s diag(exp(L_C − L_s)) k_sᵀ v_s
         LC = Lc[:, -1:]                                  # (B, 1, H, D)
         k_dec = kc * torch.exp(LC - Lc)
         S = torch.exp(LC[:, 0])[..., None] * S + torch.einsum("bshd,bshe->bhde", k_dec, vc)
     out = torch.cat(outs, dim=1)[:, :T]
-    return out.to(r.dtype), S
+    return out.float().to(r.dtype), S.float()
 
 
 def _lib() -> ctypes.CDLL:
