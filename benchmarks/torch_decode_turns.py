@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
-"""Decode and WKV6 kernels of two source trees on one card, timed in turns.
+"""Decode, WKV6 and RG-LRU kernels of two source trees on one card, timed in turns.
 
     python3 benchmarks/torch_decode_turns.py --parent DIR [--rounds 7]
 
-Times the port's paged and contiguous decode-attention kernels (D=64, the
-serving main path's shapes) and its WKV6 kernel at RWKV6-3B's prefill
-(r/k/v (4, 512, 40, 64) bf16) and decode step ((4, 1, 40, 64)), both with a
-carried state, from this checkout ("change") and from the tree unpacked at
-``DIR`` ("parent", for example ``git archive`` of an earlier commit under
-the gitignored ``build/``), each through its own tree's wrapper
-(``kernels/paged_attention.py``, ``kernels/decode_attention.py``,
-``kernels/rwkv6_scan.py``) and kernel library.  ``DIR``'s
-``paged_attention.cu``, ``decode_attention.cu`` and ``rwkv6_scan.cu`` are
-compiled with ``nvcc`` and the port's own flags into
-``DIR/build/turn_libs/``.
+Times, from this checkout ("change") and from the tree unpacked at ``DIR``
+("parent", for example ``git archive`` of an earlier commit under the
+gitignored ``build/``), each through its own tree's wrapper and kernel
+library:
 
-Each round times parent and change in turns (the order flips every round)
+* the paged and contiguous decode-attention kernels at the serving main
+  path's shapes (q (8, 1, 16, 64) bf16);
+* the ring decode at RecurrentGemma-9B's step (q (4, 1, 16, 256) bf16
+  against 2,048-slot rings k/v (4, 2048, 1, 256), every slot live);
+* WKV6 at RWKV6-3B's prefill (r/k/v (4, 512, 40, 64) bf16) and decode step
+  ((4, 1, 40, 64)), both with a carried state;
+* the RG-LRU scan at RecurrentGemma-9B's prefill (x (4, 3072, 4096) bf16)
+  and step ((4, 1, 4096)), with a carried state and log-gates of the
+  model's form −8 · softplus(Λ) · σ(r), Λ ~ U(−1, 1), r ~ N(0, 1).
+
+``DIR``'s ``paged_attention.cu``, ``decode_attention.cu``, ``rwkv6_scan.cu``
+and ``rglru_scan.cu`` are compiled with ``nvcc`` and the port's own flags
+into ``DIR/build/turn_libs/``.  A third version, "fp64", is this checkout's
+RG-LRU kernel with exp(2a) taken in fp64 for every gate (its ``FP64_BAND``
+set below every input), timed beside the other two for the RG-LRU cases.
+
+Each round times the versions in turns (the order flips every round)
 after each of two L2 flushes of a 128 MB buffer: writing it (``timed_ms`` of
 ``chip_smoke.py``, the yardstick of its ``ms``) and reading it.  Beside them
 it times, in the same round and under the same flush, SDPA's masked call on
@@ -45,7 +54,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-NAMES = ("paged_attention", "decode_attention", "rwkv6_scan")
+NAMES = ("paged_attention", "decode_attention", "rwkv6_scan", "rglru_scan")
 LENGTHS = [210, 210, 210, 209, 213, 213, 212, 213]   # the serving path's recorded lengths
 SEED = 0
 
@@ -85,6 +94,25 @@ def build_parent(parent: Path, build):
             raise SystemExit(f"nvcc failed on the parent's {n}.cu:\n{log}")
         libs[n] = ctypes.CDLL(str(out))
     return libs
+
+
+def build_fp64_rglru(build):
+    """This checkout's RG-LRU kernel with exp(2a) in fp64 for every gate."""
+    src = (build.CSRC / "rglru_scan.cu").read_text()
+    band = "constexpr float FP64_BAND = -0.5f;"
+    if band not in src:
+        raise SystemExit("rglru_scan.cu no longer states FP64_BAND as this script expects")
+    out_dir = build.BUILD_DIR / "turn_libs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "rglru_scan_fp64.cu"
+    path.write_text(src.replace(band, "constexpr float FP64_BAND = -1e30f;")
+                    .replace('#include "common.cuh"', f'#include "{build.CSRC}/common.cuh"'))
+    out = out_dir / "librglru_scan_fp64.so"
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(path)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on the fp64 RG-LRU variant:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
 
 
 def load_wrappers(tree: Path):
@@ -146,6 +174,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as decode_mod
     from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.kernels import rglru_scan as rglru_mod
     from repro_torch.kernels import rwkv6_scan as wkv6_mod
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,13 +184,16 @@ def main() -> int:
     build.build_all(NAMES)
     libs = {"change": {n: build.load(n) for n in NAMES},
             "parent": build_parent(args.parent.resolve(), build)}
+    libs["fp64"] = dict(libs["change"], rglru_scan=build_fp64_rglru(build))
     parent_mods = load_wrappers(args.parent.resolve())
     wrappers = {"change": {"paged": paged_mod.paged_attention_cuda,
                            "decode": decode_mod.decode_attention_cuda,
-                           "wkv6": wkv6_mod.wkv6_cuda},
+                           "wkv6": wkv6_mod.wkv6_cuda, "rglru": rglru_mod.rglru_cuda},
                 "parent": {"paged": parent_mods["paged_attention"].paged_attention_cuda,
                            "decode": parent_mods["decode_attention"].decode_attention_cuda,
-                           "wkv6": parent_mods["rwkv6_scan"].wkv6_cuda}}
+                           "wkv6": parent_mods["rwkv6_scan"].wkv6_cuda,
+                           "rglru": parent_mods["rglru_scan"].rglru_cuda}}
+    wrappers["fp64"] = wrappers["change"]
 
     def use(version):
         for n in NAMES:
@@ -198,26 +230,49 @@ def main() -> int:
 
     wkv6_prefill, wkv6_step = wkv6_args(512), wkv6_args(1)
 
+    def rglru_args(T, Bg=4, Wg=4096):
+        """RecurrentGemma-9B's shapes in bf16: log-gates of the model's form, a
+        carried state."""
+        x_ = randn(Bg, T, Wg)
+        lam = 2 * torch.rand((Wg,), generator=gen, device=dev) - 1
+        r_ = torch.randn((Bg, T, Wg), generator=gen, device=dev)
+        a_ = -8 * torch.nn.functional.softplus(lam) * torch.sigmoid(r_)
+        return x_, a_, torch.randn((Bg, Wg), generator=gen, device=dev)
+
+    rglru_prefill, rglru_step = rglru_args(3072), rglru_args(1)
+    ring_q, ring_k, ring_v = randn(4, 1, 16, 256), randn(4, 2048, 1, 256), randn(4, 2048, 1, 256)
+    ring_len = torch.full((4,), 2048, dtype=torch.int32, device=dev)
+
     def calls(version):
         paged, decode = wrappers[version]["paged"], wrappers[version]["decode"]
-        wkv6 = wrappers[version]["wkv6"]
-        return {"paged": lambda: paged(q, k_pool, v_pool, table, lengths),
-                "decode": lambda: decode(q, k, v, lengths),
-                "wkv6_prefill": lambda: wkv6(*wkv6_prefill),
-                "wkv6_step": lambda: wkv6(*wkv6_step)}
+        wkv6, rglru = wrappers[version]["wkv6"], wrappers[version]["rglru"]
+        fns = {"paged": lambda: paged(q, k_pool, v_pool, table, lengths),
+               "decode": lambda: decode(q, k, v, lengths),
+               "ring_decode": lambda: decode(ring_q, ring_k, ring_v, ring_len),
+               "wkv6_prefill": lambda: wkv6(*wkv6_prefill),
+               "wkv6_step": lambda: wkv6(*wkv6_step),
+               "rglru_prefill": lambda: rglru(*rglru_prefill),
+               "rglru_step": lambda: rglru(*rglru_step)}
+        if version == "fp64":
+            return {n: fn for n, fn in fns.items() if n.startswith("rglru")}
+        return fns
 
     want = {"paged": paged_mod.paged_attention_plain(q, k_pool, v_pool, table, lengths),
             "decode": decode_mod.decode_attention_plain(q, k, v, lengths),
+            "ring_decode": decode_mod.decode_attention_plain(ring_q, ring_k, ring_v, ring_len),
             "wkv6_prefill": wkv6_mod.wkv6_plain(*wkv6_prefill),
-            "wkv6_step": wkv6_mod.wkv6_plain(*wkv6_step)}
-    kernel_names = {"paged": "paged_decode_kernel", "decode": "decode_kernel",
-                    "wkv6_prefill": "wkv6", "wkv6_step": "wkv6"}
+            "wkv6_step": wkv6_mod.wkv6_plain(*wkv6_step),
+            "rglru_prefill": rglru_mod.rglru_plain(*rglru_prefill),
+            "rglru_step": rglru_mod.rglru_plain(*rglru_step)}
+    kernel_names = {"paged": "paged_decode_kernel", "decode": "decode_", "ring_decode": "decode_",
+                    "wkv6_prefill": "wkv6", "wkv6_step": "wkv6", "rglru_prefill": "rglru_",
+                    "rglru_step": "rglru_"}
 
     def max_err(name, got):
         """Max abs error of the output (decode), or of the output and the
-        state scaled by 1 + |plain| (WKV6, whose outputs run to tens); raises
-        past 2e-2 for a bf16 output or 2e-5 for an fp32 state."""
-        if not name.startswith("wkv6"):
+        state scaled by 1 + |plain| (WKV6 and RG-LRU, whose outputs run to
+        tens); raises past 2e-2 for a bf16 output or 2e-5 for an fp32 state."""
+        if "decode" in name or name == "paged":
             err = (got.float() - want[name].float()).abs().max().item()
             bad = err > 2e-2
         else:
@@ -229,7 +284,7 @@ def main() -> int:
         return err
 
     diag = {}
-    for version in ("parent", "change"):
+    for version in ("parent", "change", "fp64"):
         use(version)
         for name, fn in calls(version).items():
             err = max_err(name, fn())
@@ -250,7 +305,7 @@ def main() -> int:
               "read": lambda fn: timed_read_ms(fn, 50, flush)}
     rounds = []
     for r in range(args.rounds):
-        order = ("parent", "change") if r % 2 == 0 else ("change", "parent")
+        order = ("parent", "change", "fp64") if r % 2 == 0 else ("fp64", "change", "parent")
         row = {"round": r, "order": list(order)}
         for mode, timer in timers.items():
             for version in order:

@@ -8,9 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit, as nvidia-smi reports them.
 2. Build: the five CUDA kernel sources compiled by nvcc from
    ``src/repro_torch/csrc``, one nvcc per source, all started together;
-   ptxas's report per kernel, and no spill in any WKV6 kernel;
+   ptxas's report per kernel, and no spill in the WKV6 kernels, the
+   RG-LRU kernel or the wide-head decode kernel;
    ``cuobjdump -sass`` of the flash library must show HGMMA (Hopper's
-   tensor-core product) in the bf16 kernel at every head width.
+   tensor-core product) in the bf16 kernel at every head width, and the
+   RG-LRU kernel's fp64 instructions (its exp(2a) near 0) are counted.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
    at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32), at ragged
    GQA/window shapes (D=32 and 64 with windows, D=16 under MQA), at S=1,
@@ -37,9 +39,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    other work beside it), and at D=16 and 32; the fp32 ones also held
    against the token-by-token oracle (the plain version's own distance from
    it printed beside); the RG-LRU scan at
-   W=4096, T in {1, 37, 3072}, bf16 and fp32, with a carried state and
-   log-gates mild, strong (down to −20) and within 1e-6 of 0, the fp32 ones
-   also held against the token-by-token oracle.
+   W=4096, T in {1, 37, 3072}, and at W=200 (a part-empty block) with T at
+   the chunk blocks' edges (one, two and three chunks ± 1), bf16 and fp32,
+   with a carried state and log-gates mild, strong (down to −20) and within
+   1e-6 of 0, the fp32 ones also held against the token-by-token oracle, and
+   each launched twice (the chain's scratch is left zeroed, so the second
+   launch must give the same bits).
 4. Four main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched and no plain version may see a CUDA tensor:
@@ -65,14 +70,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    recorded from its path (the shapes the main path gives it): CUDA-event
    times after a writing flush, then, after every event timing of the run,
    each kernel's CUPTI device time a call (summed over the call's kernels)
-   after a reading flush.
+   after a reading flush, and the same for each row's library call (every
+   kernel that SDPA runs).
 5. Parity in fp32, kernels against plain versions: both serving paths
    (prefill logits within 1e-3, identical greedy streams), RWKV6-3B and
    RecurrentGemma-9B at full depth (prefill logits within 1e-3, identical
    greedy streams over 32 steps).
 
 The line before the last is a JSON object with one entry per kernel (time,
-CUPTI time, launches, bound, plain and library times); the last line is
+CUPTI time, launches, bound, plain and library times, the library's by
+CUPTI too); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke_results.json``.  Needs a CUDA device and the
 repository's ``src/`` beside this file.
@@ -164,10 +171,53 @@ def device_ms(fn, kernel_substr, iters=50, before=None):
     return None if not rows else total / iters / 1e3
 
 
+def library_device_ms(fn, iters=50, before=None, op="aten::scaled_dot_product_attention"):
+    """CUPTI device time of one library call ``fn``: the device time of every
+    kernel that the PyTorch operator ``op`` runs, its children's included,
+    summed over ``iters`` calls (each after ``before()``, which runs outside
+    the operator) and divided by ``iters``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages() if e.key == op)
+    return total / iters / 1e3 if total else None
+
+
 def bound_ms(n_bytes, n_flops, dtype):
     t_mem = n_bytes / HBM_BYTES_PER_S
     t_ops = n_flops / PEAK_FLOPS[dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "F2F.F64", "F2F.F32.F64")
+
+
+def sass_counts(name, want):
+    """Instructions of each kernel (by mangled name) in the SASS of library
+    ``name`` whose opcode passes ``want``, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run([str(Path(build.find_nvcc()).with_name("cuobjdump")), "-sass",
+                           str(build.library_path(name))], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1]
+            counts[fn] = 0
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn is not None and m and want(m[1]):
+            counts[fn] += 1
+    return counts
 
 
 def flash_work(q, k, window):
@@ -422,20 +472,11 @@ def main() -> int:
                     print(f"[build] {name}: {entry}: {line}")
                     results.setdefault("ptxas", []).append(f"{entry}: {line}")
                     spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                    check(name != "rwkv6_scan" or spill is None or spill[1] == spill[2] == "0",
+                    redesigned = name in ("rwkv6_scan", "rglru_scan") or "decode_wide" in entry
+                    check(not redesigned or spill is None or spill[1] == spill[2] == "0",
                           f"ptxas spills in {entry}: {line}")
     results["build_s"] = build_s
-    sass = subprocess.run([str(Path(build.find_nvcc()).with_name("cuobjdump")), "-sass",
-                           str(build.library_path("flash_attention"))], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    hgmma, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m[1]
-            hgmma[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            hgmma[fn] += 1
+    hgmma = sass_counts("flash_attention", lambda op: op.startswith("HGMMA"))
     tc_hgmma = {int(re.search(r"flash_tc_kernelILi(\d+)E", f)[1]): n
                 for f, n in hgmma.items() if "flash_tc_kernel" in f}
     print(f"[build] flash_attention SASS: HGMMA instructions in flash_tc_kernel by head width "
@@ -444,6 +485,14 @@ def main() -> int:
     check(sorted(tc_hgmma) == sorted(flash_mod.HEAD_DIMS) and all(tc_hgmma.values()),
           f"flash_tc_kernel lacks HGMMA at some head width: {tc_hgmma}")
     results["flash_tc_hgmma"] = tc_hgmma
+    # the RG-LRU kernel's fp64 instructions: its exp(2a) in the band near 0
+    fp64 = {("bfloat16" if "bfloat16" in f else "float32"): n
+            for f, n in sass_counts("rglru_scan", lambda op: op.startswith(FP64_OPS)).items()
+            if "rglru_kernel" in f}
+    print(f"[build] rglru_scan SASS: fp64 instructions (DADD, DMUL, DFMA, DSETP, F2F to or from "
+          f"f64) in rglru_kernel by dtype {fp64}")
+    check(len(fp64) == 2 and all(fp64.values()), f"rglru_kernel lacks its fp64 exp: {fp64}")
+    results["rglru_fp64_sass"] = fp64
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
 
     # ---- 3. kernels against their plain versions -------------------------
@@ -750,11 +799,14 @@ def main() -> int:
                  "strong": lambda: -20.0 * u, "near0": lambda: -1e-6 * u}[gates]()
         return x, a_log, randn(B, W, dtype=torch.float32)
 
-    def rglru_case(B, T, W, dtype, gates):
+    def rglru_case(B, T, W, dtype, gates, timed=True):
         args = rglru_inputs(B, T, W, dtype, gates)
         h, st = rglru_kernel(*args)
         h_p, st_p = rglru_plain(*args)
         torch.cuda.synchronize()
+        h2, st2 = rglru_kernel(*args)       # again: the chain's scratch was left zeroed
+        check(bool(torch.equal(h, h2) and torch.equal(st, st2)),
+              f"rglru T={T} {gates} {dtype}: a second launch differs from the first")
         err, rel = scaled_err(h, h_p)
         s_err, s_rel = scaled_err(st, st_p)
         check(rel <= TOL[dtype] and s_rel <= TOL[torch.float32],
@@ -769,18 +821,27 @@ def main() -> int:
             check(o_rel <= RGLRU_ORACLE_TOL and so_rel <= RGLRU_ORACLE_TOL,
                   f"rglru T={T} {gates}: kernel vs oracle {o_err:.3g}, state {so_err:.3g}")
             line.update(oracle_err=o_err, oracle_state_err=so_err)
-        line["ms"] = timed_ms(lambda: rglru_kernel(*args), 20, flush)
-        line["plain_ms"] = timed_ms(lambda: rglru_plain(*args), 3, flush)
+        if timed:
+            line["ms"] = timed_ms(lambda: rglru_kernel(*args), 20, flush)
+            line["plain_ms"] = timed_ms(lambda: rglru_plain(*args), 3, flush)
         print(f"[kernels] rglru B={B} T={T} W={W} {gates} {str(dtype)[6:]}: max|err| "
               f"{err:.3g} (scaled {rel:.3g}, tol {TOL[dtype]}), state {s_err:.3g}, oracle "
-              f"{line.get('oracle_err', '-')}, kernel {line['ms']:.4f} ms, plain "
-              f"{line['plain_ms']:.4f} ms")
+              f"{line.get('oracle_err', '-')}"
+              + (f", kernel {line['ms']:.4f} ms, plain {line['plain_ms']:.4f} ms" if timed
+                 else ""))
         results["cases"].append(line)
 
     for T in (1, 37, 3072):
         for dtype in (torch.bfloat16, torch.float32):
             for gates in ("mild", "strong", "near0"):
                 rglru_case(4, T, 4096, dtype, gates)
+    # the chunk blocks' edges: one chunk ± 1 token, two and three chunks ± 1
+    # (the chain's first links), at a width that leaves a block part-empty
+    C = rglru_mod.CHUNK
+    for T in (C - 1, C, C + 1, 2 * C - 1, 2 * C + 1, 3 * C):
+        for dtype in (torch.bfloat16, torch.float32):
+            for gates in ("mild", "strong", "near0"):
+                rglru_case(3, T, 200, dtype, gates, timed=False)
 
     # ---- 4. the main paths -----------------------------------------------
     plain_on_cuda = {"n": 0}
@@ -1079,7 +1140,6 @@ def main() -> int:
         library_ms=timed_ms(lambda: sdpa(gqt, gkt, gvt, attn_mask=win_mask), 10, flush),
         shape=dict(q=list(gq.shape), k=list(gk.shape), window=gkw["window"],
                    dtype=str(gq.dtype))))
-    del gqt, gkt, gvt
     (eq, ek, ev, elen), _ = g_decode_calls[0]
     ge_out, ge_want = decode_kernel(eq, ek, ev, elen), decode_plain(eq, ek, ev, elen)
     ge_err = (ge_out.float() - ge_want.float()).abs().max().item()
@@ -1117,9 +1177,18 @@ def main() -> int:
              "rglru_scan": (lambda: rglru_kernel(*gpa), "rglru_", 50),
              "flash_attention_d256": (lambda: flash_kernel(gq, gk, gv, **gkw), "flash_", 20),
              "decode_attention_d256": (lambda: decode_kernel(eq, ek, ev, elen), "decode_", 50)}
+    # the library calls the same way: every kernel SDPA runs, by CUPTI
+    library = {"flash_attention": (lambda: sdpa(qt, kt, vt, is_causal=True), 50),
+               "decode_attention": (lambda: sdpa(sq, sk, sv, attn_mask=smask), 50),
+               "flash_attention_d256": (lambda: sdpa(gqt, gkt, gvt, attn_mask=win_mask), 10),
+               "decode_attention_d256": (lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50)}
     for e in entries:
         fn, frag, iters = cupti[e["name"]]
         e["cupti_ms"] = device_ms(fn, frag, iters, before=flush.max)
+        e["library_cupti_ms"] = None
+        if e["name"] in library:
+            fn, iters = library[e["name"]]
+            e["library_cupti_ms"] = library_device_ms(fn, iters, before=flush.max)
     wkv6_extra["decode"]["cupti_ms"] = device_ms(lambda: wkv6_kernel(*wda), "wkv6_", 50,
                                                  before=flush.max)
     rglru_extra["decode"]["cupti_ms"] = device_ms(lambda: rglru_kernel(*gda), "rglru_", 50,
@@ -1127,7 +1196,8 @@ def main() -> int:
     for e in entries:
         print(f"[main-path] {e['name']} {e['shape']}: {e['ms']:.4f} ms, CUPTI {e['cupti_ms']} ms "
               f"(bound {e['bound_ms']:.4f} ms by {e['bound_by']}), plain {e['plain_ms']:.4f} ms, "
-              f"library {e['library_ms']}, max|err| {e['max_abs_err']:.3g}"
+              f"library {e['library_ms']} (CUPTI {e['library_cupti_ms']}), max|err| "
+              f"{e['max_abs_err']:.3g}"
               + (f" (row-relative {e['row_rel_err']:.3g}, max|plain| {e['out_max']:.3g})"
                  if "row_rel_err" in e else "") + f", {e['launches']} launches")
     for name, wd in (("wkv6", wkv6_extra["decode"]), ("rglru", rglru_extra["decode"])):
@@ -1219,7 +1289,8 @@ def main() -> int:
     # |plain| taken element by element, or (scale "row") as the max of the
     # output row (the last axis) the element lies in
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "atol", "rtol",
-            "scale", "ms", "cupti_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "scale", "ms", "cupti_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_cupti_ms")
     for e in entries:
         e.setdefault("scale", "element")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
