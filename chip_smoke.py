@@ -30,7 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    G in {1, 2, 4, 8, 16}, D=32 at G=3 and D=16: lengths 0, 1 and page-1,
    warps left empty, each warp-range and sub-tile boundary ±1, exactly the
    cache's capacity and past it, a retired row and a row whose table has a
-   hole of sentinel pages under two warps' ranges; WKV6 at H=40, D=64, T in
+   hole of sentinel pages under two warps' ranges; the wide-head decode
+   kernel (D in {128, 256}, bf16 and fp32) at G in {1, 8, 16, 20} on caches
+   of 2,048 and 100 positions with lengths 0, 1, a piece ± 1, the whole
+   cache and past it, each launched twice; WKV6 at H=40, D=64, T in
    {1, 31, 32, 33, 37, 512} (the step, a chunk ± 1 and a short last chunk),
    bf16 and fp32, with a carried state and decays from RWKV6's own range,
    U(1e-12, 1) with a sixteenth at 1e-12, and exp(−exp(U(−6, 3.32))) (as
@@ -702,6 +705,33 @@ def main() -> int:
         for D, G in ((64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (32, 3), (16, 1)):
             decode_edges(dtype, D, G)
             paged_edges(dtype, D, G)
+
+    def wide_edges(dtype, D, G, S):
+        """The wide-head kernel's edges (``decode_wide_kernel``): lengths 0, 1,
+        a piece ± 1, the whole cache and past it, one row each, on a horizon
+        view of a longer cache; G = 20 takes two slices of 16 query heads, G
+        < 16 pads the slice, G = 8 sits on two KV heads.  S = 2048 runs 8
+        clusters a row (both merge levels), S = 100 one.  Launched twice: the
+        counters are left zero, so the second launch gives the same bits."""
+        piece = decode_mod.wide_piece_len(S)
+        lens = [0, 1, piece - 1, piece, piece + 1, S, S + 5]
+        B, Hk = len(lens), (2 if G == 8 else 1)
+        q = randn(B, 1, G * Hk, D, dtype=dtype)
+        k = horizon_view(randn(B, S, Hk, D, dtype=dtype), S + 64)
+        v = horizon_view(randn(B, S, Hk, D, dtype=dtype), S + 64)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got, again = decode_kernel(q, k, v, lengths), decode_kernel(q, k, v, lengths)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, again)), f"decode wide-edges D={D} G={G} S={S}: a second "
+              f"launch differs from the first")
+        edge_check("decode", f"wide-edges-d{D}-g{G} S={S} lengths {lens}", got,
+                   decode_plain(q, k, v, lengths), dtype, lengths.eq(0))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (128, 256):
+            for G in (1, 8, 16, 20):
+                for S in (2048, 100):
+                    wide_edges(dtype, D, G, S)
 
     def wkv6_inputs(B, T, H, D, dtype, decays="rwkv"):
         """r/k/v ~ N(0, 1), u ~ U(−0.5, 0.5), a carried state, and decays

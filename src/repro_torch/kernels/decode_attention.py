@@ -7,9 +7,13 @@ against a ``(B, Smax, Hk, D)`` cache, keys ``< lengths[b]`` visible.  The
 kernel takes the cache's batch and sequence strides, so a horizon slice
 ``cache[:, :horizon]`` of a longer buffer is read in place, never copied.
 At head widths 128 and 256 the kernel splits the sequence into pieces of
-``SPLIT_LEN`` positions, one block each, and merges the pieces' partial
-softmaxes in a second launch ("flash-decoding"); the wrapper allocates
-their fp32 scratch.  ``decode_attention_plain`` is the same function in
+at least two 16-position tiles, one block each, multiplies on the tensor
+cores in bf16, and merges the pieces' partial softmaxes in the same launch
+("flash-decoding"): the blocks of each cluster of 8 pieces merge their
+partials through shared memory, and the last cluster to finish merges the
+row, a column slice a block.  Their fp32 scratch and counters are
+held here across calls, one a (device, layout); the kernel leaves the
+counters zeroed.  ``decode_attention_plain`` is the same function in
 plain PyTorch, shaped
 like the JAX package's ``ops._decode_jnp``: the CPU path and the reference
 the kernel is held against on the card.
@@ -27,8 +31,38 @@ __all__ = ["decode_attention_cuda", "decode_attention_plain", "HEAD_DIMS"]
 
 HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's compiled head widths
 SPLIT_DIMS = (128, 256)                   # widths that split the sequence over blocks
-SPLIT_LEN = 64                            # positions per block there
+# the wide-head kernel's tiling (csrc/decode_attention.cu): positions a tile,
+# pieces a row at most, pieces a cluster (a first-level merge), query heads a slice
+WIDE_TILE, WIDE_MAX_PIECES, WIDE_GROUP, WIDE_HEADS = 16, 64, 8, 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_scratch: dict[tuple, torch.Tensor] = {}
+
+
+def wide_piece_len(S):
+    """Positions a piece of the wide-head kernel takes: at least two tiles,
+    more where ``S`` would need over ``WIDE_MAX_PIECES`` pieces."""
+    return max(2, -(-(-(-S // WIDE_TILE)) // WIDE_MAX_PIECES)) * WIDE_TILE
+
+
+def wide_pieces(S):
+    """Pieces the wide-head kernel splits a cache of ``S`` positions into: a
+    multiple of ``WIDE_GROUP`` (a cluster's), the ones past ``S`` empty."""
+    n = max(1, -(-S // wide_piece_len(S)))
+    return -(-n // WIDE_GROUP) * WIDE_GROUP
+
+
+def _wide_scratch(device, R, P, D):
+    """The wide-head kernel's scratch for R (row, KV head, slice) triples of
+    P pieces at head width D: the clusters' partials (acc, then (m, l) once a
+    column slice), then R · ``WIDE_GROUP`` counters, all zero when made; held
+    across calls, since every launch leaves the counters zero."""
+    key = (device, R, P, D)
+    buf = _scratch.get(key)
+    if buf is None:
+        n_grp = P // WIDE_GROUP
+        n = R * n_grp * WIDE_HEADS * (D + 2 * WIDE_GROUP) + R * WIDE_GROUP
+        buf = _scratch[key] = torch.zeros(n, dtype=torch.float32, device=device)
+    return buf
 
 
 def decode_attention_plain(q, k, v, lengths, mask=None):
@@ -64,7 +98,7 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         split = lib.repro_decode_attention_split
-        split.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        split.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                           + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
         split.restype = ctypes.c_int
     return lib
@@ -77,7 +111,9 @@ def decode_attention_cuda(q, k, v, lengths):
     strides (a horizon slice of a longer cache qualifies); lengths: (B,)
     int32, clipped to Smax by the kernel.  All on one CUDA device, D in
     ``HEAD_DIMS``.  Raises on anything else, and counts each launch in
-    ``decode_attention_cuda.launches``."""
+    ``decode_attention_cuda.launches``.  At D in ``SPLIT_DIMS`` the launch
+    uses a held scratch (``_wide_scratch``), so calls on one device run in
+    stream order."""
     named = (("q", q), ("k", k), ("v", v), ("lengths", lengths))
     for name, t in named:
         if t.device.type != "cuda":
@@ -120,13 +156,12 @@ def decode_attention_cuda(q, k, v, lengths):
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if D in SPLIT_DIMS:
-        n_split = max(1, -(-S // SPLIT_LEN))
-        part_acc = torch.empty((B, H, n_split, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32, device=q.device)
+        n_pieces = wide_pieces(S)
+        R = B * Hk * -(-(H // Hk) // WIDE_HEADS)
+        scratch = _wide_scratch(q.device, R, n_pieces, D)
         err = lib.repro_decode_attention_split(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), B, H, Hk, D, S, _DTYPE_CODE[q.dtype],
-            bs, ss, n_split, stream)
+            scratch.data_ptr(), B, H, Hk, D, S, _DTYPE_CODE[q.dtype], bs, ss, n_pieces, stream)
     else:
         err = lib.repro_decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                          lengths.data_ptr(), out.data_ptr(), B, H, Hk, D, S,

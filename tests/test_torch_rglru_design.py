@@ -1,7 +1,11 @@
-"""The RG-LRU kernel's own arithmetic on the CPU, held against the references.
+"""The RG-LRU kernel's and the wide-head ring decode's own arithmetic on the
+CPU, held against the references.
 
-``csrc/rglru_scan.cu`` runs only on the card; ``chip_smoke.py`` holds it
-against ``rglru_plain`` there.  ``_rglru_design`` repeats, in plain
+Both kernels sit on the RecurrentGemma-9B path.  ``csrc/rglru_scan.cu`` and
+``csrc/decode_attention.cu`` run only on the card; ``chip_smoke.py`` holds
+them against their plain versions there.
+
+RG-LRU.  ``_rglru_design`` repeats, in plain
 fp32 PyTorch, what its blocks compute and in which order: one block per
 (row, channels, chunk of ``CHUNK`` tokens), taken in ticket order
 (chunk-major); each first takes its gates, a_t = exp(a_log_t) and
@@ -18,6 +22,18 @@ package's ``_rglru_jnp`` and ``rglru_pallas`` (interpret mode) at 1e-5 as
 well, except at 3,072 tokens of gates within 1e-6 of 0 (``JAX_DRIFT_TOL``,
 below).  A test pins why the chunks chain the walk's own state and not a
 composed ``P · h_in + L``.
+
+Ring decode (D in {128, 256}).  ``_ring_design`` repeats the wide-head
+kernel: the sequence in ``wide_pieces`` pieces of ``wide_piece_len``
+positions (at least two 16-position tiles each, whole clusters of 8), a
+block per (piece, KV head and slice of 16 query heads, row); each walks its
+tiles with an online softmax, P rounded to bf16 for the bf16 route's
+tensor-core product while the sums stay fp32; the 8 pieces of a cluster
+merge their partials (m, l, acc), and the clusters' partials merge last.
+It is held to ``decode_attention_plain`` and ``_decode_jnp`` at 2e-5 (fp32,
+absolute) and 2e-2 (bf16, over each output row's largest value, as
+``chip_smoke.py`` holds the kernel), at the lengths 0, 1, a piece ± 1, the
+full ring and past it, and a length-0 row must come out exactly zero.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +43,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.rglru_scan import rglru_pallas
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import (WIDE_GROUP, WIDE_HEADS, WIDE_TILE,
+                                                  decode_attention_plain, wide_piece_len,
+                                                  wide_pieces)
 from repro_torch.kernels.rglru_scan import CHUNK, rglru_plain
 
 PLAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -174,3 +193,112 @@ def test_rglru_composed_chunk_state_drifts_where_the_walk_does_not(decay):
     h, h_T = _rglru_design(x, a_log, s0)
     assert max(_scaled(h, want_h), _scaled(h_T, want_s)) <= ORACLE_TOL
 
+
+# ---------------------------------------------------------------------------
+# ring decode at head widths 128 and 256
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+RING = 2048
+
+
+def _merge(parts):
+    """Rescale partials (m, l, acc) to the largest m and sum them."""
+    m_all = torch.stack([m for m, _, _ in parts])
+    mx = m_all.amax(dim=0)
+    f = torch.exp(m_all - mx)
+    l_sum = sum(f[j] * parts[j][1] for j in range(len(parts)))
+    a_sum = sum(f[j][:, None] * parts[j][2] for j in range(len(parts)))
+    return mx, l_sum, a_sum
+
+
+def _ring_design(q, k, v, lengths):
+    """q: (B, 1, H, D); k/v: (B, S, Hk, D); lengths: (B,).  The wide-head
+    kernel's pieces, tiles, online softmax and two-level merge, in fp32 on
+    the inputs' values; P is rounded to bf16 where the inputs are bf16."""
+    B, _, H, D = q.shape
+    S, Hk = k.shape[1], k.shape[2]
+    G = H // Hk
+    n_pieces, per = wide_pieces(S), wide_piece_len(S)
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        n = max(0, min(int(lengths[b]), S))
+        for h in range(Hk):
+            for g0 in range(0, G, WIDE_HEADS):
+                ng = min(WIDE_HEADS, G - g0)
+                qs = torch.zeros(WIDE_HEADS, D)
+                qs[:ng] = q[b, 0, h * G + g0:h * G + g0 + ng].float()
+                parts = []
+                for piece in range(n_pieces):
+                    p0 = piece * per
+                    live = max(0, min(per, n - p0))
+                    m, l, acc = torch.full((WIDE_HEADS,), NEG_INF), torch.zeros(WIDE_HEADS), \
+                        torch.zeros(WIDE_HEADS, D)
+                    for t0 in range(p0, p0 + live, WIDE_TILE):
+                        pos = torch.arange(t0, min(t0 + WIDE_TILE, p0 + live))
+                        s = qs @ k[b, pos, h].float().T / np.sqrt(D)
+                        m_new = torch.maximum(m, s.amax(dim=-1))
+                        c = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        l = l * c + p.sum(dim=-1)
+                        pv = p.to(torch.bfloat16).float() if bf16 else p
+                        acc = acc * c[:, None] + pv @ v[b, pos, h].float()
+                        m = m_new
+                    parts.append((m, l, acc))
+                groups = [_merge(parts[i:i + WIDE_GROUP])
+                          for i in range(0, n_pieces, WIDE_GROUP)]
+                _, l_sum, a_sum = groups[0] if len(groups) == 1 else _merge(groups)
+                o = a_sum / l_sum.clamp_min(1e-30)[:, None]
+                out[b, h * G + g0:h * G + g0 + ng] = o[:ng]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _row_rel(got, want):
+    """Max over output rows of max|got − want| over the row's max|want| (a
+    zero row taken as 1e-6), as ``chip_smoke.py`` holds bf16 rows."""
+    got = got.float()
+    want = want.float() if torch.is_tensor(want) else torch.from_numpy(np.array(want, np.float32))
+    d = (got - want).abs().amax(-1)
+    return (d / want.abs().amax(-1).clamp(min=1e-6)).max().item()
+
+
+def test_wide_pieces_cover_the_ring_in_clusters_of_8():
+    """At least two tiles a piece, whole clusters of 8 pieces, at most 64
+    pieces (8 clusters, so the second merge level reads at most 8)."""
+    assert wide_pieces(0) == 8 and wide_pieces(1) == 8
+    assert wide_pieces(RING) == 64 and wide_piece_len(RING) == 2 * WIDE_TILE
+    assert wide_pieces(300) == 16
+    for S in (31, 32, 33, 1000, RING, 4097, 10000):
+        n, per = wide_pieces(S), wide_piece_len(S)
+        assert n % WIDE_GROUP == 0 and n <= 64 and per >= 2 * WIDE_TILE
+        assert n * per >= S > (n - WIDE_GROUP) * per
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 8, 16, 20])
+@pytest.mark.parametrize("D", [128, 256])
+def test_ring_design_matches_plain_and_jax(D, G, dtype):
+    """Lengths 0, 1, a piece ± 1, the full ring and past it on a 2,048-slot
+    ring (64 pieces, 8 groups: both merge levels); G = 20 takes two slices,
+    G < 16 pads the slice's rows; Hk = 2 at G = 8."""
+    piece = wide_piece_len(RING)
+    lens = np.asarray([0, 1, piece - 1, piece, piece + 1, RING, RING + 5], np.int32)
+    Hk = 2 if G == 8 else 1
+    B, H = len(lens), G * Hk
+    rng = np.random.default_rng(D + G)
+    torch_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(torch_dtype)
+               for shape in ((B, 1, H, D), (B, RING, Hk, D), (B, RING, Hk, D)))
+    got = _ring_design(q, k, v, torch.from_numpy(lens))
+    assert got.dtype == torch_dtype
+    want = decode_attention_plain(q, k, v, torch.from_numpy(lens))
+    jwant = jops._decode_jnp(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                             jnp.asarray(lens))
+    for w in (want, jwant):
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(w, np.float32), atol=2e-5,
+                                       rtol=0)
+        else:
+            assert _row_rel(got, w) <= 2e-2
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
