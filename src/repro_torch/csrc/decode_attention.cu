@@ -71,9 +71,9 @@
 //    launched again (and captured in a CUDA graph) on the same scratch.
 //    Every load of a merge is in flight before the first is used.  An empty
 //    piece is (−1e30, 0, 0), so a length-0 row merges to zeros.
-//  * What sets its time on the card (benchmarks/torch_wide_decode_phases.py
-//    times the kernel with phases cut out): the launch and the loads, then
-//    the merge's barriers, fence and atomic, then the tiles' arithmetic.
+//  * What sets its time on the card, by copies of this kernel with phases
+//    cut out: the launch and the loads first, then the merge's barriers,
+//    fence and atomic, then the two tiles' arithmetic in series.
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -621,15 +621,11 @@ int launch_wide_d(const void* q, const void* k, const void* v, const int* length
 
 }  // namespace
 
-// Pieces the wide-head kernel splits a row into, for a cache of S positions
-// (the wrapper sizes the scratch from it).
-extern "C" int repro_decode_wide_pieces(int S) { return wide_pieces(S); }
-
 // Wide heads (D = 128 or 256).  Arguments as repro_decode_attention, plus
-// the fp32 scratch of decode_wide_kernel for n_pieces =
-// repro_decode_wide_pieces(S) pieces, its counters zero before the first
-// launch (every launch leaves them zero).  Returns cudaGetLastError() after
-// the launch.
+// the fp32 scratch of decode_wide_kernel for n_pieces = wide_pieces(S)
+// pieces (the wrapper's wide_pieces mirrors it; any other count is
+// refused), its counters zero before the first launch (every launch leaves
+// them zero).  Returns cudaGetLastError() after the launch.
 extern "C" int repro_decode_attention_split(const void* q, const void* k, const void* v,
                                             const void* lengths, void* o, void* scratch, int B,
                                             int H, int Hk, int D, int S, int dtype, long long bs,

@@ -51,7 +51,7 @@ from repro_torch.kernels.rglru_scan import CHUNK, rglru_plain
 PLAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 ORACLE_TOL = 1e-5
 # Over 3,072 steps of gates within 1e-6 of 0 each fp32 step a · h moves h by
-# less than a unit of its last place, and the roundings add up to ~4e-5.
+# less than a unit of its last place, and the roundings add up past 1e-5.
 # The JAX references round otherwise (the Pallas body's a · h + g is one
 # fused multiply-add under XLA's CPU compiler, the associative scan
 # multiplies in a tree), so there they stand that far from the
