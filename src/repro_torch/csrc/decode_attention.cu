@@ -592,10 +592,12 @@ int launch_wide(const void* q, const void* k, const void* v, const int* lengths,
                 float* scratch, int B, int Hk, int G, int S, long long bs, long long ss,
                 cudaStream_t stream) {
   constexpr size_t smem = sizeof(WideSmem<T, D>);
-  if (smem > 48 * 1024) {
+  static bool smem_set = false;   // once per instantiation and process, before any capture
+  if (smem > 48 * 1024 && !smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         decode_wide_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
+    smem_set = true;
   }
   const int n_gs = (G + WG - 1) / WG;
   const dim3 grid(wide_pieces(S), Hk * n_gs, B);

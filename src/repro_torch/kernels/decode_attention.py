@@ -55,14 +55,23 @@ def _wide_scratch(device, R, P, D):
     """The wide-head kernel's scratch for R (row, KV head, slice) triples of
     P pieces at head width D: the clusters' partials (acc, then (m, l) once a
     column slice), then R · ``WIDE_GROUP`` counters, all zero when made; held
-    across calls, since every launch leaves the counters zero."""
+    across calls, since every launch leaves the counters zero.  A CUDA graph
+    bakes the scratch's address in, so a new shape must come by eagerly
+    first: allocating it while the stream is captured raises."""
     key = (device, R, P, D)
     buf = _scratch.get(key)
     if buf is None:
+        _refuse_in_capture("decode_attention_cuda", key)
         n_grp = P // WIDE_GROUP
         n = R * n_grp * WIDE_HEADS * (D + 2 * WIDE_GROUP) + R * WIDE_GROUP
         buf = _scratch[key] = torch.zeros(n, dtype=torch.float32, device=device)
     return buf
+
+
+def _refuse_in_capture(name, key):
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name}: no held scratch for {key} while the stream is captured; "
+                           f"run this shape once eagerly before capturing it")
 
 
 def decode_attention_plain(q, k, v, lengths, mask=None):

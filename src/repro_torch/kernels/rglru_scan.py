@@ -85,9 +85,15 @@ def _lib() -> ctypes.CDLL:
 def _chain_scratch(device, n_words):
     """The chain's scratch on ``device``: at least ``n_words`` words of 8 bytes,
     zero before the first launch and left zero by every launch, so it is
-    allocated once (and again only to grow) and held across calls."""
+    allocated once (and again only to grow) and held across calls.  A CUDA
+    graph bakes its address in, so growing it while the stream is captured
+    raises: run the shape once eagerly first."""
     buf = _scratch.get(device)
     if buf is None or buf.numel() < n_words:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"rglru_cuda: the chain scratch on {device} must grow to "
+                               f"{n_words} words while the stream is captured; run this shape "
+                               f"once eagerly before capturing it")
         buf = torch.zeros(n_words, dtype=torch.int64, device=device)
         _scratch[device] = buf
     return buf

@@ -11,9 +11,16 @@ parameters is served at its ``reduced()`` size::
     PYTHONPATH=src python -m repro_torch.launch.serve engine --contiguous --device cpu
 
 Weights are random, drawn by ``Model.init`` from a seeded generator.  The
-run is on the card unless ``--device cpu`` is given.  Flags of paths not
-ported yet (sampling, ``--draft-member``) raise
-``NotImplementedError``; the ``online`` and ``http`` modes are not ported.
+run is on the card unless ``--device cpu`` is given; there each fused
+decode dispatch is one CUDA-graph replay.  ``--temperature``, ``--top-k``,
+``--top-p`` and ``--gen-seed`` serve every request sampled, with the JAX
+package's streams for the same seed::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --device cpu \
+        --temperature 0.8 --top-k 50 --top-p 0.95 --gen-seed 7
+
+Speculative decoding (``--draft-member``) raises ``NotImplementedError``,
+and so do the ``online`` and ``http`` modes: neither is ported yet.
 """
 import argparse
 import sys
@@ -38,7 +45,7 @@ def engine_main(argv):
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced (smoke) config of a big arch")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature (0 = greedy; sampling is not ported yet)")
+                    help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="keep the k highest-probability tokens (0 = all)")
     ap.add_argument("--top-p", type=float, default=1.0,

@@ -398,6 +398,10 @@ class Model(nn.Module):
         ``len % S_buf``, an RG-LRU layer replaces its ``conv`` and ``h``.  A
         ``table`` raises ``ValueError`` on both: recurrent state and ring
         buffers have no paged form.
+
+        Every new state is copied into the cache's own tensors, which are
+        never replaced and never read on the host, so a CUDA graph captured
+        over steps on one cache replays them on the same memory.
         """
         x = self._embed_in(tokens)
         if (self.recurrent or self.hybrid) and table is not None:
@@ -406,17 +410,17 @@ class Model(nn.Module):
             for i, blk in enumerate(self.blocks):
                 x, (shift_tm, shift_cm, wkv) = blk(x, cache["shift_tm"][i],
                                                    cache["shift_cm"][i], cache["wkv"][i])
-                cache["shift_tm"][i] = shift_tm
-                cache["shift_cm"][i] = shift_cm
-                cache["wkv"][i] = wkv
+                cache["shift_tm"][i].copy_(shift_tm)
+                cache["shift_cm"][i].copy_(shift_cm)
+                cache["wkv"][i].copy_(wkv)
             return self._logits(x)
         pos = cache["len"]
         rope = self._rope(pos[:, None])
         for blk, j in zip(self.blocks, self.cache_index):
             if isinstance(blk, RGLRUBlock):
                 x, (conv, h) = blk(x, cache["conv"][j], cache["h"][j])
-                cache["conv"][j] = conv
-                cache["h"][j] = h
+                cache["conv"][j].copy_(conv)
+                cache["h"][j].copy_(h)
                 continue
             x = x + attention_decode(blk.attn, self.cfg, blk.n1(x), cache["k"][j],
                                      cache["v"][j], pos, table, rope, window=blk.window)

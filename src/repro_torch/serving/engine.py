@@ -1,5 +1,5 @@
 """Serving engine of the port: slot-based continuous batching over a paged
-or a contiguous KV cache, greedy decoding.
+or a contiguous KV cache, greedy or sampled decoding.
 
 Counterpart of the JAX package's ``serving/engine.py`` (``ServingEngine``
 with ``paged=True`` or ``paged=False``), and bit-for-bit the same host logic:
@@ -11,23 +11,37 @@ with ``paged=True`` or ``paged=False``), and bit-for-bit the same host logic:
   ``_insert_pages``; siblings that share the batch prompt's prefix map their
   tables onto the owner's pages (refcount bumps, no second copy).
   Contiguous: each row is written into its slot's ``max_len`` row by
-  ``_insert_many``.
+  ``_insert_many``.  Both write the cache in place: no cache tensor is ever
+  reallocated, which the captured decode graphs rely on.
 * **Page maintenance** (``_prepare_paged``): before each paged decode
   dispatch every active slot's table grows to cover its next
   ``decode_block`` writes, and any still-shared page in that range is
   copied-on-write (``_fork_pages``).
-* **Fused K-step decode** (``_decode_k``): ``decode_block`` greedy steps run
-  back to back with the per-slot state (last token, active mask, emitted
-  count) on the device, and the host reads the results once per K.  The
-  paged dispatch attends through the table sliced to the horizon; the
-  contiguous one through a horizon view of the cache's sequence axis.
+* **Fused K-step decode** (``_decode_k``): ``decode_block`` steps run back
+  to back with the per-slot state (last token, active mask, emitted count,
+  and the sampling knobs) on the device, and the host reads the results once
+  per K.  The paged dispatch attends through the table sliced to the
+  horizon; the contiguous one through a horizon view of the cache's
+  sequence axis.  On the card each dispatch is one CUDA-graph replay
+  (``serving/graphs.py``), keyed like the JAX package's jit variants on
+  (horizon bucket, ``sample``) or (table column count, ``sample``): the
+  first dispatch of a key runs the body eagerly, the next captures it, and
+  every later one replays it.  The body reads static input buffers that the
+  host refills before each dispatch.  On the CPU the same body runs eagerly
+  on the same buffers.
+* **Sampling** (``sample_tokens``, ``_fold_keys``): temperature, top-k and
+  top-p, drawn with the port's bit-exact copy of ``jax.random``
+  (``utils/prng.py``) from a per-request key folded with the stream
+  position, so token t of a request is a pure function of (seed, t) and
+  equals the JAX engine's.  A dispatch with any sampled request runs the
+  sampled body (inside the graph on the card); an all-greedy one the exact
+  greedy body.  The first token is sampled at admission.
 * **Stepwise reference driver** (``serve_stepwise``, contiguous only): one
   admission per request and one host round-trip per token, the parity
   reference of the fused driver.
 
-Sampled decoding is not ported yet: a non-greedy ``GenerationConfig``
-raises ``NotImplementedError``.  Only attention stacks are served, as in
-JAX, whose prefill of a right-padded batch asserts as much.
+Only attention stacks are served, as in JAX, whose prefill of a
+right-padded batch asserts as much.
 """
 from __future__ import annotations
 
@@ -42,7 +56,44 @@ from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Model
 from repro_torch.serving.generation import GenerationConfig
+from repro_torch.serving.graphs import GraphSet, StaticInput
 from repro_torch.serving.kvpool import PagedCacheManager
+from repro_torch.utils import prng
+
+
+def sample_tokens(logits, keys, temp, top_k, top_p):
+    """Temperature/top-k/top-p sampling, one token per row, as the JAX
+    package's ``sample_tokens``.
+
+    ``logits``: (B, V) float32; ``keys``: (B, 2) per-row PRNG keys as int64
+    words (already folded with the stream position); ``temp``/``top_k``/
+    ``top_p``: (B,).  Rows with ``temp <= 0`` take the greedy argmax, bit for
+    bit.  The filter order is JAX's: scale by temperature, sort descending
+    (stable), keep the top-k ranks and the nucleus (the probability mass
+    before a token < ``top_p``; rank 0 always kept), then draw
+    ``categorical`` over the sorted survivors and map back through the
+    order.  The sort negates the scaled logits and adds 0.0, so −0.0 ties
+    with 0.0 as in JAX's sort.  Returns (B,) int32.
+    """
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    scaled = logits.float() / temp.clamp_min(1e-6)[:, None]
+    order = torch.argsort(0.0 - scaled, dim=-1, stable=True)
+    sl = torch.gather(scaled, -1, order)
+    ranks = torch.arange(sl.shape[-1], device=sl.device)[None, :]
+    keep = (top_k[:, None] <= 0) | (ranks < top_k[:, None])
+    e = torch.exp(sl - sl[:, :1])                       # the sorted row's max is its first
+    probs = e / e.sum(dim=-1, keepdim=True)
+    keep &= (torch.cumsum(probs, dim=-1) - probs) < top_p[:, None]
+    idx = prng.categorical(keys, torch.where(keep, sl, float("-inf")))
+    sampled = torch.gather(order, -1, idx[:, None])[:, 0].to(torch.int32)
+    return torch.where(temp > 0.0, sampled, greedy)
+
+
+def _fold_keys(keys, n):
+    """Per-row ``fold_in``: key i folded with stream position ``n[i]``, the
+    determinism pivot — position, never the dispatch step, so outputs do not
+    depend on K, the slot, or fused against stepwise serving."""
+    return prng.fold_in(keys, n)
 
 
 @dataclass
@@ -110,6 +161,13 @@ class ServingEngine:
         self.n_decode_calls = 0             # host→device decode dispatches
         self.n_decode_steps = 0             # device decode steps they executed
         self.n_prefill_calls = 0            # admission prefill dispatches
+        # the fused dispatch's static inputs, one int32 row a slot: last
+        # token, active, emitted count, limit, the two key words, temperature
+        # (float32 bits), top-k, top-p (float32 bits); and the paged table a
+        # column count
+        self._state = StaticInput((max_slots, 9), torch.int32, self.device)
+        self._tables: dict[int, StaticInput] = {}
+        self._graphs = GraphSet(self.device)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -205,8 +263,6 @@ class ServingEngine:
         padding rows carry the slot index ``max_slots`` and are never
         written.
         """
-        for r in reqs:
-            self._gen_of(r)             # refuses sampled requests
         B = self._bucket_count(len(reqs))
         L = self._bucket_len(max(len(r.tokens) for r in reqs))
         seqs = [r.tokens for r in reqs] + [[self.pad_id]] * (B - len(reqs))
@@ -220,8 +276,14 @@ class ServingEngine:
                                               lengths=self._to_device(lengths))
             self.n_prefill_calls += 1
             self._insert_many(rows, slot_arr)
-        # argmax takes the first maximum, as jnp.argmax does
-        first = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        sample, *knobs = self._sampling_arrays(reqs + [None] * (B - len(reqs)))
+        if sample:
+            # sampled first token: stream position 0, the fold-in of every
+            # later position; the bucket's padding rows stay greedy
+            first = self._pick_tokens(logits[:, 0], np.zeros(B, np.int32), *knobs)
+        else:
+            # argmax takes the first maximum, as jnp.argmax does
+            first = logits[:, 0].argmax(dim=-1).cpu().numpy()
         now = time.time()
         for req, slot, f in zip(reqs, slots, first):
             self.slot_req[slot] = req
@@ -296,12 +358,31 @@ class ServingEngine:
     @staticmethod
     def _gen_of(req: Request) -> GenerationConfig:
         """Effective generation config: the request's, or a greedy one from
-        the legacy ``max_new`` field.  Sampled decoding is not ported yet."""
-        gen = req.gen if req.gen is not None else GenerationConfig(max_new=req.max_new)
-        if not gen.greedy:
-            raise NotImplementedError(f"request {req.rid}: sampled decoding "
-                                      f"(temperature {gen.temperature}) is not ported yet")
-        return gen
+        the legacy ``max_new`` field."""
+        if req.gen is not None:
+            return req.gen
+        return GenerationConfig(max_new=req.max_new)
+
+    @staticmethod
+    def _base_key(req: Request) -> np.ndarray:
+        """Per-request PRNG base key, ``jax.random.PRNGKey(seed)``'s bits
+        (cached on the request: from admission to retirement the fused and
+        the stepwise loops fold the same base with the position)."""
+        key = getattr(req, "_prng_base", None)
+        if key is None:
+            key = req._prng_base = prng.prng_key(ServingEngine._gen_of(req).seed)
+        return key
+
+    def _pick_tokens(self, logits, n, keys, temp, top_k, top_p) -> np.ndarray:
+        """One sampled token per row at stream position ``n``, the rows'
+        knobs as numpy arrays: the admission and stepwise counterpart of the
+        fused body's sampling (the same fold-in, so both loops agree), read
+        back to the host."""
+        keys = prng.as_words(keys).to(self.device)
+        toks = sample_tokens(logits, _fold_keys(keys, self._to_device(n)),
+                             self._to_device(temp), self._to_device(top_k),
+                             self._to_device(top_p))
+        return toks.cpu().numpy()
 
     def _slot_state(self):
         """Host view of the device decode state, rebuilt from the requests
@@ -320,12 +401,44 @@ class ServingEngine:
                            self.max_len - 1 - len(req.tokens))
         return last, act, n_out, limit
 
+    def _sampling_arrays(self, rows: list[Optional[Request]]):
+        """Sampling arrays of a row a request (None: an empty row): ``sample,
+        keys, temp, top_k, top_p``.  Rows of greedy requests and empty rows
+        stay at (temp=0, key=0) and take the argmax branch of
+        :func:`sample_tokens`; ``sample`` is False iff no row is sampled, and
+        the caller then runs the exact greedy path."""
+        n = len(rows)
+        keys = np.zeros((n, 2), dtype=np.uint32)
+        temp = np.zeros(n, dtype=np.float32)
+        top_k = np.zeros(n, dtype=np.int32)
+        top_p = np.ones(n, dtype=np.float32)
+        sample = False
+        for i, req in enumerate(rows):
+            g = None if req is None else self._gen_of(req)
+            if g is None or g.greedy:
+                continue
+            sample = True
+            keys[i] = self._base_key(req)
+            temp[i], top_k[i], top_p[i] = g.temperature, g.top_k, g.top_p
+        return sample, keys, temp, top_k, top_p
+
+    def _load_state(self) -> bool:
+        """Fill the fused dispatch's static state from the host bookkeeping.
+        Returns ``sample``."""
+        last, act, n_out, limit = self._slot_state()
+        sample, keys, temp, top_k, top_p = self._sampling_arrays(self.slot_req)
+        self._state.load(np.stack([last, act.astype(np.int32), n_out, limit,
+                                   keys[:, 0].view(np.int32), keys[:, 1].view(np.int32),
+                                   temp.view(np.int32), top_k, top_p.view(np.int32)], axis=1))
+        return sample
+
     def _prepare_paged(self, active: list[int], horizon: int):
         """Page maintenance before one decode dispatch: grow every active
         slot's table to cover its next ``decode_block`` writes, CoW-fork any
         still-shared page in that write range (one copy for the whole tick),
         and upload the table sliced to the horizon's column count — the
-        slice bounds per-step attention cost."""
+        slice bounds per-step attention cost.  The table goes into the
+        static buffer of its column count, which the dispatch reads."""
         ps = self.page_size
         cap = self.kv.pages_per_slot * ps
         src: list[int] = []
@@ -341,7 +454,12 @@ class ServingEngine:
         if src:
             self._fork_pages(src, dst)
         n_cols = min(self.kv.pages_per_slot, -(-horizon // ps))
-        return self._to_device(self.kv.table[:, :n_cols])
+        table = self._tables.get(n_cols)
+        if table is None:
+            table = self._tables[n_cols] = StaticInput((self.max_slots, n_cols), torch.int32,
+                                                       self.device)
+        table.load(self.kv.table[:, :n_cols])
+        return table.tensor
 
     def _horizon_view(self, horizon: int) -> dict:
         """The contiguous cache with its sequence axis cut to ``horizon``:
@@ -353,32 +471,45 @@ class ServingEngine:
         return {"k": self.cache["k"][:, :, :horizon], "v": self.cache["v"][:, :, :horizon],
                 "len": self.cache["len"]}
 
-    def _decode_k(self, cache, table, last, active, n_out, limit):
-        """``decode_block`` greedy decode steps back to back.
+    def _decode_k(self, horizon: int, table, sample: bool):
+        """The fused dispatch's body: ``decode_block`` decode steps back to
+        back, reading the static state (``_load_state``).
 
-        ``cache`` and ``table``: the paged pools and the block table sliced
-        to the horizon's columns, or the contiguous cache's horizon view and
-        None.  Device state per slot: ``last`` (next input token), ``active``
-        (still generating), ``n_out`` (tokens emitted, prefill's first
-        included), ``limit`` (min(max_new, max_len−1−prompt)).  The cache is
-        updated in place (JAX donates it to the scan).  Returns the final
-        active mask, the (K, max_slots) token block and its validity mask
-        (``valid[k, i]`` ⇔ slot i was active entering step k), all still on
-        the device.  Inactive slots decode garbage: into pages no live table
-        maps, or into their own contiguous rows, which admission rewrites.
+        ``table``: the paged table sliced to the horizon's columns (a static
+        buffer), or None for the contiguous cache's horizon view.  Device
+        state per slot: ``last`` (next input token), ``active`` (still
+        generating), ``n`` (tokens emitted, the prefill's first included,
+        which is also the stream position a sampled key is folded with) and
+        ``limit`` (min(max_new, max_len−1−prompt)); with ``sample``, the
+        keys and knobs of :func:`sample_tokens`.  The cache is updated in
+        place (JAX donates it to the scan).  Returns one (2K + 1, max_slots)
+        int32 tensor: the K tokens a slot, their validity (``valid[k, i]`` ⇔
+        slot i was active entering step k) and the final active mask.
+        Inactive slots decode garbage: into pages no live table maps, or
+        into their own contiguous rows, which admission rewrites.
         """
+        st = self._state.tensor
+        last, act, n, limit = st[:, 0], st[:, 1] != 0, st[:, 2], st[:, 3]
+        if sample:
+            keys = prng.as_words(st[:, 4:6])
+            temp, top_k, top_p = st[:, 6].view(torch.float32), st[:, 7], st[:, 8].view(
+                torch.float32)
+        cache = self.cache if self.paged else self._horizon_view(horizon)
         toks, valid = [], []
-        act, n = active, n_out
         for _ in range(self.decode_block):
             logits = self.model.decode_step(last[:, None], cache, table)
-            nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
+            if sample:
+                nxt = sample_tokens(logits[:, 0], _fold_keys(keys, n), temp, top_k, top_p)
+            else:
+                nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
             n = n + act.to(torch.int32)
             done = act & ((nxt == self.eos_id) | (n >= limit))
             last = torch.where(act, nxt, last)
             toks.append(nxt)
             valid.append(act)
             act = act & ~done
-        return act, torch.stack(toks), torch.stack(valid)
+        return torch.cat([torch.stack(toks), torch.stack(valid).to(torch.int32),
+                          act[None].to(torch.int32)])
 
     def kv_occupancy(self) -> dict:
         """KV memory telemetry.  Contiguous engines report the committed
@@ -401,33 +532,29 @@ class ServingEngine:
     def serve(self, requests: list[Request]) -> list[Request]:
         """Run all requests to completion with continuous batching: one
         batched admission per tick, then one fused dispatch of up to
-        ``decode_block`` tokens for every active slot, with one device→host
-        copy of its results."""
+        ``decode_block`` tokens for every active slot (on the card one graph
+        replay), with one device→host copy of its results."""
         queue = list(requests)
         while queue or self._active_slots():
             self._admit_free(queue)
             active = self._active_slots()
             if not active:
                 continue
-            last, act, n_out, limit = self._slot_state()
+            sample = self._load_state()
             live = max(len(self.slot_req[i].tokens) + len(self.slot_req[i].out_tokens)
                        for i in active)
             horizon = min(self.max_len, self._bucket_len(live + self.decode_block))
             if self.paged:
-                cache, table = self.cache, self._prepare_paged(active, horizon)
+                table = self._prepare_paged(active, horizon)
+                key = (table.shape[1], sample)
             else:
-                cache, table = self._horizon_view(horizon), None
-            act_f, toks, valid = self._decode_k(
-                cache, table, self._to_device(last), self._to_device(act),
-                self._to_device(n_out), self._to_device(limit))
+                table, key = None, (horizon, sample)
+            out = self._graphs.run(key, lambda: self._decode_k(horizon, table, sample))
             self.n_decode_calls += 1
             self.n_decode_steps += self.decode_block
-            K, S = toks.shape
-            host = torch.cat([toks.reshape(-1), valid.reshape(-1).to(torch.int32),
-                              act_f.to(torch.int32)]).cpu().numpy()
-            toks = host[:K * S].reshape(K, S)
-            valid = host[K * S:2 * K * S].reshape(K, S).astype(bool)
-            act_f = host[2 * K * S:].astype(bool)
+            K = self.decode_block
+            host = out.cpu().numpy()
+            toks, valid, act_f = host[:K], host[K:2 * K].astype(bool), host[2 * K].astype(bool)
             for i in active:
                 req = self.slot_req[i]
                 block = [int(t) for t in toks[valid[:, i], i]]
@@ -441,8 +568,8 @@ class ServingEngine:
     def serve_stepwise(self, requests: list[Request]) -> list[Request]:
         """Reference driver: one admission per request (into the lowest free
         slot) and one host round-trip (dispatch + argmax) per generated token,
-        over the whole ``max_len`` cache.  Greedy outputs are identical to
-        :meth:`serve`'s.  Contiguous layout only, as in JAX: it is the
+        over the whole ``max_len`` cache.  Outputs, greedy or sampled, are
+        identical to :meth:`serve`'s.  Contiguous layout only, as in JAX: it is the
         reference, and paging it would leave no fixed point to test
         against."""
         if self.paged:
@@ -464,7 +591,14 @@ class ServingEngine:
             logits = self.model.decode_step(self._to_device(last), self.cache)
             self.n_decode_calls += 1
             self.n_decode_steps += 1
-            nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+            sample, *knobs = self._sampling_arrays(self.slot_req)
+            if sample:
+                n_arr = np.zeros(self.max_slots, dtype=np.int32)
+                for i in active:
+                    n_arr[i] = len(self.slot_req[i].out_tokens)
+                nxt = self._pick_tokens(logits[:, 0], n_arr, *knobs)
+            else:
+                nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
             for i in active:
                 req = self.slot_req[i]
                 req.out_tokens.append(int(nxt[i]))

@@ -5,9 +5,9 @@ budget, temperature/top-k/top-p sampling, PRNG seed.  JSON/dict round-trip
 rejects unknown keys loudly, so a typo'd field never silently falls back to
 a default.
 
-The port's engine decodes greedily only: a config with ``greedy`` False is
-refused by :class:`repro_torch.serving.engine.ServingEngine` until sampled
-decoding is ported.  ``temperature=0`` (the default) is greedy argmax.
+``temperature=0`` (the default) is greedy argmax; the port's engine
+samples a config with ``greedy`` False with the JAX package's bits
+(``repro_torch.utils.prng``).
 """
 from __future__ import annotations
 

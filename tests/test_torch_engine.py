@@ -8,6 +8,8 @@ decode-block depths × {1, 4} slots, paged and contiguous.  Every prompt
 opens with a shared system prefix (prefix sharing), and the first three are
 identical (a copy-on-write fork on their first decode write).
 """
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.attention import attention_decode
 from repro_torch.models.bridge import state_from_jax
 from repro_torch.models.transformer import Model
-from repro_torch.serving import engine, kvpool
+from repro_torch.serving import engine, graphs, kvpool
 from repro_torch.serving.generation import GenerationConfig
 
 TOK = ByteTokenizer()
@@ -178,20 +180,27 @@ def test_allocator_pinned_to_reference_on_full_pool():
     assert states[0] == states[1] == (2, 1, 1, 1, 0)
 
 
-def test_unported_paths_raise(models):
-    """Sampled decoding (either layout, either driver) is not ported yet, and
-    the paged KV cache refuses a sliding window, as the JAX package asserts
-    (ring caches are the contiguous layout's)."""
+def test_unported_paths_raise(models, monkeypatch):
+    """Speculative decoding (``--draft-member``) and the ``online`` and
+    ``http`` modes of the launcher are not ported yet and raise; the paged
+    KV cache refuses a sliding window, as the JAX package asserts (ring
+    caches are the contiguous layout's).  Sampled decoding is ported now
+    (``tests/test_torch_sampling.py``), so a sampled request is served."""
+    from repro_torch.launch import serve as launcher
+
     _, _, model = models
+    with pytest.raises(NotImplementedError, match="draft-member"):
+        launcher.engine_main(["--draft-member", "tiny-s", "--device", "cpu"])
+    for mode in ("online", "http"):
+        monkeypatch.setattr("sys.argv", ["serve", mode])
+        with pytest.raises(NotImplementedError, match="control plane"):
+            launcher.main()
     for paged in (True, False):
         eng = engine.ServingEngine(model, max_slots=2, max_len=64, paged=paged, device="cpu")
         req = engine.Request(rid=0, tokens=TOK.encode("hi"),
                              gen=GenerationConfig(max_new=4, temperature=0.7))
-        with pytest.raises(NotImplementedError, match="sampled"):
-            eng.serve([req])
-        if not paged:
-            with pytest.raises(NotImplementedError, match="sampled"):
-                eng.serve_stepwise([req])
+        eng.serve([req])
+        assert req.done and len(req.out_tokens) == 4
     cache = model.init_paged_cache(8, 16, 2)
     x = torch.zeros((2, 1, model.cfg.d_model))
     pos = torch.zeros(2, dtype=torch.int32)
@@ -199,3 +208,86 @@ def test_unported_paths_raise(models):
     with pytest.raises(ValueError, match="window"):
         attention_decode(model.blocks[0].attn, model.cfg, x, cache["k"][0], cache["v"][0],
                          pos, table, None, window=16)
+
+
+class EmulatedGraphs(graphs.GraphSet):
+    """``GraphSet`` with its card path emulated on the CPU.  A "capture"
+    runs the body once (its work stands for the first replay's, which is
+    then skipped), and every later replay runs the captured closure again
+    into the captured outputs, with the wrappers' counters left as they
+    were, as a replay runs no Python.  The closure keeps the values it was
+    made with, as a graph keeps its inputs' addresses; but unlike a graph the
+    rerun reads attributes afresh, so only the card holds a replay against
+    the eager body in full (``chip_smoke.py``)."""
+
+    def __init__(self):
+        super().__init__(torch.device("cpu"))
+        self.on_card = True
+
+    def _record(self, body):
+        out = body()
+        first = [True]
+
+        def replay():
+            if first[0]:
+                first[0] = False
+                return
+            saved = [fn.launches for fn in graphs.KERNEL_WRAPPERS]
+            out.copy_(body())
+            for fn, n in zip(graphs.KERNEL_WRAPPERS, saved):
+                fn.launches = n
+
+        return SimpleNamespace(replay=replay), out
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_graph_path_streams_and_counters_match_reference(models, paged):
+    """The engine's fused dispatch through ``GraphSet``'s keyed path (first
+    call of a key eager, then capture and replays, here emulated on the
+    CPU): streams, dispatch counters and ``kv_occupancy()`` identical to the
+    JAX engine's, with several keys captured and every dispatch after a
+    key's first replayed.  No EOS, so the streams run to their limits
+    through several horizon buckets."""
+    jmodel, jparams, model = models
+    ref = jengine.ServingEngine(jmodel, jparams, max_slots=4, max_len=MAX_LEN, decode_block=4,
+                                paged=paged, page_size=16, eos_id=-1)
+    eng = engine.ServingEngine(model, max_slots=4, max_len=MAX_LEN, decode_block=4,
+                               paged=paged, page_size=16, eos_id=-1, device="cpu")
+    eng._graphs = EmulatedGraphs()
+    r_ref = [jengine.Request(rid=i, tokens=t, max_new=m) for i, (t, m) in enumerate(_workload())]
+    r_got = [engine.Request(rid=i, tokens=t, max_new=m) for i, (t, m) in enumerate(_workload())]
+    ref.serve(r_ref)
+    eng.serve(r_got)
+    assert [r.out_tokens for r in r_got] == [r.out_tokens for r in r_ref]
+    assert (eng.n_decode_calls, eng.n_decode_steps, eng.n_prefill_calls) == \
+        (ref.n_decode_calls, ref.n_decode_steps, ref.n_prefill_calls)
+    assert eng.kv_occupancy() == ref.kv_occupancy()
+    gs = eng._graphs
+    assert len(gs.graphs) >= 2
+    assert gs.n_replays == eng.n_decode_calls - len(gs._warm) > eng.n_decode_calls // 2
+
+
+def test_graph_set_keys_and_launch_counts():
+    """First call of a key eager, second captured then replayed, later ones
+    replayed; a wrapper's launches ticked at capture are taken back and
+    added at every replay, so they count the work done."""
+    gs = EmulatedGraphs()
+    wrapper = graphs.KERNEL_WRAPPERS[1]
+    start = wrapper.launches
+    calls = []
+
+    def body(tag):
+        calls.append(tag)
+        wrapper.launches += 3
+        return torch.tensor([len(calls)])
+
+    try:
+        assert gs.run("a", lambda: body("a")).item() == 1 and wrapper.launches == start + 3
+        out = gs.run("a", lambda: body("a2"))
+        assert calls == ["a", "a2"] and out.item() == 2 and wrapper.launches == start + 6
+        assert gs.run("a", lambda: body("unused")) is out and out.item() == 3
+        assert calls == ["a", "a2", "a2"] and wrapper.launches == start + 9
+        assert gs.run("b", lambda: body("b")).item() == 4 and len(gs.graphs) == 1
+        assert gs.n_replays == 2
+    finally:
+        wrapper.launches = start

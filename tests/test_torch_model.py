@@ -21,6 +21,7 @@ from repro.models.transformer import Model as JaxModel
 from repro_torch.config import get_arch
 from repro_torch.models.bridge import load_npz, state_from_jax
 from repro_torch.models.transformer import Model
+from repro_torch.serving.graphs import RecurrentDecoder
 
 TOL = 1e-4
 
@@ -255,6 +256,31 @@ def test_rwkv_decode_steps_match_reference():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL,
                                    err_msg=f"step {step}")
         _rwkv_cache_close(cache, jcache)
+
+
+def test_rwkv_fused_decode_in_place_matches_reference():
+    """Three calls of ``RecurrentDecoder`` (the recurrent paths' fused
+    decode: one graph replay on the card, the same steps eagerly here), two
+    greedy steps each, on its static copy of the prefill cache: the streams
+    are JAX's greedy streams, the cache matches JAX's after the six steps,
+    and every cache tensor keeps its storage, as a captured graph needs."""
+    jmodel, jparams, model = _pair("rwkv6-3b", True)
+    tokens = np.random.default_rng(7).integers(0, 512, (3, 20)).astype(np.int32)
+    want, jcache = jmodel.prefill(jparams, jax.numpy.asarray(tokens), 20)
+    got, cache = model.prefill(torch.from_numpy(tokens))
+    dec = RecurrentDecoder(model, decode_block=2)
+    dec.start(cache, got[:, 0].argmax(-1).to(torch.int32))
+    ptrs = {k: v.data_ptr() for k, v in dec.cache(3).items()}
+    stream = torch.cat([dec().clone() for _ in range(3)]).T.numpy()
+    tok = np.asarray(want)[:, 0].argmax(-1).astype(np.int32)[:, None]
+    j_stream = []
+    for _ in range(6):
+        want, jcache = jmodel.decode_step(jparams, jax.numpy.asarray(tok), jcache)
+        tok = np.asarray(want)[:, 0].argmax(-1).astype(np.int32)[:, None]
+        j_stream.append(tok)
+    np.testing.assert_array_equal(stream, np.concatenate(j_stream, 1))
+    _rwkv_cache_close(dec.cache(3), jcache)
+    assert {k: v.data_ptr() for k, v in dec.cache(3).items()} == ptrs
 
 
 def test_rwkv_cache_layout_and_paged_refusal():

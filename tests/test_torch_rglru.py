@@ -34,6 +34,7 @@ from repro_torch.models.bridge import state_from_jax
 from repro_torch.models.mlp import gelu
 from repro_torch.models.rglru import causal_conv
 from repro_torch.models.transformer import Model, RGLRUBlock
+from repro_torch.serving.graphs import RecurrentDecoder
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -356,6 +357,32 @@ def test_hybrid_prefill_and_greedy_decode_match_reference(n_layers):
     np.testing.assert_array_equal(np.concatenate(t_stream, 1), np.concatenate(j_stream, 1))
     _cache_close(model, cache, jcache)
     np.testing.assert_array_equal(cache["len"].numpy(), [85, 85])
+
+
+def test_hybrid_fused_decode_in_place_matches_reference():
+    """``RecurrentDecoder`` on the reduced hybrid: three calls of 8 greedy
+    steps from a 45-token prefill into a 32-slot ring, so the ring wraps:
+    the streams are JAX's greedy streams, every cache leaf matches JAX's
+    after the 24 steps, and every cache tensor keeps its storage."""
+    jmodel, jparams, model = _pair(8)
+    tokens = np.random.default_rng(9).integers(0, 512, (2, 45)).astype(np.int32)
+    want, jcache = jmodel.prefill(jparams, jnp.asarray(tokens), 64)
+    got, cache = model.prefill(torch.from_numpy(tokens), max_len=64)
+    dec = RecurrentDecoder(model, decode_block=8)
+    dec.start(cache, got[:, 0].argmax(-1).to(torch.int32))
+    ptrs = {k: v.data_ptr() for k, v in dec.cache(2).items()}
+    stream = torch.cat([dec().clone() for _ in range(3)]).T.numpy()
+    step = jax.jit(jmodel.decode_step)
+    tok = np.asarray(want)[:, 0].argmax(-1).astype(np.int32)[:, None]
+    j_stream = []
+    for _ in range(24):
+        want, jcache = step(jparams, jnp.asarray(tok), jcache)
+        tok = np.asarray(want)[:, 0].argmax(-1).astype(np.int32)[:, None]
+        j_stream.append(tok)
+    np.testing.assert_array_equal(stream, np.concatenate(j_stream, 1))
+    _cache_close(model, dec.cache(2), jcache)
+    np.testing.assert_array_equal(dec.cache(2)["len"].numpy(), [69, 69])
+    assert {k: v.data_ptr() for k, v in dec.cache(2).items()} == ptrs
 
 
 def test_hybrid_cache_layout_and_refusals():
