@@ -50,22 +50,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch must give the same bits).
 4. Four main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
-   launched and no plain version may see a CUDA tensor:
+   launched and no plain version may see a CUDA tensor.  Each path runs as
+   the port runs it, every fused decode dispatch one CUDA-graph replay
+   (``serving/graphs.py``: a key's first dispatch eager, the next captured),
+   and then again on the same inputs through the eager body (the graphs'
+   ``run`` set to call the body), where the kernels' inputs are recorded:
    a. paged serving: full-width Qwen1.5-0.5B in bf16, random weights from
       the port's seeded ``Model.init``, 16 batch-prompted requests through
       ``ServingEngine(paged=True)`` (flash prefill, paged decode);
    b. contiguous serving: the same model and requests through
       ``ServingEngine(paged=False)`` (flash prefill, contiguous decode);
    c. full-width RWKV6-3B in bf16, random weights: ``Model.prefill`` of 4
-      prompts of 512 token ids, then 32 greedy ``decode_step``s (WKV6 at
-      every layer of every step, at least 32 × 33 launches);
+      prompts of 512 token ids, then 32 greedy steps through
+      ``RecurrentDecoder``, 8 a replay (WKV6 at every layer of every step,
+      at least 32 × 33 launches);
    d. full-width RecurrentGemma-9B in bf16 (38 layers, 10.445 B
       parameters), random weights: ``Model.prefill`` of 4 prompts of 3,072
       token ids into caches of max_len 4,096 (2,048-slot rings), then 32
-      greedy ``decode_step``s that write into the wrapped rings: exactly
+      greedy steps the same way, writing into the wrapped rings: exactly
       26 × 33 RG-LRU, 12 flash and 12 × 32 decode-attention launches.
-   Paths c and d time prefill and the decode steps apart, then trace 8
-   more decode steps with torch.profiler for the card's busy time a step.
+   Graphed against eager, each path must give identical streams and
+   launches (serving: also identical engine counters and
+   ``kv_occupancy()``); the final caches are compared bit for bit and any
+   difference printed.  Serving paths time tokens/s of both in turns
+   (eager, graphed, graphed, eager, eager, graphed) and trace one whole
+   serve of each, for the card's busy share and a count of the decode
+   kernel by name against the wrapper's; paths c and d time a step of both
+   in turns, trace 8 eager steps and one replay (busy share a step), and
+   count the replay's kernels by name.  The serving paths also serve phase
+   6's half-sampled workload in bf16 at K = 1 on 4 slots and at K = 8 on 8
+   and print, unchecked, how many streams agree: other admission batches
+   give the prefill other shapes, and bf16 rounds differently with them.
    Every bf16 flash, decode and paged case of phase 3 and the flash,
    paged, decode and D=256 main-path entries are held row by row as well:
    the error of each output row over the row's largest plain value.  Each
@@ -75,10 +90,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    each kernel's CUPTI device time a call (summed over the call's kernels)
    after a reading flush, and the same for each row's library call (every
    kernel that SDPA runs).
-5. Parity in fp32, kernels against plain versions: both serving paths
-   (prefill logits within 1e-3, identical greedy streams), RWKV6-3B and
-   RecurrentGemma-9B at full depth (prefill logits within 1e-3, identical
-   greedy streams over 32 steps).
+5. Parity in fp32, kernels against plain versions, through the graphs: both
+   serving paths (prefill logits within 1e-3, identical greedy streams),
+   RWKV6-3B and RecurrentGemma-9B at full depth (prefill logits within
+   1e-3, identical greedy streams over 32 steps).
+6. Sampled serving, full-width Qwen1.5-0.5B in fp32, paged and contiguous:
+   16 requests, half sampled (temperature 0.8, top-k 50, top-p 0.95,
+   seeds of their own), half greedy; streams identical at K = 8 and 1, at
+   8 slots and 4, graphed and eager.  The port's threefry bits on the card
+   equal the same call's on the CPU; the sampling's time a step at (8,
+   151,936), eager and as one replay; and 16,384 draws of one row of
+   151,936 logits fit the filtered softmax (chi-square under its 1e-6
+   tail, no draw outside the kept ranks).
 
 The line before the last is a JSON object with one entry per kernel (time,
 CUPTI time, launches, bound, plain and library times, the library's by
@@ -112,6 +135,13 @@ LOGIT_TOL = 1e-3
 SEED = 0
 DEVICE = "cuda:0"
 DECODE_WARPS = 8               # warps a block of the D <= 64 decode kernels (csrc/decode_body.cuh)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase):
+    print(f"[time] {phase} done at {time.perf_counter() - T_START:.1f}s", flush=True)
 
 
 def check(cond, msg):
@@ -315,6 +345,20 @@ def serving_requests():
     return [Request(rid=i, tokens=fmt.format(qs), max_new=64) for i, qs in enumerate(batches)]
 
 
+def sampled_requests():
+    """The serving workload with the even requests sampled (temperature 0.8,
+    top-k 50, top-p 0.95, seed 1000 + i) and the odd ones greedy; requests
+    0 and 1 share their prompt."""
+    from repro_torch.serving.generation import GenerationConfig
+
+    reqs = serving_requests()
+    for i, r in enumerate(reqs):
+        if i % 2 == 0:
+            r.gen = GenerationConfig(max_new=64, temperature=0.8, top_k=50, top_p=0.95,
+                                     seed=1000 + i)
+    return reqs
+
+
 SERVE_MAX_LEN = 1024
 
 
@@ -333,31 +377,6 @@ def random_prompts(vocab, B, T, seed):
     return torch.from_numpy(rng.integers(0, vocab, (B, T)).astype(np.int32))
 
 
-def greedy(model, tokens, steps=32, **prefill_kw):
-    """Prefill ``tokens`` and take ``steps`` greedy ``decode_step``s on the
-    model's own cache.  Returns (prefill logits, (B, steps + 1) token ids,
-    prefill seconds, decode seconds): host clock, each span ending in a
-    synchronize.  The tokens stay on the card and the decode logits'
-    finiteness is checked once after the loop, so no step waits on the
-    host."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, **prefill_kw)
-    first = logits
-    out = [logits[:, 0].argmax(dim=-1).to(torch.int32)]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    finite = torch.ones((), dtype=torch.bool, device=logits.device)
-    for _ in range(steps):
-        logits = model.decode_step(out[-1][:, None], cache)
-        finite &= torch.isfinite(logits).all()
-        out.append(logits[:, 0].argmax(dim=-1).to(torch.int32))
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t1
-    check(bool(finite), f"{model.cfg.name}: decode logits are not finite")
-    return first, torch.stack(out, dim=1).cpu(), t1 - t0, decode_s
-
-
 def trace_decode(label, model, tokens, step_s, steps=8, **prefill_kw):
     """Profile ``steps`` greedy decode steps after a prefill of ``tokens``:
     the card's busy time a step from torch.profiler's CUDA activity (the self
@@ -373,21 +392,164 @@ def trace_decode(label, model, tokens, step_s, steps=8, **prefill_kw):
         for _ in range(steps):
             tok = model.decode_step(tok, cache)[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
         torch.cuda.synchronize()
-    rows = sorted(((e.key[:90], e.self_device_time_total / 1e3 / steps)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.is_user_annotation and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    device_ms = sum(ms for _, ms in rows) or None
+    rows = device_rows(prof)
+    total = device_total_ms(rows)
+    device_ms = None if total is None else total / steps
     step_ms = 1e3 * step_s
     busy = None if device_ms is None else device_ms / step_ms
-    print(f"[{label}] decode trace: device busy "
+    top = top_device(rows, per=steps)
+    print(f"[{label}] eager decode trace: device busy "
           + ("not measured (no device time in the trace)" if device_ms is None else
              f"{device_ms:.3f} ms a step of {step_ms:.3f} ms ({100 * busy:.1f}%)"))
-    for name, ms in rows[:10]:
+    for name, ms in top:
         print(f"[{label}]   {ms:.4f} ms a step: {name}")
-    return dict(device_ms_per_step=device_ms, step_ms=step_ms, busy_share=busy,
-                top=rows[:10])
+    return dict(device_ms_per_step=device_ms, step_ms=step_ms, busy_share=busy, top=top)
+
+
+def eager_run(key, body):
+    """``GraphSet.run`` for the reference leg: every body runs eagerly, as
+    the CPU path does; set as an instance's ``run``, made here and visibly,
+    never inside the package."""
+    del key
+    return body()
+
+
+def greedy(model, tokens, steps=32, graphed=True, **prefill_kw):
+    """Prefill ``tokens`` and take ``steps`` greedy steps through
+    ``RecurrentDecoder`` (8 a call: on the card one graph replay, or with
+    ``graphed=False`` the same body eagerly).  Returns (prefill logits, (B,
+    steps + 1) token ids, prefill seconds, decode seconds, the decoder):
+    host clock, each span ending in a synchronize.  The tokens stay on the
+    card until the end, and the final state's finiteness is checked once, so
+    no step waits on the host."""
+    from repro_torch.serving.graphs import RecurrentDecoder
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, **prefill_kw)
+    first = logits[:, 0].argmax(dim=-1).to(torch.int32)
+    dec = RecurrentDecoder(model, decode_block=8)
+    if not graphed:
+        dec.graphs.run = eager_run
+    dec.start(cache, first)
+    del cache
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [first[None]] + [dec().clone() for _ in range(steps // dec.decode_block)]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    state = dec.cache(tokens.shape[0])
+    check(all(bool(torch.isfinite(v).all()) for v in state.values() if v.is_floating_point()),
+          f"{model.cfg.name}: the decode state is not finite")
+    return logits, torch.cat(out).T.cpu(), t1 - t0, decode_s, dec
+
+
+def states_equal(label, a, b):
+    """Bit-equality of two caches (dicts of tensors); prints the largest
+    difference of each leaf that differs.  Returns the differing leaves."""
+    diff = {}
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            diff[k] = (a[k].double() - b[k].double()).abs().max().item()
+    print(f"[{label}] final state graphed vs eager: "
+          + ("bit-equal" if not diff else f"differs, max |difference| by leaf {diff}"))
+    return diff
+
+
+def device_rows(prof):
+    """The device entries of a trace (``key_averages()`` taken once: it
+    walks every event)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
+def trace_counts(rows, names):
+    """Launches of each kernel name fragment among a trace's device rows."""
+    return {n: sum(e.count for e in rows if n in e.key) for n in names}
+
+
+def device_total_ms(rows):
+    """The card's busy time in a trace: the self device time of every kernel
+    and copy, summed (None when the trace holds none)."""
+    return sum(e.self_device_time_total for e in rows) / 1e3 or None
+
+
+def top_device(rows, per=1, n=10):
+    """The ``n`` device entries of a trace that take most, in ms divided by
+    ``per``."""
+    return sorted(((e.key[:90], e.self_device_time_total / 1e3 / per) for e in rows
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])[:n]
+
+
+def trace_replay(label, dec, step_ms, names):
+    """Profile one replay (``decode_block`` steps) of a warm decoder: the
+    card's busy time a step beside ``step_ms`` (the graphed step's host
+    clock, untraced), and the launches of each kernel name in ``names`` (a
+    fragment of the kernel's name) in the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dec()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    dev_ms = device_total_ms(rows)
+    per_step = None if dev_ms is None else dev_ms / dec.decode_block
+    counts = trace_counts(rows, names)
+    busy = None if per_step is None else per_step / step_ms
+    top = top_device(rows, per=dec.decode_block)
+    print(f"[{label}] graphed replay trace: device busy "
+          + ("not measured (no device time in the trace)" if per_step is None else
+             f"{per_step:.3f} ms a step of {step_ms:.3f} ms ({100 * busy:.1f}%)")
+          + f"; kernels in one replay {counts}")
+    for name, ms in top:
+        print(f"[{label}]   {ms:.4f} ms a step: {name}")
+    return dict(device_ms_per_step=per_step, step_ms=step_ms, busy_share=busy,
+                kernels_in_replay=counts, top=top)
+
+
+class DispatchClock:
+    """Set as an engine's ``_graphs.run``: the wall time of every fused
+    dispatch (a synchronize before and after) into ``times``, and the
+    device rows of a trace of dispatch ``trace_at`` into ``rows``."""
+
+    def __init__(self, engine, trace_at):
+        self.inner = engine._graphs.run
+        engine._graphs.run = self
+        self.trace_at = trace_at
+        self.times, self.rows = [], None
+
+    def __call__(self, key, body):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(self.times) == self.trace_at:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = self.inner(key, body)
+                torch.cuda.synchronize()
+            self.rows = device_rows(prof)
+        else:
+            out = self.inner(key, body)
+            torch.cuda.synchronize()
+        self.times.append(time.perf_counter() - t0)
+        return out
+
+
+def step_turns(dec_e, dec_g, blocks=2):
+    """Host-clock ms a step of the eager and the graphed decoder, in turns
+    eager, graphed, graphed, eager (``blocks`` calls each, from where each
+    decoder's state stands)."""
+    times = {"eager": [], "graphed": []}
+    for leg in ("eager", "graphed", "graphed", "eager"):
+        dec = dec_e if leg == "eager" else dec_g
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            dec()
+        torch.cuda.synchronize()
+        times[leg].append(1e3 * (time.perf_counter() - t0) / (blocks * dec.decode_block))
+    return times
 
 
 @contextlib.contextmanager
@@ -414,6 +576,22 @@ def recording(module, name, keep):
 
 
 
+def recurrent_compare(label, streams, streams_e, dec, dec_e, counts, eager_counts):
+    """Graphed against eager on a recurrent path: identical streams and
+    launches (checked), the final state bit-equal (reported), and the
+    graphs captured."""
+    B = streams.shape[0]
+    same = bool(torch.equal(streams, streams_e))
+    print(f"[{label}] graphed vs eager: streams {'identical' if same else 'DIFFER'}, launches "
+          f"{'equal' if counts == eager_counts else (counts, eager_counts)}; graphs captured "
+          f"{len(dec.graphs.graphs)}, {dec.graphs.n_replays} replays")
+    check(same, f"{label}: graphed streams differ from the eager body's")
+    check(counts == eager_counts, f"{label}: launches {counts} graphed, {eager_counts} eager")
+    diff = states_equal(label, dec.cache(B), dec_e.cache(B))
+    return dict(streams_identical=same, graphs=len(dec.graphs.graphs),
+                replays=dec.graphs.n_replays, final_state_diff=diff)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -427,6 +605,7 @@ def main() -> int:
     from repro_torch.kernels import rglru_scan as rglru_mod
     from repro_torch.kernels import rwkv6_scan as wkv6_mod
     from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import ServingEngine
 
     # name -> (module, kernel wrapper, plain version); ops.<name> dispatches
     kern = {"flash_attention": (flash_mod, "flash_attention_cuda", "flash_attention_plain"),
@@ -498,6 +677,7 @@ def main() -> int:
     results["rglru_fp64_sass"] = fp64
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
 
+    stamp("build")
     # ---- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -873,6 +1053,7 @@ def main() -> int:
             for gates in ("mild", "strong", "near0"):
                 rglru_case(3, T, 200, dtype, gates, timed=False)
 
+    stamp("kernels against plain versions")
     # ---- 4. the main paths -----------------------------------------------
     plain_on_cuda = {"n": 0}
 
@@ -914,40 +1095,146 @@ def main() -> int:
           f"{str(model.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
     n_per_dispatch = cfg.n_layers * 8
 
+    def serve_once(engine, reqs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.serve(reqs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     def serve(label, paged, record):
+        """The serving path through the graphs (the main path), then the
+        same workload through the eager body on a fresh engine (inputs
+        recorded there): streams, counters, occupancy, launches and the
+        final cache compared; tokens/s of both in turns; a trace of each."""
         engine, reqs = serving_engine(model, dev, paged=paged), serving_requests()
-        with main_path(label, ("flash_attention", record)) as counts, \
+        with main_path(label, ("flash_attention", record)) as counts:
+            serve_s = serve_once(engine, reqs)
+        gs = engine._graphs
+        n_prefills, n_dispatches = engine.n_prefill_calls, engine.n_decode_calls
+        n_graphs, n_replays = len(gs.graphs), gs.n_replays
+        print(f"[{label}] graphs captured {len(gs.graphs)} (keys {sorted(gs.graphs)}), "
+              f"{gs.n_replays} replays of {engine.n_decode_calls} dispatches")
+        eager_engine, eager_reqs = serving_engine(model, dev, paged=paged), serving_requests()
+        eager_engine._graphs.run = eager_run
+        with main_path(f"{label}-eager", ("flash_attention", record)) as eager_counts, \
                 recording(ops, "flash_attention", {0}) as flash_calls, \
                 recording(ops, record, {3 * n_per_dispatch}) as decode_calls:
-            t0 = time.perf_counter()
-            engine.serve(reqs)
-            torch.cuda.synchronize()
-            serve_s = time.perf_counter() - t0
+            eager_s = serve_once(eager_engine, eager_reqs)
         n_done = sum(r.done for r in reqs)
         n_tok = sum(len(r.out_tokens) for r in reqs)
         occ = engine.kv_occupancy()
-        print(f"[{label}] {n_done}/{len(reqs)} requests, {n_tok} tokens in {serve_s:.3f}s: "
-              f"{n_tok / serve_s:.1f} tokens/s; prompts {min(len(r.tokens) for r in reqs)}-"
-              f"{max(len(r.tokens) for r in reqs)} tokens; {engine.n_prefill_calls} prefills, "
-              f"{engine.n_decode_calls} decode dispatches; kv peak "
-              f"{occ['peak_kv_bytes'] / 2**20:.1f} MiB")
         check(n_done == len(reqs), f"{label}: served {n_done}/{len(reqs)} requests")
         check(all(len(r.out_tokens) >= 1 for r in reqs), f"{label}: a request produced no token")
         check(0 in flash_calls and decode_calls, f"{label}: main-path inputs were not recorded")
+        same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, eager_reqs))
+        telemetry = [(e.n_decode_calls, e.n_decode_steps, e.n_prefill_calls, e.kv_occupancy())
+                     for e in (engine, eager_engine)]
+        print(f"[{label}] graphed vs eager: streams identical {same}/{len(reqs)}, counters and "
+              f"kv_occupancy {'equal' if telemetry[0] == telemetry[1] else telemetry}, "
+              f"launches {'equal' if counts == eager_counts else (counts, eager_counts)}")
+        check(same == len(reqs), f"{label}: graphed streams differ from the eager body's")
+        check(telemetry[0] == telemetry[1], f"{label}: engine counters differ: {telemetry}")
+        check(counts == eager_counts, f"{label}: launches {counts} graphed, {eager_counts} eager")
+        # the final caches; paged: the drop page takes every inactive slot's
+        # writes at once (index_put_ with repeated indices picks no winner)
+        P = engine.kv.alloc.n_pages if paged else None
+        cut = (lambda t: t[:, :P]) if paged else (lambda t: t)
+        diff = states_equal(label, {k: cut(engine.cache[k]) for k in ("k", "v")} | {
+            "len": engine.cache["len"]}, {k: cut(eager_engine.cache[k]) for k in ("k", "v")} | {
+            "len": eager_engine.cache["len"]})
+        if paged:
+            drop_same = all(torch.equal(engine.cache[k][:, P:], eager_engine.cache[k][:, P:])
+                            for k in ("k", "v"))
+            print(f"[{label}] the drop page (inactive slots' writes) "
+                  f"{'is' if drop_same else 'is not'} bit-equal too")
+        # tokens/s in turns: eager, graphed, graphed, eager, eager, graphed,
+        # fresh requests each time on the two warm engines
+        tps = {"eager": [], "graphed": []}
+        secs = {"eager": [], "graphed": []}
+        for leg in ("eager", "graphed", "graphed", "eager", "eager", "graphed"):
+            eng = eager_engine if leg == "eager" else engine
+            rs = serving_requests()
+            t = serve_once(eng, rs)
+            secs[leg].append(t)
+            tps[leg].append(sum(len(r.out_tokens) for r in rs) / t)
+        print(f"[{label}] tokens/s in turns: eager {[round(x, 1) for x in tps['eager']]}, "
+              f"graphed {[round(x, 1) for x in tps['graphed']]}")
+        stamp(f"{label}: graphed, eager and turns")
+        # one more serve of each leg with every dispatch clocked (a
+        # synchronize before and after) and the fifth one traced: the card's
+        # busy share of a dispatch (its device time over the mean wall time
+        # of the untraced dispatches), the decode kernel counted by name in
+        # it, and the dispatches' share of the serve's wall time (the rest
+        # is admission and the host's work between dispatches)
+        traces = {}
+        frag = "paged_decode_kernel" if paged else "::decode_kernel"
+        for leg, eng in (("graphed", engine), ("eager", eager_engine)):
+            clock = DispatchClock(eng, trace_at=4)
+            for fn in kernel.values():
+                fn.launches = 0
+            t = serve_once(eng, serving_requests())
+            eng._graphs.run = clock.inner
+            dev_ms = device_total_ms(clock.rows)
+            others = clock.times[:4] + clock.times[5:]
+            disp_ms = 1e3 * float(np.mean(others))
+            untraced = t - clock.times[4]        # the profiler's start-up left out
+            n_trace = trace_counts(clock.rows, [frag])[frag]
+            want = model.cfg.n_layers * engine.decode_block
+            top = top_device(clock.rows)
+            traces[leg] = dict(device_ms_per_dispatch=dev_ms, dispatch_ms=disp_ms,
+                               busy_share=None if dev_ms is None else dev_ms / disp_ms,
+                               dispatch_share_of_serve=sum(others) / untraced,
+                               decode_kernels_in_trace=n_trace, top=top)
+            print(f"[{label}] {leg} dispatch trace: device busy "
+                  + ("not measured" if dev_ms is None else
+                     f"{dev_ms:.3f} ms of {disp_ms:.3f} ms ({100 * dev_ms / disp_ms:.1f}%)")
+                  + f"; the other {len(others)} dispatches take "
+                    f"{100 * traces[leg]['dispatch_share_of_serve']:.1f}% of the serve's "
+                    f"{1e3 * untraced:.1f} ms without the traced one; {frag} in the trace "
+                    f"{n_trace} (expected {want})")
+            for name, ms in top:
+                print(f"[{label}]   {ms:.4f} ms a dispatch: {name}")
+            check(dev_ms is None or n_trace == want,
+                  f"{label} {leg}: {n_trace} decode kernels in one dispatch, expected {want}")
+        # not checked: sampled bf16 streams at K = 1 and 4 slots against K = 8
+        # and 8 slots (other admission batches, so other prefill shapes)
+        bf16 = []
+        for K, slots in ((8, 8), (1, 4)):
+            eng = ServingEngine(model, max_slots=slots, max_len=SERVE_MAX_LEN, decode_block=K,
+                                paged=paged, page_size=16, device=dev)
+            rs = sampled_requests()
+            eng.serve(rs)
+            bf16.append([r.out_tokens for r in rs])
+        bf16_same = sum(a == b for a, b in zip(*bf16))
+        print(f"[{label}] bf16, not checked: sampled-workload streams at K=1, 4 slots identical "
+              f"to K=8, 8 slots in {bf16_same}/{len(bf16[0])} requests")
+        print(f"[{label}] {n_done}/{len(reqs)} requests, {n_tok} tokens in {serve_s:.3f}s "
+              f"graphed (first run: eager first calls and captures included), "
+              f"{eager_s:.3f}s eager; prompts {min(len(r.tokens) for r in reqs)}-"
+              f"{max(len(r.tokens) for r in reqs)} tokens; {n_prefills} prefills, "
+              f"{n_dispatches} decode dispatches; kv peak "
+              f"{occ['peak_kv_bytes'] / 2**20:.1f} MiB")
         results[label] = dict(requests=n_done, tokens=n_tok, seconds=serve_s,
-                              tokens_per_s=n_tok / serve_s, launches=counts,
+                              eager_seconds=eager_s, tokens_per_s_turns=tps,
+                              seconds_turns=secs, launches=counts,
                               launches_per_request={k: v / n_done for k, v in counts.items()},
-                              kv=occ, prefills=engine.n_prefill_calls,
-                              decode_dispatches=engine.n_decode_calls)
+                              kv=occ, prefills=n_prefills, decode_dispatches=n_dispatches,
+                              graphs=n_graphs, graph_keys=[list(k) for k in gs.graphs],
+                              replays=n_replays, final_cache_diff=diff, traces=traces,
+                              bf16_sampled_k1_4slots_identical=bf16_same)
+        del engine, eager_engine
         return occ, counts, flash_calls[0], next(iter(decode_calls.values()))
 
     occ, paged_counts, flash_call, paged_call = serve("paged", True, "paged_attention")
     check(occ["prefix_shares"] > 0 and occ["cow_forks"] > 0,
           "prefix sharing or copy-on-write never engaged")
+    stamp("paged serving")
     _, contig_counts, _, decode_call = serve("contiguous", False, "decode_attention")
     del model
     torch.cuda.empty_cache()
 
+    stamp("contiguous serving")
     rcfg = get_arch("rwkv6-3b")
     t0 = time.perf_counter()
     rmodel = Model(rcfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
@@ -956,12 +1243,16 @@ def main() -> int:
           f"{str(rmodel.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
     prompts = random_prompts(rcfg.vocab_size, 4, 512, SEED + 1).to(dev)
     n_steps = 32
-    with main_path("rwkv6", ("wkv6",)) as rwkv_counts, \
-            recording(ops, "wkv6", {0, rcfg.n_layers}) as wkv6_calls:
-        r_logits, r_streams, r_prefill_s, r_decode_s = greedy(rmodel, prompts, n_steps)
+    with main_path("rwkv6", ("wkv6",)) as rwkv_counts:
+        r_logits, r_streams, r_prefill_s, r_decode_s, r_dec = greedy(rmodel, prompts, n_steps)
         rwkv_s = r_prefill_s + r_decode_s
     check(rwkv_counts["wkv6"] >= rcfg.n_layers * (n_steps + 1),
           f"rwkv6: {rwkv_counts['wkv6']} WKV6 launches < {rcfg.n_layers} x {n_steps + 1}")
+    with main_path("rwkv6-eager", ("wkv6",)) as rwkv_eager_counts, \
+            recording(ops, "wkv6", {0, rcfg.n_layers}) as wkv6_calls:
+        _, r_streams_e, _, r_decode_e, r_dec_e = greedy(rmodel, prompts, n_steps, graphed=False)
+    r_cmp = recurrent_compare("rwkv6", r_streams, r_streams_e, r_dec, r_dec_e,
+                              rwkv_counts, rwkv_eager_counts)
     want_shape = (prompts.shape[0], 1, rmodel.vocab_padded)
     check(tuple(r_logits.shape) == want_shape and bool(torch.isfinite(r_logits).all()),
           f"rwkv6: prefill logits {tuple(r_logits.shape)} not finite of {want_shape}")
@@ -970,13 +1261,23 @@ def main() -> int:
     print(f"[rwkv6] prefill 4x{prompts.shape[1]} in {r_prefill_s:.3f}s, {n_steps} greedy "
           f"steps in {r_decode_s:.3f}s ({1e3 * r_decode_s / n_steps:.1f} ms a step); "
           f"{rwkv_s:.3f}s in all")
-    r_trace = trace_decode("rwkv6", rmodel, prompts, r_decode_s / n_steps)
+    r_turns = step_turns(r_dec_e, r_dec)
+    print(f"[rwkv6] ms a step in turns: eager {[round(x, 3) for x in r_turns['eager']]}, "
+          f"graphed {[round(x, 3) for x in r_turns['graphed']]}")
+    r_trace = trace_decode("rwkv6", rmodel, prompts, float(np.mean(r_turns["eager"])) / 1e3)
+    r_replay = trace_replay("rwkv6", r_dec, float(np.mean(r_turns["graphed"])),
+                            ["wkv6_step_kernel"])
+    check(r_replay["kernels_in_replay"]["wkv6_step_kernel"] == rcfg.n_layers * 8,
+          f"rwkv6: {r_replay['kernels_in_replay']} WKV6 step kernels in one replay, "
+          f"expected {rcfg.n_layers * 8}")
     results["rwkv6"] = dict(seconds=rwkv_s, prefill_s=r_prefill_s, decode_s=r_decode_s,
-                            launches=rwkv_counts, steps=n_steps,
-                            prompt_shape=list(prompts.shape), decode_trace=r_trace)
-    del rmodel
+                            eager_decode_s=r_decode_e, launches=rwkv_counts, steps=n_steps,
+                            prompt_shape=list(prompts.shape), decode_trace=r_trace,
+                            replay_trace=r_replay, step_ms_turns=r_turns, compare=r_cmp)
+    del rmodel, r_dec, r_dec_e
     torch.cuda.empty_cache()
 
+    stamp("rwkv6")
     gcfg = get_arch("recurrentgemma-9b")
     kinds = gcfg.layer_kinds()
     n_rec, n_local = kinds.count("rglru"), kinds.count("local")
@@ -990,17 +1291,22 @@ def main() -> int:
           f"{gcfg.param_count() / 1e9:.3f} B), init {time.perf_counter() - t0:.1f}s")
     g_prompts = random_prompts(gcfg.vocab_size, 4, 3072, SEED + 2).to(dev)
     g_max_len = 4096
-    with main_path("recurrentgemma", ("rglru_scan", "flash_attention", "decode_attention")) \
-            as g_counts, \
-            recording(ops, "rglru_scan", {0, n_rec}) as rglru_calls, \
-            recording(ops, "flash_attention", {0}) as g_flash_calls, \
-            recording(ops, "decode_attention", {0}) as g_decode_calls:
-        g_logits, g_streams, g_prefill_s, g_decode_s = greedy(gmodel, g_prompts, n_steps,
-                                                              max_len=g_max_len)
+    g_expect = ("rglru_scan", "flash_attention", "decode_attention")
+    with main_path("recurrentgemma", g_expect) as g_counts:
+        g_logits, g_streams, g_prefill_s, g_decode_s, g_dec = greedy(
+            gmodel, g_prompts, n_steps, max_len=g_max_len)
     want_counts = {"rglru_scan": n_rec * (n_steps + 1), "flash_attention": n_local,
                    "decode_attention": n_local * n_steps}
     check(all(g_counts[n] == c for n, c in want_counts.items()),
           f"recurrentgemma: launches {g_counts}, expected {want_counts}")
+    with main_path("recurrentgemma-eager", g_expect) as g_eager_counts, \
+            recording(ops, "rglru_scan", {0, n_rec}) as rglru_calls, \
+            recording(ops, "flash_attention", {0}) as g_flash_calls, \
+            recording(ops, "decode_attention", {0}) as g_decode_calls:
+        _, g_streams_e, _, g_decode_e, g_dec_e = greedy(gmodel, g_prompts, n_steps,
+                                                        graphed=False, max_len=g_max_len)
+    g_cmp = recurrent_compare("rgemma", g_streams, g_streams_e, g_dec, g_dec_e, g_counts,
+                              g_eager_counts)
     want_shape = (g_prompts.shape[0], 1, gmodel.vocab_padded)
     check(tuple(g_logits.shape) == want_shape and bool(torch.isfinite(g_logits).all()),
           f"recurrentgemma: prefill logits {tuple(g_logits.shape)} not finite of {want_shape}")
@@ -1011,16 +1317,28 @@ def main() -> int:
           f"{min(gcfg.window, g_max_len)}) in {g_prefill_s:.3f}s, {n_steps} greedy steps in "
           f"{g_decode_s:.3f}s ({1e3 * g_decode_s / n_steps:.1f} ms a step); peak memory "
           f"{g_peak:.1f} GiB")
-    g_trace = trace_decode("rgemma", gmodel, g_prompts, g_decode_s / n_steps,
+    g_turns = step_turns(g_dec_e, g_dec)
+    print(f"[rgemma] ms a step in turns: eager {[round(x, 3) for x in g_turns['eager']]}, "
+          f"graphed {[round(x, 3) for x in g_turns['graphed']]}")
+    g_trace = trace_decode("rgemma", gmodel, g_prompts, float(np.mean(g_turns["eager"])) / 1e3,
                            max_len=g_max_len)
+    g_replay = trace_replay("rgemma", g_dec, float(np.mean(g_turns["graphed"])),
+                            ["rglru_kernel", "decode_wide_kernel"])
+    want_replay = {"rglru_kernel": n_rec * 8, "decode_wide_kernel": n_local * 8}
+    check(g_replay["kernels_in_replay"] == want_replay,
+          f"recurrentgemma: kernels in one replay {g_replay['kernels_in_replay']}, expected "
+          f"{want_replay}")
     results["recurrentgemma"] = dict(params=g_params, config_param_estimate=gcfg.param_count(),
                                      prefill_s=g_prefill_s, decode_s=g_decode_s,
-                                     launches=g_counts, steps=n_steps, max_len=g_max_len,
+                                     eager_decode_s=g_decode_e, launches=g_counts,
+                                     steps=n_steps, max_len=g_max_len,
                                      prompt_shape=list(g_prompts.shape), peak_gib=g_peak,
-                                     decode_trace=g_trace)
-    del gmodel
+                                     decode_trace=g_trace, replay_trace=g_replay,
+                                     step_ms_turns=g_turns, compare=g_cmp)
+    del gmodel, g_dec, g_dec_e
     torch.cuda.empty_cache()
 
+    stamp("recurrentgemma")
     # the kernels on the inputs the main paths gave them
     entries = []
     (fq, fk, fv), fkw = flash_call
@@ -1235,6 +1553,7 @@ def main() -> int:
               f"{wd['cupti_ms']} ms (bound {wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain "
               f"{wd['plain_ms']:.4f} ms, max|err| {wd['max_abs_err']:.3g}")
 
+    stamp("main-path kernel table")
     # ---- 5. parity in fp32: kernels vs plain versions ---------------------
     @contextlib.contextmanager
     def plain_kernels():
@@ -1269,6 +1588,113 @@ def main() -> int:
         results.setdefault("parity", {})[label] = dict(logit_err=logit_err, identical=same,
                                                        n=len(streams_k))
 
+    # ---- 6. sampled serving ----------------------------------------------
+    def sampled_phase(model32):
+        """Full-width Qwen1.5-0.5B in fp32, both layouts: 16 requests, the
+        even ones sampled (temperature 0.8, top-k 50, top-p 0.95, seeds
+        1000 + i), the odd ones greedy; streams identical at K = 8 and 1,
+        at 8 slots and 4, graphed and eager.  Then the port's threefry bits
+        on the card against the CPU, the sampling's time a step, and the
+        draws of one full-vocabulary row against the filtered softmax."""
+        from repro_torch.serving.engine import _fold_keys, sample_tokens
+        from repro_torch.serving.graphs import GraphSet
+        from repro_torch.utils import prng
+
+        def run(paged, K, slots, graphed):
+            eng = ServingEngine(model32, max_slots=slots, max_len=SERVE_MAX_LEN,
+                                decode_block=K, paged=paged, page_size=16, device=dev)
+            if not graphed:
+                eng._graphs.run = eager_run
+            rs = sampled_requests()
+            t = serve_once(eng, rs)
+            return [r.out_tokens for r in rs], len(eng._graphs.graphs), t
+
+        out = {}
+        for paged in (True, False):
+            layout = "paged" if paged else "contiguous"
+            ref, n_graphs, t_ref = run(paged, 8, 8, True)
+            check(ref[0] != ref[1], f"sampled {layout}: request 0 (sampled) gave the stream "
+                  f"of request 1 (greedy, the same prompt)")
+            legs = {"K=8 slots=8 graphed": dict(graphs=n_graphs, seconds=t_ref)}
+            for K, slots, graphed in ((1, 8, True), (8, 4, True), (8, 8, False)):
+                got, ng, t = run(paged, K, slots, graphed)
+                same = sum(a == b for a, b in zip(ref, got))
+                name = f"K={K} slots={slots} {'graphed' if graphed else 'eager'}"
+                legs[name] = dict(identical=same, graphs=ng, seconds=t)
+                print(f"[sampled] {layout} {name}: streams identical to K=8 slots=8 graphed "
+                      f"{same}/{len(ref)}; {ng} graphs; {t:.2f}s")
+                check(same == len(ref), f"sampled {layout} {name}: streams differ")
+            out[layout] = legs
+        # threefry on the card against the same call on the CPU
+        V = model32.cfg.vocab_size
+        keys_np = np.stack([prng.prng_key(1000 + i) for i in range(8)])
+        n_np = (7 * np.arange(8)).astype(np.int32)
+        kc = prng.fold_in(prng.as_words(keys_np).to(dev), torch.from_numpy(n_np).to(dev))
+        kh = prng.fold_in(prng.as_words(keys_np), torch.from_numpy(n_np))
+        bits_same = (torch.equal(kc.cpu(), kh)
+                     and torch.equal(prng.random_bits(kc, V).cpu(), prng.random_bits(kh, V))
+                     and torch.equal(prng.uniform(kc, V).cpu(), prng.uniform(kh, V)))
+        g_c, g_h = prng.gumbel(kc, V).cpu(), prng.gumbel(kh, V)
+        g_diff = ((g_c - g_h).abs() / torch.clamp_min(g_h.abs(), 1.0)).max().item()
+        print(f"[sampled] threefry on the card vs the CPU: fold_in, bits and uniform "
+              f"{'bit-identical' if bits_same else 'DIFFER'} (8 keys x {V}); gumbel max "
+              f"|difference| / max(|g|, 1) {g_diff:.3g}")
+        check(bits_same, "sampled: threefry bits on the card differ from the CPU's")
+        # the sampling's time a step at (8, V): eager, and as one graph replay
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        lg = torch.randn((8, V), generator=gen, device=dev) * 3.0
+        temp = torch.full((8,), 0.8, device=dev)
+        top_k = torch.full((8,), 50, dtype=torch.int32, device=dev)
+        top_p = torch.full((8,), 0.95, device=dev)
+        n_dev = torch.from_numpy(n_np).to(dev)
+        words = prng.as_words(keys_np).to(dev)
+
+        def body():
+            return sample_tokens(lg, _fold_keys(words, n_dev), temp, top_k, top_p)
+
+        gs = GraphSet(dev)
+        gs.run("s", body)
+        gs.run("s", body)
+        samp_eager = timed_ms(body, 20, flush)
+        samp_graph = timed_ms(lambda: gs.run("s", body), 20, flush)
+        print(f"[sampled] sample_tokens at (8, {V}): {samp_eager:.4f} ms eager, "
+              f"{samp_graph:.4f} ms as one graph replay (CUDA events, L2 flushed)")
+        # the draws of one row against the filtered softmax (the nucleus of
+        # 0.95 keeps 33 ranks, under top-k 50; its edge is 1.27e-5 of mass
+        # from the next rank's)
+        z = np.random.default_rng(5).standard_normal(V).astype(np.float32)
+        row = (z * np.float32(5.0)).astype(np.float32)
+        sl = np.sort((torch.from_numpy(row) / torch.tensor(0.8)).double().numpy())[::-1]
+        probs = np.exp(sl - sl[0]) / np.exp(sl - sl[0]).sum()
+        kept = int(min(50, np.sum(np.cumsum(probs) - probs < 0.95)))
+        N, chunk = 16384, 1024
+        rank = torch.empty(V, dtype=torch.int64)
+        rank[torch.from_numpy(np.argsort(-row, kind="stable"))] = torch.arange(V)
+        row_dev = torch.from_numpy(row).to(dev)
+        counts = torch.zeros(V, dtype=torch.int64)
+        base = prng.as_words(np.tile(prng.prng_key(77), (chunk, 1))).to(dev)
+        for c0 in range(0, N, chunk):
+            pos = torch.arange(c0, c0 + chunk, dtype=torch.int32, device=dev)
+            toks = sample_tokens(row_dev.expand(chunk, V), _fold_keys(base, pos),
+                                 torch.full((chunk,), 0.8, device=dev),
+                                 torch.full((chunk,), 50, dtype=torch.int32, device=dev),
+                                 torch.full((chunk,), 0.95, device=dev))
+            counts += torch.bincount(rank[toks.long().cpu()], minlength=V)
+        counts = counts.numpy()
+        expect = N * probs[:kept] / probs[:kept].sum()
+        stat = float(((counts[:kept] - expect) ** 2 / expect).sum())
+        df, z6 = kept - 1, 4.753                        # z of the 1e-6 upper tail
+        bound = df * (1 - 2 / (9 * df) + z6 * np.sqrt(2 / (9 * df))) ** 3
+        outside = int(counts[kept:].sum())
+        print(f"[sampled] {N} draws of one row of {V} logits (temperature 0.8, top-k 50, top-p "
+              f"0.95: {kept} ranks kept): chi-square {stat:.2f} on {df} degrees of freedom, "
+              f"bound {bound:.2f} (the 1e-6 tail); draws outside the kept ranks {outside}")
+        check(outside == 0 and stat < bound, "sampled: the draws do not fit the filtered softmax")
+        results["sampled"] = dict(streams=out, threefry_bit_identical=bits_same,
+                                  gumbel_rel_diff=g_diff, sample_ms_eager=samp_eager,
+                                  sample_ms_graph=samp_graph, chi_square=stat,
+                                  chi_square_bound=bound, kept=kept, draws=N)
+
     model32 = Model(dataclasses.replace(cfg, dtype="float32"), device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
     probe = serving_engine(model32, dev)
@@ -1289,13 +1715,16 @@ def main() -> int:
 
     parity("paged", serve_fp32(True))
     parity("contiguous", serve_fp32(False))
+    stamp("fp32 serving parity")
+    sampled_phase(model32)
     del model32
     torch.cuda.empty_cache()
+    stamp("sampled serving")
     rmodel32 = Model(dataclasses.replace(rcfg, dtype="float32"), device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
 
     def rwkv_fp32():
-        logits, streams, _, _ = greedy(rmodel32, prompts, n_steps)
+        logits, streams, _, _, _ = greedy(rmodel32, prompts, n_steps)
         return logits, streams.tolist()
 
     parity("rwkv6", rwkv_fp32)
@@ -1305,12 +1734,13 @@ def main() -> int:
         torch.Generator(device=dev).manual_seed(SEED))
 
     def rgemma_fp32():
-        logits, streams, _, _ = greedy(gmodel32, g_prompts, n_steps, max_len=g_max_len)
+        logits, streams, _, _, _ = greedy(gmodel32, g_prompts, n_steps, max_len=g_max_len)
         return logits, streams.tolist()
 
     parity("recurrentgemma", rgemma_fp32)
     del gmodel32
 
+    stamp("fp32 recurrent parity")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     results["kernels"] = entries
