@@ -359,6 +359,37 @@ def sampled_requests():
     return reqs
 
 
+def switching_requests():
+    """A workload whose fused dispatches change key inside one serve: the
+    serving workload's first 8 requests (prompts of 184-188 tokens), the
+    even ones sampled as in ``sampled_requests`` with 25 new tokens, the
+    odd ones greedy with 113.  At K = 8 on 8 slots the sampled ones finish
+    after 3 dispatches (sample=True, horizon 256: 16 table columns), the
+    greedy ones take 5 more at horizon 256 and 6 past it (512: 32
+    columns): three keys, each dispatched at least twice."""
+    from repro_torch.serving.generation import GenerationConfig
+
+    reqs = serving_requests()[:8]
+    for i, r in enumerate(reqs):
+        if i % 2 == 0:
+            r.gen = GenerationConfig(max_new=25, temperature=0.8, top_k=50, top_p=0.95,
+                                     seed=1000 + i)
+        else:
+            r.max_new = 113
+    return reqs
+
+
+def first_divergence(a, b):
+    """{request index: first token index where streams ``a[i]`` and ``b[i]``
+    differ} over the requests whose streams differ."""
+    out = {}
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            out[i] = next((t for t, (u, v) in enumerate(zip(x, y)) if u != v),
+                          min(len(x), len(y)))
+    return out
+
+
 SERVE_MAX_LEN = 1024
 
 
@@ -414,13 +445,29 @@ def eager_run(key, body):
     return body()
 
 
+class FiniteSteps:
+    """A model as ``RecurrentDecoder`` sees it, with every decode step's
+    logits folded into ``finite``: a device flag made before any capture,
+    so a graph replay updates it as an eager step does."""
+
+    def __init__(self, model):
+        self.model, self.device = model, model.device
+        self.finite = torch.ones((), dtype=torch.bool, device=model.device)
+
+    def decode_step(self, *args, **kwargs):
+        logits = self.model.decode_step(*args, **kwargs)
+        self.finite.logical_and_(torch.isfinite(logits).all())
+        return logits
+
+
 def greedy(model, tokens, steps=32, graphed=True, **prefill_kw):
     """Prefill ``tokens`` and take ``steps`` greedy steps through
     ``RecurrentDecoder`` (8 a call: on the card one graph replay, or with
     ``graphed=False`` the same body eagerly).  Returns (prefill logits, (B,
     steps + 1) token ids, prefill seconds, decode seconds, the decoder):
     host clock, each span ending in a synchronize.  The tokens stay on the
-    card until the end, and the final state's finiteness is checked once, so
+    card until the end, and the finiteness of every step's logits (a flag on
+    the card, ``FiniteSteps``) and of the final state is checked once, so
     no step waits on the host."""
     from repro_torch.serving.graphs import RecurrentDecoder
 
@@ -428,7 +475,8 @@ def greedy(model, tokens, steps=32, graphed=True, **prefill_kw):
     t0 = time.perf_counter()
     logits, cache = model.prefill(tokens, **prefill_kw)
     first = logits[:, 0].argmax(dim=-1).to(torch.int32)
-    dec = RecurrentDecoder(model, decode_block=8)
+    watch = FiniteSteps(model)
+    dec = RecurrentDecoder(watch, decode_block=8)
     if not graphed:
         dec.graphs.run = eager_run
     dec.start(cache, first)
@@ -438,6 +486,7 @@ def greedy(model, tokens, steps=32, graphed=True, **prefill_kw):
     out = [first[None]] + [dec().clone() for _ in range(steps // dec.decode_block)]
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t1
+    check(bool(watch.finite), f"{model.cfg.name}: decode logits are not finite")
     state = dec.cache(tokens.shape[0])
     check(all(bool(torch.isfinite(v).all()) for v in state.values() if v.is_floating_point()),
           f"{model.cfg.name}: the decode state is not finite")
@@ -1054,6 +1103,22 @@ def main() -> int:
                 rglru_case(3, T, 200, dtype, gates, timed=False)
 
     stamp("kernels against plain versions")
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Swap every ops entry point for its plain version — the reference
+        leg, made here and visibly, never inside the package."""
+        saved = {n: getattr(ops, n) for n in kern}
+        for n in kern:
+            setattr(ops, n, plain[n])
+        before = sum(fn.launches for fn in kernel.values())
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(ops, n, fn)
+        check(sum(fn.launches for fn in kernel.values()) == before,
+              "a kernel launched inside the plain leg")
+
     # ---- 4. the main paths -----------------------------------------------
     plain_on_cuda = {"n": 0}
 
@@ -1102,6 +1167,104 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def sampled_bf16(label, paged):
+        """The half-sampled workload in bf16 at (K, slots) = (8, 8) and (1,
+        4): graphed and eager at the same (K, slots) share admission
+        batches and shapes, so their streams must be identical (checked).
+        Across (K, slots) the admission batches and prefill shapes differ;
+        that comparison is printed, not checked, through the kernels and
+        again eagerly through the plain versions, with each differing
+        request's first differing token."""
+        streams = {}
+        for K, slots in ((8, 8), (1, 4)):
+            for leg in ("graphed", "eager", "plain"):
+                eng = ServingEngine(model, max_slots=slots, max_len=SERVE_MAX_LEN,
+                                    decode_block=K, paged=paged, page_size=16, device=dev)
+                if leg != "graphed":
+                    eng._graphs.run = eager_run
+                rs = sampled_requests()
+                with plain_kernels() if leg == "plain" else contextlib.nullcontext():
+                    eng.serve(rs)
+                streams[K, slots, leg] = [r.out_tokens for r in rs]
+            same = sum(a == b for a, b in zip(streams[K, slots, "graphed"],
+                                              streams[K, slots, "eager"]))
+            print(f"[{label}] bf16 sampled workload at K={K}, {slots} slots: graphed vs eager "
+                  f"streams identical {same}/16")
+            check(same == 16, f"{label}: bf16 sampled streams at K={K}, {slots} slots differ "
+                  f"graphed against eager")
+        out = {}
+        for leg in ("graphed", "plain"):
+            div = first_divergence(streams[8, 8, leg], streams[1, 4, leg])
+            out[leg] = {f"request {i} ({'sampled' if i % 2 == 0 else 'greedy'})": t
+                        for i, t in div.items()}
+            print(f"[{label}] bf16, not checked: K=1, 4 slots vs K=8, 8 slots "
+                  f"({'kernels' if leg == 'graphed' else 'plain versions, eager'}): "
+                  f"{16 - len(div)}/16 streams identical; first differing token "
+                  f"{out[leg] or 'none'}")
+        return dict(graphed_vs_eager_identical=True, across_k_slots_first_divergence=out)
+
+    def switching(label, paged):
+        """``switching_requests`` served twice on one engine through the
+        graphs and twice through the eager body: three keys, so three
+        graphs in one pool, the key changing inside a serve and the second
+        serve replaying them in another order than they were captured.
+        Streams (each serve), counters, occupancy, launches and the final
+        cache must match the eager body's; every dispatch but each key's
+        first is a replay."""
+        engs = {leg: serving_engine(model, dev, paged=paged) for leg in ("graphed", "eager")}
+        engs["eager"]._graphs.run = eager_run
+        streams, launches = {}, {}
+        for leg, eng in engs.items():
+            for fn in kernel.values():
+                fn.launches = 0
+            streams[leg] = []
+            for _ in range(2):
+                rs = switching_requests()
+                serve_once(eng, rs)
+                streams[leg].append([r.out_tokens for r in rs])
+            launches[leg] = {n: fn.launches for n, fn in kernel.items()}
+        g, e = engs["graphed"], engs["eager"]
+        gs = g._graphs
+        telemetry = [(x.n_decode_calls, x.n_decode_steps, x.n_prefill_calls, x.kv_occupancy())
+                     for x in (g, e)]
+        same = [sum(a == b for a, b in zip(*pair))
+                for pair in zip(streams["graphed"], streams["eager"])]
+        keys = list(gs.graphs)
+        print(f"[{label}] key-switching workload: graphs captured {len(keys)} (keys in capture "
+              f"order {keys}), {gs.n_replays} replays of {g.n_decode_calls} dispatches over two "
+              f"serves; streams identical to eager {same} of 8; counters and kv_occupancy "
+              f"{'equal' if telemetry[0] == telemetry[1] else telemetry}; launches "
+              f"{'equal' if launches['graphed'] == launches['eager'] else launches}")
+        check(len(keys) >= 3, f"{label} switching: {len(keys)} graphs captured, expected >= 3")
+        check(gs.n_replays == g.n_decode_calls - len(keys),
+              f"{label} switching: {gs.n_replays} replays of {g.n_decode_calls} dispatches "
+              f"with {len(keys)} keys")
+        check(same == [8, 8], f"{label} switching: streams differ graphed against eager")
+        check(telemetry[0] == telemetry[1], f"{label} switching: counters differ: {telemetry}")
+        check(launches["graphed"] == launches["eager"],
+              f"{label} switching: launches {launches}")
+        diff = caches_equal(f"{label} switching", g, e)
+        lens = sorted({len(t) for t in streams["graphed"][0]})
+        return dict(graphs=len(keys), keys=[list(k) for k in keys], replays=gs.n_replays,
+                    dispatches=g.n_decode_calls, stream_lengths=lens, final_cache_diff=diff)
+
+    def caches_equal(label, engine, eager_engine):
+        """The final caches of a graphed and an eager engine, bit for bit
+        (reported; returns the differing leaves).  Paged: the drop page
+        takes every inactive slot's writes at once (index_put_ with repeated
+        indices picks no winner), so it is reported apart."""
+        P = engine.kv.alloc.n_pages if engine.paged else None
+        cut = (lambda t: t[:, :P]) if engine.paged else (lambda t: t)
+        diff = states_equal(label, {k: cut(engine.cache[k]) for k in ("k", "v")} | {
+            "len": engine.cache["len"]}, {k: cut(eager_engine.cache[k]) for k in ("k", "v")} | {
+            "len": eager_engine.cache["len"]})
+        if engine.paged:
+            drop_same = all(torch.equal(engine.cache[k][:, P:], eager_engine.cache[k][:, P:])
+                            for k in ("k", "v"))
+            print(f"[{label}] the drop page (inactive slots' writes) "
+                  f"{'is' if drop_same else 'is not'} bit-equal too")
+        return diff
+
     def serve(label, paged, record):
         """The serving path through the graphs (the main path), then the
         same workload through the eager body on a fresh engine (inputs
@@ -1136,18 +1299,7 @@ def main() -> int:
         check(same == len(reqs), f"{label}: graphed streams differ from the eager body's")
         check(telemetry[0] == telemetry[1], f"{label}: engine counters differ: {telemetry}")
         check(counts == eager_counts, f"{label}: launches {counts} graphed, {eager_counts} eager")
-        # the final caches; paged: the drop page takes every inactive slot's
-        # writes at once (index_put_ with repeated indices picks no winner)
-        P = engine.kv.alloc.n_pages if paged else None
-        cut = (lambda t: t[:, :P]) if paged else (lambda t: t)
-        diff = states_equal(label, {k: cut(engine.cache[k]) for k in ("k", "v")} | {
-            "len": engine.cache["len"]}, {k: cut(eager_engine.cache[k]) for k in ("k", "v")} | {
-            "len": eager_engine.cache["len"]})
-        if paged:
-            drop_same = all(torch.equal(engine.cache[k][:, P:], eager_engine.cache[k][:, P:])
-                            for k in ("k", "v"))
-            print(f"[{label}] the drop page (inactive slots' writes) "
-                  f"{'is' if drop_same else 'is not'} bit-equal too")
+        diff = caches_equal(label, engine, eager_engine)
         # tokens/s in turns: eager, graphed, graphed, eager, eager, graphed,
         # fresh requests each time on the two warm engines
         tps = {"eager": [], "graphed": []}
@@ -1195,20 +1347,12 @@ def main() -> int:
                     f"{n_trace} (expected {want})")
             for name, ms in top:
                 print(f"[{label}]   {ms:.4f} ms a dispatch: {name}")
+            check(dev_ms is not None or dev.type != "cuda",
+                  f"{label} {leg}: the dispatch trace holds no device time")
             check(dev_ms is None or n_trace == want,
                   f"{label} {leg}: {n_trace} decode kernels in one dispatch, expected {want}")
-        # not checked: sampled bf16 streams at K = 1 and 4 slots against K = 8
-        # and 8 slots (other admission batches, so other prefill shapes)
-        bf16 = []
-        for K, slots in ((8, 8), (1, 4)):
-            eng = ServingEngine(model, max_slots=slots, max_len=SERVE_MAX_LEN, decode_block=K,
-                                paged=paged, page_size=16, device=dev)
-            rs = sampled_requests()
-            eng.serve(rs)
-            bf16.append([r.out_tokens for r in rs])
-        bf16_same = sum(a == b for a, b in zip(*bf16))
-        print(f"[{label}] bf16, not checked: sampled-workload streams at K=1, 4 slots identical "
-              f"to K=8, 8 slots in {bf16_same}/{len(bf16[0])} requests")
+        bf16 = sampled_bf16(label, paged)
+        switch = switching(label, paged)
         print(f"[{label}] {n_done}/{len(reqs)} requests, {n_tok} tokens in {serve_s:.3f}s "
               f"graphed (first run: eager first calls and captures included), "
               f"{eager_s:.3f}s eager; prompts {min(len(r.tokens) for r in reqs)}-"
@@ -1222,7 +1366,7 @@ def main() -> int:
                               kv=occ, prefills=n_prefills, decode_dispatches=n_dispatches,
                               graphs=n_graphs, graph_keys=[list(k) for k in gs.graphs],
                               replays=n_replays, final_cache_diff=diff, traces=traces,
-                              bf16_sampled_k1_4slots_identical=bf16_same)
+                              sampled_bf16=bf16, switching=switch)
         del engine, eager_engine
         return occ, counts, flash_calls[0], next(iter(decode_calls.values()))
 
@@ -1555,22 +1699,6 @@ def main() -> int:
 
     stamp("main-path kernel table")
     # ---- 5. parity in fp32: kernels vs plain versions ---------------------
-    @contextlib.contextmanager
-    def plain_kernels():
-        """Swap every ops entry point for its plain version — the reference
-        leg, made here and visibly, never inside the package."""
-        saved = {n: getattr(ops, n) for n in kern}
-        for n in kern:
-            setattr(ops, n, plain[n])
-        before = sum(fn.launches for fn in kernel.values())
-        try:
-            yield
-        finally:
-            for n, fn in saved.items():
-                setattr(ops, n, fn)
-        check(sum(fn.launches for fn in kernel.values()) == before,
-              "a kernel launched inside the plain leg")
-
     def parity(label, run):
         before = sum(fn.launches for fn in kernel.values())
         logits_k, streams_k = run()

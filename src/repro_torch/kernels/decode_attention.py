@@ -61,17 +61,14 @@ def _wide_scratch(device, R, P, D):
     key = (device, R, P, D)
     buf = _scratch.get(key)
     if buf is None:
-        _refuse_in_capture("decode_attention_cuda", key)
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"decode_attention_cuda: no held scratch for {key} while the "
+                               f"stream is captured; run this shape once eagerly before "
+                               f"capturing it")
         n_grp = P // WIDE_GROUP
         n = R * n_grp * WIDE_HEADS * (D + 2 * WIDE_GROUP) + R * WIDE_GROUP
         buf = _scratch[key] = torch.zeros(n, dtype=torch.float32, device=device)
     return buf
-
-
-def _refuse_in_capture(name, key):
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{name}: no held scratch for {key} while the stream is captured; "
-                           f"run this shape once eagerly before capturing it")
 
 
 def decode_attention_plain(q, k, v, lengths, mask=None):

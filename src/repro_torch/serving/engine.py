@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
@@ -92,7 +93,9 @@ def sample_tokens(logits, keys, temp, top_k, top_p):
 def _fold_keys(keys, n):
     """Per-row ``fold_in``: key i folded with stream position ``n[i]``, the
     determinism pivot — position, never the dispatch step, so outputs do not
-    depend on K, the slot, or fused against stepwise serving."""
+    depend on K, the slot, or fused against stepwise serving.  Kept under
+    the JAX engine's name (where it vmaps ``jax.random.fold_in``), since
+    ``prng.fold_in`` already works row by row."""
     return prng.fold_in(keys, n)
 
 
@@ -549,7 +552,9 @@ class ServingEngine:
                 key = (table.shape[1], sample)
             else:
                 table, key = None, (horizon, sample)
-            out = self._graphs.run(key, lambda: self._decode_k(horizon, table, sample))
+            # the body binds this dispatch's values (a lambda would read the
+            # loop's variables as they stand whenever it is called)
+            out = self._graphs.run(key, partial(self._decode_k, horizon, table, sample))
             self.n_decode_calls += 1
             self.n_decode_steps += self.decode_block
             K = self.decode_block

@@ -147,7 +147,9 @@ class RecurrentDecoder:
 
     def __init__(self, model, decode_block: int = 8):
         self.model = model
-        self.decode_block = max(1, int(decode_block))
+        if decode_block < 1:
+            raise ValueError(f"RecurrentDecoder: decode_block must be >= 1, got {decode_block}")
+        self.decode_block = int(decode_block)
         self.graphs = GraphSet(model.device)
         self._static: dict[int, tuple[dict, torch.Tensor]] = {}
         self._batch = None

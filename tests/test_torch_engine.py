@@ -215,10 +215,11 @@ class EmulatedGraphs(graphs.GraphSet):
     runs the body once (its work stands for the first replay's, which is
     then skipped), and every later replay runs the captured closure again
     into the captured outputs, with the wrappers' counters left as they
-    were, as a replay runs no Python.  The closure keeps the values it was
-    made with, as a graph keeps its inputs' addresses; but unlike a graph the
-    rerun reads attributes afresh, so only the card holds a replay against
-    the eager body in full (``chip_smoke.py``)."""
+    were, as a replay runs no Python.  The body (the engine's is a
+    ``partial`` of its dispatch's values) keeps the values it was made with,
+    as a graph keeps its inputs' addresses; but unlike a graph the rerun
+    reads attributes afresh, so only the card holds a replay against the
+    eager body in full (``chip_smoke.py``)."""
 
     def __init__(self):
         super().__init__(torch.device("cpu"))
@@ -265,6 +266,47 @@ def test_graph_path_streams_and_counters_match_reference(models, paged):
     gs = eng._graphs
     assert len(gs.graphs) >= 2
     assert gs.n_replays == eng.n_decode_calls - len(gs._warm) > eng.n_decode_calls // 2
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_graph_path_replays_keys_out_of_capture_order(models, paged):
+    """The workload, four requests sampled, served twice on one engine
+    through the emulated graphs: the key changes inside a serve (horizon or
+    table columns, and ``sample``), and the second serve replays keys
+    captured before the first serve's last one.  Both serves give the eager
+    body's streams and counters, so each dispatch's body holds its own
+    horizon, table and ``sample``, as a graph holds what it saw at
+    capture."""
+    _, _, model = models
+
+    def reqs():
+        return [engine.Request(rid=i, tokens=t, max_new=m, gen=GenerationConfig(
+            max_new=m, temperature=0.8, top_k=20, top_p=0.9, seed=50 + i) if i in (0, 1, 2, 5)
+            else None) for i, (t, m) in enumerate(_workload())]
+
+    got, keys = {}, []
+    for leg in ("graphed", "eager"):
+        eng = engine.ServingEngine(model, max_slots=4, max_len=MAX_LEN, decode_block=4,
+                                   paged=paged, page_size=16, eos_id=-1, device="cpu")
+        if leg == "graphed":
+            gs = eng._graphs = EmulatedGraphs()
+            inner = gs.run
+            gs.run = lambda key, body: (keys.append(key), inner(key, body))[1]
+        got[leg] = []
+        for _ in range(2):
+            rs = reqs()
+            eng.serve(rs)
+            got[leg].append([r.out_tokens for r in rs])
+        got[leg].append((eng.n_decode_calls, eng.n_decode_steps, eng.n_prefill_calls,
+                         eng.kv_occupancy()))
+    assert got["graphed"] == got["eager"]
+    assert got["eager"][0] == got["eager"][1]
+    captured = list(dict.fromkeys(keys))
+    assert list(gs.graphs) == captured and len(captured) >= 3
+    assert {k[1] for k in captured} == {True, False}
+    assert gs.n_replays == len(keys) - len(captured)
+    second = keys[len(keys) // 2]
+    assert captured.index(second) < len(captured) - 1
 
 
 def test_graph_set_keys_and_launch_counts():

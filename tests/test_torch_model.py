@@ -283,6 +283,14 @@ def test_rwkv_fused_decode_in_place_matches_reference():
     assert {k: v.data_ptr() for k, v in dec.cache(3).items()} == ptrs
 
 
+@pytest.mark.parametrize("decode_block", [0, -2])
+def test_recurrent_decoder_refuses_empty_blocks(decode_block):
+    """A decoder of fewer than one step a call is refused, not clamped."""
+    _, _, model = _pair("rwkv6-3b", True)
+    with pytest.raises(ValueError, match="decode_block"):
+        RecurrentDecoder(model, decode_block=decode_block)
+
+
 def test_rwkv_cache_layout_and_paged_refusal():
     _, _, model = _pair("rwkv6-3b", True)
     cfg = model.cfg
