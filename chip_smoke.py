@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: the card's name and power limit, as nvidia-smi reports them.
 2. Build: the five CUDA kernel sources compiled by nvcc from
    ``src/repro_torch/csrc``, one nvcc per source, all started together;
-   ptxas's report per kernel, and no spill in the WKV6 kernels, the
-   RG-LRU kernel or the wide-head decode kernel;
+   ptxas's report per kernel (the paged kernel's D=128 instantiations,
+   bf16 and fp32, must be among them), and no spill in the WKV6 kernels,
+   the RG-LRU kernel, the wide-head decode kernel or the paged kernel at
+   D=128;
    ``cuobjdump -sass`` of the flash library must show HGMMA (Hopper's
    tensor-core product) in the bf16 kernel at every head width, and the
    RG-LRU kernel's fp64 instructions (its exp(2a) near 0) are counted.
@@ -22,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    case in bf16 (the tensor-core kernel) and most in fp32 (the CUDA-core
    kernels) too; paged decode at B=8, page 16 with shared pages,
    a forked page, sentinel columns and one all-sentinel (retired) row, at
-   G=1 and under GQA (G in {2, 4, 8}) and MQA (G=16);
+   G=1 and under GQA (G in {2, 4, 8}) and MQA (G=16), and at D=128
+   (Qwen1.5-4B's 20 heads at G=1, and G in {2, 8});
    contiguous decode at B=8, H=Hk=16, D=64 with ragged lengths (0 and Smax
    included) on a horizon view of a longer cache, a GQA case, and G=16 at
    head widths 128 and 256 (a 2,048-slot ring among them); both D <= 64
@@ -30,7 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    G in {1, 2, 4, 8, 16}, D=32 at G=3 and D=16: lengths 0, 1 and page-1,
    warps left empty, each warp-range and sub-tile boundary ±1, exactly the
    cache's capacity and past it, a retired row and a row whose table has a
-   hole of sentinel pages under two warps' ranges; the wide-head decode
+   hole of sentinel pages under two warps' ranges, and the paged kernel
+   alone at D=128, G in {1, 2, 8}, on the same edges; the wide-head decode
    kernel (D in {128, 256}, bf16 and fp32) at G in {1, 8, 16, 20} on caches
    of 2,048 and 100 positions with lengths 0, 1, a piece ± 1, the whole
    cache and past it, each launched twice; WKV6 at H=40, D=64, T in
@@ -48,7 +52,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-6 of 0, the fp32 ones also held against the token-by-token oracle, and
    each launched twice (the chain's scratch is left zeroed, so the second
    launch must give the same bits).
-4. Four main paths, each driven with every launch count set to 0 just
+4. Six main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched and no plain version may see a CUDA tensor.  Each path runs as
    the port runs it, every fused decode dispatch one CUDA-graph replay
@@ -68,8 +72,22 @@ Phases, in order; any failure raises and the script exits non-zero:
       parameters), random weights: ``Model.prefill`` of 4 prompts of 3,072
       token ids into caches of max_len 4,096 (2,048-slot rings), then 32
       greedy steps the same way, writing into the wrapped rings: exactly
-      26 × 33 RG-LRU, 12 flash and 12 × 32 decode-attention launches.
-   Graphed against eager, each path must give identical streams and
+      26 × 33 RG-LRU, 12 flash and 12 × 32 decode-attention launches;
+   e. paged serving of full-width Qwen1.5-4B in bf16 (40 layers, 20 heads
+      of 128, 3.95 B parameters) as path a serves Qwen1.5-0.5B: the paged
+      kernel at D=128;
+   f. speculative decoding (``SpeculativeEngine``, paged, K = 4 drafts a
+      round, every draft and verify dispatch one graph replay) of the
+      half-sampled workload in bf16, Qwen1.5-0.5B drafting for itself (the
+      same weights: the accept-all case) and for Qwen1.5-4B (the
+      reject-most case): graphed against eager (streams, counters,
+      launches identical), paged launches = rounds × (K+1) × (draft +
+      target layers), the accepted, bonus and mismatch tokens counted
+      again from the dispatches' outputs adding up to the tokens emitted;
+      against the target alone the streams are printed, unchecked, with the
+      target's top-2 logit gap at each first differing token, and tokens/s
+      of both timed in turns.
+   Graphed against eager, each path a-e must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
    difference printed.  Serving paths time tokens/s of both in turns
@@ -79,8 +97,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    in turns, trace 8 eager steps and one replay (busy share a step), and
    count the replay's kernels by name.  The serving paths also serve phase
    6's half-sampled workload in bf16 at K = 1 on 4 slots and at K = 8 on 8
-   and print, unchecked, how many streams agree: other admission batches
-   give the prefill other shapes, and bf16 rounds differently with them.
+   and print, unchecked, how many streams agree, with the top-2 logit gap
+   at each first differing token: other admission batches give the
+   prefill other shapes, and bf16 rounds differently with them; beside it,
+   whether each operator of a step gives a row the same bits in batches of
+   4 and 8 rows and of 8 and 8·(K+1) rows.
    Every bf16 flash, decode and paged case of phase 3 and the flash,
    paged, decode and D=256 main-path entries are held row by row as well:
    the error of each output row over the row's largest plain value.  Each
@@ -102,6 +123,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    151,936), eager and as one replay; and 16,384 draws of one row of
    151,936 logits fit the filtered softmax (chi-square under its 1e-6
    tail, no draw outside the kept ranks).
+7. Path e in fp32 (prefill logits within 1e-3 of the plain versions',
+   identical greedy streams), and path f in fp32: both pairs' streams of
+   the half-sampled workload identical to the target alone's.  Then the
+   recurrent paths' parity of phase 5.
 
 The line before the last is a JSON object with one entry per kernel (time,
 CUPTI time, launches, bound, plain and library times, the library's by
@@ -134,7 +159,9 @@ RGLRU_ORACLE_TOL = 1e-5        # kernel vs token-by-token fp32, as tests/test_ke
 LOGIT_TOL = 1e-3
 SEED = 0
 DEVICE = "cuda:0"
-DECODE_WARPS = 8               # warps a block of the D <= 64 decode kernels (csrc/decode_body.cuh)
+DECODE_WARPS = 8               # warps a block of the decode body (csrc/decode_body.cuh)
+PAGED_D128 = r"paged_decode_kernelI(f|13__nv_bfloat16)Li128E"   # its D=128 paged instantiations
+SPEC_K = 4                     # the speculative paths' depth
 
 
 T_START = time.perf_counter()
@@ -159,10 +186,12 @@ def row_rel_err(got, want):
 
 
 def decode_sub_tile(dtype, D, G):
-    """Positions a warp of the D <= 64 decode kernels loads at once
-    (``csrc/decode_body.cuh``): the rows one load instruction covers (32
-    lanes over D / VEC lanes a row, VEC elements in 16 bytes) times the loads
-    in flight a lane (8 when a block takes at most 2 query heads, else 4)."""
+    """Positions a warp of the decode body loads at once
+    (``csrc/decode_body.cuh``: the paged kernel at D <= 128, the contiguous
+    one at D <= 64): the rows one load instruction covers (32 lanes over D /
+    VEC lanes a row, VEC elements in 16 bytes; at D = 128 two rows in bf16,
+    one in fp32) times the loads in flight a lane (8 when a block takes at
+    most 2 query heads, else 4)."""
     vec = 16 // (2 if dtype == torch.bfloat16 else 4)
     return (8 if G <= 2 else 4) * 32 // (D // vec)
 
@@ -388,6 +417,90 @@ def first_divergence(a, b):
             out[i] = next((t for t, (u, v) in enumerate(zip(x, y)) if u != v),
                           min(len(x), len(y)))
     return out
+
+
+def top2_gap(model, prompt, prefix):
+    """The gap between the two largest logits of ``model`` for the token
+    after ``prompt + prefix`` (one prefill of that row, B = 1): how near a
+    tie the position where two streams first differ was."""
+    toks = torch.tensor([list(prompt) + list(prefix)], dtype=torch.int32, device=model.device)
+    top = model.prefill(toks)[0][0, 0].topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def batch_invariance(label, model):
+    """Whether each operator of a decode step gives a row the same bits
+    whatever the batch: rows 0-3 of 8 against a batch of those 4 (the K = 8
+    on 8 slots against K = 1 on 4 comparison), and a verify-shaped product
+    over 8 × (K+1) rows against the 8 rows of one step.  Printed, not
+    checked."""
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 11)
+    d = model.cfg.d_model
+    x = torch.randn((8, 1, d), generator=gen, device=model.device).to(model.dtype)
+    xs = torch.randn((8, SPEC_K + 1, d), generator=gen, device=model.device).to(model.dtype)
+    blk = model.blocks[0]
+    fns = {"q projection (GEMM)": blk.attn.q, "MLP (3 GEMMs)": blk.mlp, "RMSNorm": blk.n1,
+           "lm_head (GEMM)": lambda h: h @ model.lm_head}
+    out = {f"{name}, 4 rows of 8": bool(torch.equal(f(x)[:4], f(x[:4]))) for name, f in fns.items()}
+    out.update({f"{name}, 8 rows of {8 * (SPEC_K + 1)}": bool(torch.equal(f(xs)[:, :1],
+                                                                          f(xs[:, :1])))
+                for name, f in fns.items()})
+    print(f"[{label}] bf16 batch invariance on the card, not checked (a row's bits the same "
+          f"in both batches): {out}")
+    return out
+
+
+class RoundLog:
+    """Set on a speculative engine's two graph sets: each round's draft
+    proposals (copied to the host) and, at the verify, the slot of every
+    live request; with ``hook(rid)`` as a request's ``on_tokens``, the block
+    each round emitted for it.  ``detach()`` restores the sets' ``run``."""
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.drafts, self.slots, self.blocks = [], [], []
+        self.inner = (spec.draft._graphs.run, spec.target._graphs.run)
+        spec.draft._graphs.run, spec.target._graphs.run = self._draft, self._verify
+
+    def _draft(self, key, body):
+        out = self.inner[0](key, body)
+        self.drafts.append(out.cpu().numpy().copy())
+        return out
+
+    def _verify(self, key, body):
+        self.slots.append({r.rid: i for i, r in enumerate(self.spec.target.slot_req)
+                           if r is not None})
+        self.blocks.append({})
+        return self.inner[1](key, body)
+
+    def hook(self, rid):
+        def on_tokens(block, done):
+            del done
+            if self.slots and rid in self.slots[-1]:      # not the first token of admission
+                self.blocks[-1][rid] = list(block)
+        return on_tokens
+
+    def detach(self):
+        self.spec.draft._graphs.run, self.spec.target._graphs.run = self.inner
+
+    def tally(self, k):
+        """An independent count of each round's block from the dispatches'
+        own outputs: its leading tokens equal to the draft's proposals are
+        accepted; a token after them is the target's at a mismatch (fewer
+        than k matched) or the bonus (all k matched)."""
+        acc = bonus = mismatch = emitted = 0
+        for d, slots, blocks in zip(self.drafts, self.slots, self.blocks):
+            for rid, block in blocks.items():
+                a = 0
+                while a < min(len(block), k) and block[a] == int(d[a, slots[rid]]):
+                    a += 1
+                check(len(block) <= a + 1, f"a block of {len(block)} tokens after {a} matches")
+                acc += a
+                if len(block) > a:
+                    mismatch += a < k
+                    bonus += a == k
+                emitted += len(block)
+        return dict(accepted=acc, bonus=bonus, mismatch=mismatch, emitted=emitted)
 
 
 SERVE_MAX_LEN = 1024
@@ -689,6 +802,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(f'{n} {s:.1f}s' for n, s in took.items())}; "
           f"wall {build_s:.1f}s")
+    d128_seen = set()
     for name in build.SOURCES:
         log = Path(f"{build.library_path(name)}.log")
         if log.exists():
@@ -703,9 +817,15 @@ def main() -> int:
                     print(f"[build] {name}: {entry}: {line}")
                     results.setdefault("ptxas", []).append(f"{entry}: {line}")
                     spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                    redesigned = name in ("rwkv6_scan", "rglru_scan") or "decode_wide" in entry
+                    paged128 = re.search(PAGED_D128, entry)
+                    if paged128 and "Used" in line:
+                        d128_seen.add(paged128[1])
+                    redesigned = (name in ("rwkv6_scan", "rglru_scan") or "decode_wide" in entry
+                                  or paged128)
                     check(not redesigned or spill is None or spill[1] == spill[2] == "0",
                           f"ptxas spills in {entry}: {line}")
+    check(d128_seen == {"f", "13__nv_bfloat16"},
+          f"ptxas reported no D=128 paged instantiation for some dtype: {d128_seen}")
     results["build_s"] = build_s
     hgmma = sass_counts("flash_attention", lambda op: op.startswith("HGMMA"))
     tc_hgmma = {int(re.search(r"flash_tc_kernelILi(\d+)E", f)[1]): n
@@ -828,6 +948,11 @@ def main() -> int:
             paged_case(f"shared-fork-sentinel-g{G}", paged_inputs(dtype, Hk=16 // G))
     paged_case("ragged-gqa", paged_inputs(torch.float32, B=5, ps=8, H=8, Hk=2, D=32,
                                           max_len=100))
+    for dtype in (torch.bfloat16, torch.float32):      # Qwen1.5-4B's heads, MHA and GQA
+        for G in (1, 2, 8):
+            paged_case(f"shared-fork-sentinel-d128-g{G}",
+                       paged_inputs(dtype, H=20 if G == 1 else 16, Hk=20 if G == 1 else 16 // G,
+                                    D=128))
 
     def decode_case(label, B, S, H, Hk, D, dtype, max_len):
         """Ragged lengths with an empty row (zeros) and a full one, on a
@@ -867,7 +992,7 @@ def main() -> int:
     decode_case("gqa-d256", 2, 90, 32, 2, 256, torch.float32, 100)
 
     def edge_lengths(dtype, D, G, ps, cap):
-        """Lengths at the D <= 64 kernels' edges (``csrc/decode_body.cuh``):
+        """Lengths at the decode body's edges (``csrc/decode_body.cuh``):
         0, 1 and ps - 1; DECODE_WARPS ± 1 (warps left empty); one and two
         sub-tiles a warp ± 1, where the warps' ranges and the sub-tiles
         change; exactly ``cap`` (n_cols·ps or Smax) and past it."""
@@ -934,6 +1059,8 @@ def main() -> int:
         for D, G in ((64, 1), (64, 2), (64, 4), (64, 8), (64, 16), (32, 3), (16, 1)):
             decode_edges(dtype, D, G)
             paged_edges(dtype, D, G)
+        for G in (1, 2, 8):             # the paged kernel alone takes D = 128 on this body
+            paged_edges(dtype, 128, G)
 
     def wide_edges(dtype, D, G, S):
         """The wide-head kernel's edges (``decode_wide_kernel``): lengths 0, 1,
@@ -1158,7 +1285,6 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {model.param_count() / 1e9:.3f} B parameters in "
           f"{str(model.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
-    n_per_dispatch = cfg.n_layers * 8
 
     def serve_once(engine, reqs):
         torch.cuda.synchronize()
@@ -1167,7 +1293,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    def sampled_bf16(label, paged):
+    def sampled_bf16(label, model, paged):
         """The half-sampled workload in bf16 at (K, slots) = (8, 8) and (1,
         4): graphed and eager at the same (K, slots) share admission
         batches and shapes, so their streams must be identical (checked).
@@ -1195,15 +1321,18 @@ def main() -> int:
         out = {}
         for leg in ("graphed", "plain"):
             div = first_divergence(streams[8, 8, leg], streams[1, 4, leg])
-            out[leg] = {f"request {i} ({'sampled' if i % 2 == 0 else 'greedy'})": t
-                        for i, t in div.items()}
+            reqs = sampled_requests()
+            out[leg] = {f"request {i} ({'sampled' if i % 2 == 0 else 'greedy'})": dict(
+                token=t, top2_gap=top2_gap(model, reqs[i].tokens, streams[8, 8, leg][i][:t]))
+                for i, t in div.items()}
             print(f"[{label}] bf16, not checked: K=1, 4 slots vs K=8, 8 slots "
                   f"({'kernels' if leg == 'graphed' else 'plain versions, eager'}): "
-                  f"{16 - len(div)}/16 streams identical; first differing token "
-                  f"{out[leg] or 'none'}")
-        return dict(graphed_vs_eager_identical=True, across_k_slots_first_divergence=out)
+                  f"{16 - len(div)}/16 streams identical; first differing token and the "
+                  f"top-2 logit gap there {out[leg] or 'none'}")
+        return dict(graphed_vs_eager_identical=True, across_k_slots_first_divergence=out,
+                    batch_invariance=batch_invariance(label, model))
 
-    def switching(label, paged):
+    def switching(label, model, paged):
         """``switching_requests`` served twice on one engine through the
         graphs and twice through the eager body: three keys, so three
         graphs in one pool, the key changing inside a serve and the second
@@ -1265,11 +1394,14 @@ def main() -> int:
                   f"{'is' if drop_same else 'is not'} bit-equal too")
         return diff
 
-    def serve(label, paged, record):
+    def serve(label, model, paged, record, extras=True):
         """The serving path through the graphs (the main path), then the
         same workload through the eager body on a fresh engine (inputs
         recorded there): streams, counters, occupancy, launches and the
-        final cache compared; tokens/s of both in turns; a trace of each."""
+        final cache compared; tokens/s of both in turns; a trace of each.
+        ``extras``: also the bf16 (K, slots) report and the key-switching
+        leg."""
+        n_per_dispatch = model.cfg.n_layers * 8
         engine, reqs = serving_engine(model, dev, paged=paged), serving_requests()
         with main_path(label, ("flash_attention", record)) as counts:
             serve_s = serve_once(engine, reqs)
@@ -1351,8 +1483,8 @@ def main() -> int:
                   f"{label} {leg}: the dispatch trace holds no device time")
             check(dev_ms is None or n_trace == want,
                   f"{label} {leg}: {n_trace} decode kernels in one dispatch, expected {want}")
-        bf16 = sampled_bf16(label, paged)
-        switch = switching(label, paged)
+        bf16 = sampled_bf16(label, model, paged) if extras else None
+        switch = switching(label, model, paged) if extras else None
         print(f"[{label}] {n_done}/{len(reqs)} requests, {n_tok} tokens in {serve_s:.3f}s "
               f"graphed (first run: eager first calls and captures included), "
               f"{eager_s:.3f}s eager; prompts {min(len(r.tokens) for r in reqs)}-"
@@ -1370,11 +1502,11 @@ def main() -> int:
         del engine, eager_engine
         return occ, counts, flash_calls[0], next(iter(decode_calls.values()))
 
-    occ, paged_counts, flash_call, paged_call = serve("paged", True, "paged_attention")
+    occ, paged_counts, flash_call, paged_call = serve("paged", model, True, "paged_attention")
     check(occ["prefix_shares"] > 0 and occ["cow_forks"] > 0,
           "prefix sharing or copy-on-write never engaged")
     stamp("paged serving")
-    _, contig_counts, _, decode_call = serve("contiguous", False, "decode_attention")
+    _, contig_counts, _, decode_call = serve("contiguous", model, False, "decode_attention")
     del model
     torch.cuda.empty_cache()
 
@@ -1483,6 +1615,127 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     stamp("recurrentgemma")
+    # ---- path e: paged serving of full-width Qwen1.5-4B (the paged kernel at D=128)
+    qcfg = get_arch("qwen1.5-4b")
+    t0 = time.perf_counter()
+    model4 = Model(qcfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 3))
+    torch.cuda.synchronize()
+    print(f"[paged-4b] {qcfg.name}: {model4.param_count() / 1e9:.3f} B parameters in "
+          f"{str(model4.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
+    _, paged4_counts, _, paged4_call = serve("paged-4b", model4, True, "paged_attention",
+                                             extras=False)
+    check(paged4_call[0][0].shape[-1] == 128, "paged-4b: the recorded paged call is not D=128")
+    stamp("paged serving of qwen1.5-4b")
+
+    # ---- path f: speculative decoding, Qwen1.5-0.5B drafting
+    def spec_engine(target, draft):
+        from repro_torch.serving.speculative import SpeculativeEngine
+
+        return SpeculativeEngine(target, draft, max_slots=8, max_len=SERVE_MAX_LEN,
+                                 spec_k=SPEC_K, page_size=16, device=dev)
+
+    def target_only(target):
+        """The target alone, with the speculative engine's slots, layout and
+        decode_block = K + 1."""
+        return ServingEngine(target, max_slots=8, max_len=SERVE_MAX_LEN, decode_block=SPEC_K + 1,
+                             paged=True, page_size=16, device=dev)
+
+    def speculative(label, target, draft):
+        """Path f for one pair in bf16: the half-sampled workload through
+        ``SpeculativeEngine`` (every draft and verify dispatch a graph
+        replay), then through the eager bodies: streams, counters, launches
+        identical (checked), caches compared.  Paged launches must be rounds
+        × (K+1) × (draft layers + target layers); the accepted, bonus and
+        mismatch tokens, counted again from the dispatches' own outputs,
+        must add up to the tokens emitted.  Against the target alone the
+        streams are reported (bf16 rounds the span's B·(K+1)-row products
+        otherwise than a step's B rows), with the top-2 logit gap at each
+        first differing token; tokens/s against the target alone in turns."""
+        K = SPEC_K
+        runs = {}
+        for leg in ("graphed", "eager"):
+            eng = spec_engine(target, draft)
+            if leg == "eager":
+                eng.draft._graphs.run = eng.target._graphs.run = eager_run
+            log = RoundLog(eng)
+            reqs = sampled_requests()
+            for r in reqs:
+                r.on_tokens = log.hook(r.rid)
+            name = label if leg == "graphed" else f"{label}-eager"
+            with main_path(name, ("flash_attention", "paged_attention")) as counts:
+                t = serve_once(eng, reqs)
+            log.detach()
+            runs[leg] = dict(eng=eng, streams=[r.out_tokens for r in reqs], log=log, counts=counts,
+                             seconds=t, telemetry=(eng.n_rounds, eng.n_drafted, eng.n_accepted,
+                                                   eng.n_bonus, eng.n_decode_calls,
+                                                   eng.n_decode_steps, eng.n_prefill_calls,
+                                                   eng.kv_occupancy()))
+        g, e = runs["graphed"], runs["eager"]
+        eng = g["eng"]
+        same = sum(a == b for a, b in zip(g["streams"], e["streams"]))
+        print(f"[{label}] graphed vs eager: streams identical {same}/16, counters "
+              f"{'equal' if g['telemetry'] == e['telemetry'] else (g['telemetry'], e['telemetry'])}"
+              f", launches {'equal' if g['counts'] == e['counts'] else (g['counts'], e['counts'])}"
+              f"; graphs captured draft {len(eng.draft._graphs.graphs)}, target "
+              f"{len(eng.target._graphs.graphs)}, replays {eng.draft._graphs.n_replays} + "
+              f"{eng.target._graphs.n_replays} of {eng.n_decode_calls} dispatches")
+        check(same == 16, f"{label}: graphed streams differ from the eager bodies'")
+        check(g["telemetry"] == e["telemetry"], f"{label}: counters differ graphed against eager")
+        check(g["counts"] == e["counts"], f"{label}: launches differ graphed against eager")
+        check(eng.draft._graphs.n_replays > 0 and eng.target._graphs.n_replays > 0,
+              f"{label}: no dispatch was a graph replay")
+        diff = {side: caches_equal(f"{label} {side}", getattr(eng, side),
+                                   getattr(e["eng"], side)) for side in ("draft", "target")}
+        n_layers = target.cfg.n_layers + draft.cfg.n_layers
+        want = eng.n_rounds * (K + 1) * n_layers
+        check(g["counts"]["paged_attention"] == want,
+              f"{label}: {g['counts']['paged_attention']} paged launches, expected {eng.n_rounds} "
+              f"rounds x {K + 1} x {n_layers} layers = {want}")
+        tally = g["log"].tally(K)
+        n_emitted = sum(len(x) for x in g["streams"]) - len(g["streams"])
+        print(f"[{label}] {eng.n_rounds} rounds, {eng.n_drafted} drafted, accepted "
+              f"{eng.n_accepted} (recount {tally['accepted']}), bonus {eng.n_bonus} (recount "
+              f"{tally['bonus']}), mismatch tokens {tally['mismatch']}: "
+              f"{tally['accepted'] + tally['bonus'] + tally['mismatch']} of {n_emitted} tokens "
+              f"emitted in rounds; accept rate {eng.accept_rate():.4f}; paged launches "
+              f"{g['counts']['paged_attention']} = {eng.n_rounds} x {K + 1} x {n_layers}")
+        check(tally["accepted"] == eng.n_accepted and tally["bonus"] == eng.n_bonus
+              and tally["accepted"] + tally["bonus"] + tally["mismatch"] == n_emitted
+              == tally["emitted"], f"{label}: accepted, bonus and mismatch tokens {tally} do "
+              f"not add up to the {n_emitted} emitted")
+        accept = eng.accept_rate()
+        # against the target alone, bf16: reported, not checked
+        tgt, ref_reqs = target_only(target), sampled_requests()
+        serve_once(tgt, ref_reqs)
+        ref = [r.out_tokens for r in ref_reqs]
+        div = first_divergence(ref, g["streams"])
+        split = {f"request {i} ({'sampled' if i % 2 == 0 else 'greedy'})": dict(
+            token=t, top2_gap=top2_gap(target, ref_reqs[i].tokens, ref[i][:t]))
+            for i, t in div.items()}
+        print(f"[{label}] bf16, not checked: speculative vs the target alone "
+              f"{16 - len(div)}/16 streams identical; first differing token and the target's "
+              f"top-2 logit gap there {split or 'none'}")
+        # tokens/s in turns on the two warm engines, fresh requests each time
+        tps = {"target_only": [], "speculative": []}
+        for leg in ("target_only", "speculative", "speculative", "target_only", "target_only",
+                    "speculative"):
+            rs = sampled_requests()
+            t = serve_once(tgt if leg == "target_only" else eng, rs)
+            tps[leg].append(sum(len(r.out_tokens) for r in rs) / t)
+        print(f"[{label}] tokens/s in turns: target alone "
+              f"{[round(x, 1) for x in tps['target_only']]}, speculative "
+              f"{[round(x, 1) for x in tps['speculative']]}")
+        stamp(label)
+        return dict(rounds=g["telemetry"][0], telemetry=g["telemetry"][:7],
+                    accept_rate=accept, launches=g["counts"], tally=tally,
+                    seconds=g["seconds"], eager_seconds=e["seconds"], final_cache_diff=diff,
+                    vs_target_only=split, tokens_per_s_turns=tps)
+
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    results["speculative_bf16"] = {"self": speculative("spec-self", model, model),
+                                   "4b": speculative("spec-4b", model4, model)}
+    del model, model4
+    torch.cuda.empty_cache()
     # the kernels on the inputs the main paths gave them
     entries = []
     (fq, fk, fv), fkw = flash_call
@@ -1525,6 +1778,29 @@ def main() -> int:
         shape=dict(q=list(pargs[0].shape), pool=list(pargs[1].shape),
                    table=list(pargs[3].shape), lengths=pargs[4].tolist(),
                    dtype=str(pargs[0].dtype))))
+    pargs4, _ = paged4_call
+    p4_out, p4_want = paged_kernel(*pargs4), paged_plain(*pargs4)
+    p4_err = (p4_out.float() - p4_want.float()).abs().max().item()
+    p4_rel = row_rel_err(p4_out, p4_want)
+    check(p4_err <= TOL[pargs4[0].dtype] and p4_rel <= TOL[pargs4[0].dtype],
+          f"paged D=128 on main-path inputs: max abs err {p4_err:.3g}, row-relative {p4_rel:.3g}")
+    p4_bound, p4_by = bound_ms(*paged_work(pargs4[0], pargs4[1], pargs4[3], pargs4[4]),
+                               pargs4[0].dtype)
+    entries.append(dict(
+        name="paged_attention_d128", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:116",
+        launches=paged4_counts["paged_attention"], max_abs_err=p4_err,
+        atol=TOL[pargs4[0].dtype], rtol=0.0, row_rel_err=p4_rel,
+        out_max=p4_want.float().abs().max().item(),
+        ms=timed_ms(lambda: paged_kernel(*pargs4), 50, flush),
+        plain_ms=timed_ms(lambda: paged_plain(*pargs4), 10, flush),
+        bound_ms=p4_bound, bound_by=p4_by, library_ms=None,
+        span_launches={pair: r["launches"]["paged_attention"]
+                       for pair, r in results["speculative_bf16"].items()},
+        shape=dict(q=list(pargs4[0].shape), pool=list(pargs4[1].shape),
+                   table=list(pargs4[3].shape), lengths=pargs4[4].tolist(),
+                   dtype=str(pargs4[0].dtype))))
     (dq, dk, dv, dlen), _ = decode_call
     dk, dv = horizon_view(dk, SERVE_MAX_LEN), horizon_view(dv, SERVE_MAX_LEN)
     d_out, d_want = decode_kernel(dq, dk, dv, dlen), decode_plain(dq, dk, dv, dlen)
@@ -1664,6 +1940,7 @@ def main() -> int:
     (gpa, _), (gda, _) = rglru_calls[0], rglru_calls[n_rec]
     cupti = {"flash_attention": (lambda: flash_kernel(fq, fk, fv, **fkw), "flash_", 50),
              "paged_attention": (lambda: paged_kernel(*pargs), "paged_decode_kernel", 50),
+             "paged_attention_d128": (lambda: paged_kernel(*pargs4), "paged_decode_kernel", 50),
              "decode_attention": (lambda: decode_kernel(dq, dk, dv, dlen), "decode_", 50),
              "wkv6": (lambda: wkv6_kernel(*wpa), "wkv6_", 50),
              "rglru_scan": (lambda: rglru_kernel(*gpa), "rglru_", 50),
@@ -1832,10 +2109,12 @@ def main() -> int:
     tokens, lengths = torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev)
     del probe
 
-    def serve_fp32(paged):
+    def serve_fp32(paged, m=None):
+        m = m or model32
+
         def run():
-            logits, _ = model32.prefill(tokens, lengths=lengths)
-            eng, rs = serving_engine(model32, dev, paged=paged), serving_requests()
+            logits, _ = m.prefill(tokens, lengths=lengths)
+            eng, rs = serving_engine(m, dev, paged=paged), serving_requests()
             eng.serve(rs)
             torch.cuda.synchronize()
             return logits, [r.out_tokens for r in rs]
@@ -1845,9 +2124,33 @@ def main() -> int:
     parity("contiguous", serve_fp32(False))
     stamp("fp32 serving parity")
     sampled_phase(model32)
-    del model32
-    torch.cuda.empty_cache()
     stamp("sampled serving")
+    model4_32 = Model(dataclasses.replace(qcfg, dtype="float32"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED + 3))
+    parity("paged-4b", serve_fp32(True, model4_32))
+
+    def speculative_fp32(label, target, draft):
+        """Path f in fp32: the half-sampled workload through the speculative
+        engine must give the target-only engine's streams, greedy and
+        sampled alike (required)."""
+        spec, reqs = spec_engine(target, draft), sampled_requests()
+        serve_once(spec, reqs)
+        tgt, ref = target_only(target), sampled_requests()
+        serve_once(tgt, ref)
+        div = first_divergence([r.out_tokens for r in ref], [r.out_tokens for r in reqs])
+        print(f"[{label}] fp32 speculative vs the target alone: streams identical "
+              f"{16 - len(div)}/16 ({sum(len(r.out_tokens) for r in reqs)} tokens; "
+              f"{spec.n_rounds} rounds, accept rate {spec.accept_rate():.4f})"
+              + (f"; first differing token {div}" if div else ""))
+        check(not div, f"{label}: fp32 speculative streams differ from the target alone's: {div}")
+        results.setdefault("speculative_fp32", {})[label] = dict(
+            identical=16 - len(div), rounds=spec.n_rounds, accept_rate=spec.accept_rate())
+
+    speculative_fp32("spec-self", model32, model32)
+    speculative_fp32("spec-4b", model4_32, model32)
+    del model32, model4_32
+    torch.cuda.empty_cache()
+    stamp("fp32 qwen1.5-4b parity and speculative decoding")
     rmodel32 = Model(dataclasses.replace(rcfg, dtype="float32"), device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
 

@@ -1,8 +1,9 @@
 """Architecture configs of the port: the published shapes served so far
-(``qwen1.5-0.5b``, ``rwkv6-3b``, ``recurrentgemma-9b``) and the tiny pool,
-each registered under its id."""
+(``qwen1.5-0.5b``, ``qwen1.5-4b``, ``rwkv6-3b``, ``recurrentgemma-9b``) and
+the tiny pool, each registered under its id."""
 from repro_torch.configs import (  # noqa: F401
     qwen1_5_0_5b,
+    qwen1_5_4b,
     recurrentgemma_9b,
     rwkv6_3b,
     tiny_pool,

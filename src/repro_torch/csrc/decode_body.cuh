@@ -1,5 +1,5 @@
-// The body of one-token decode attention at head widths up to 64, shared by
-// the paged kernel (paged_attention.cu) and the contiguous one
+// The body of one-token decode attention, shared by the paged kernel
+// (paged_attention.cu, D in {16, 32, 64, 128}) and the contiguous one
 // (decode_attention.cu, D <= 64).  The two differ only in where the K/V row
 // of a sequence position lies, which an address policy says: strides for a
 // contiguous or horizon-view cache (ContiguousRows), a page-table lookup for
@@ -10,7 +10,10 @@
 //  * The row's positions split into NW contiguous ranges, one per warp.  A
 //    K/V row of D elements is LPR = D / VEC lanes wide (VEC elements per
 //    16-byte load), so one load instruction of a warp covers RPL = 32 / LPR
-//    rows (bf16 at D = 64: 8 lanes a row, 4 rows a load).
+//    rows (bf16 at D = 64: 8 lanes a row, 4 rows a load; at D = 128 16 lanes
+//    and 2 rows in bf16, the whole warp and 1 row in fp32).  A lane holds
+//    VEC columns whatever D is, so its registers do not grow with D: a wider
+//    row takes more lanes, fewer rows a load, and one more shuffle step.
 //  * A warp walks its range in sub-tiles of NL loads per lane.  Every K and
 //    V load of a sub-tile is issued before any is used, so one memory
 //    latency covers NL · RPL positions; the vectors stay in registers and are

@@ -62,8 +62,12 @@ template <typename T, int D, int GB>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* table,
            const int* lengths, void* o, int B, int n_cols, int n_pool, int ps, int Hk, int G,
            cudaStream_t stream) {
+  // the table row is dynamic shared memory beside the body's static merge
+  // room (NW·GB·(D + 2) floats, 33 KB at D = 128, GB = 8); past 48 KB in all
+  // the launch must opt in
   const size_t smem = sizeof(int) * (size_t)n_cols;
-  if (smem > 48 * 1024) {
+  const size_t smem_static = sizeof(float) * decode_body::NW * GB * (D + 2);
+  if (smem + smem_static > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         paged_decode_kernel<T, D, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -111,6 +115,9 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool, const int* t
     case 64:
       return launch_g<T, 64>(q, k_pool, v_pool, table, lengths, o, B, n_cols, n_pool, ps, Hk, G,
                              stream);
+    case 128:
+      return launch_g<T, 128>(q, k_pool, v_pool, table, lengths, o, B, n_cols, n_pool, ps, Hk,
+                              G, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,13 +9,16 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rwkv6_scan as _wkv6
 
-__all__ = ["flash_attention", "decode_attention", "paged_attention", "wkv6", "rglru_scan"]
+__all__ = ["flash_attention", "decode_attention", "paged_attention", "span_attention",
+           "paged_span_attention", "wkv6", "rglru_scan"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -47,6 +50,31 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     if q.device.type == "cpu":
         return _paged.paged_attention_plain(q, k_pool, v_pool, table, lengths)
     return _paged.paged_attention_cuda(q, k_pool, v_pool, table, lengths)
+
+
+def span_attention(q, k, v, base_len):
+    """S new query tokens against a contiguous cache (speculative
+    verification).  q: (B, S, H, D); k/v: (B, Smax, Hk, D) holding the
+    span's own K/V already; base_len: (B,) int32 valid length before the
+    span.  Query position i attends ``base_len + i + 1`` keys.
+
+    One :func:`decode_attention` call per position, as the JAX package loops
+    its one-token decode (``ops.span_attention``), so every position is the
+    one-token decode computation: on the card one kernel launch each.  Each
+    query slice is made contiguous, as the kernels take it."""
+    return torch.cat([decode_attention(q[:, i:i + 1].contiguous(), k, v, base_len + (i + 1))
+                      for i in range(q.shape[1])], dim=1)
+
+
+def paged_span_attention(q, k_pool, v_pool, table, base_len):
+    """The paged form of :func:`span_attention`: q: (B, S, H, D); pools
+    (P, page, Hk, D); table: (B, n_pages) int32; base_len: (B,) int32.  One
+    :func:`paged_attention` call per position.  Sentinel pages are masked,
+    as the kernels mask them; the JAX package's ``paged_span_attention``
+    clips them to page P−1 (the port's one deliberate divergence, which
+    shows only on retired rows)."""
+    return torch.cat([paged_attention(q[:, i:i + 1].contiguous(), k_pool, v_pool, table,
+                                      base_len + (i + 1)) for i in range(q.shape[1])], dim=1)
 
 
 def wkv6(r, k, v, w, u, state=None):

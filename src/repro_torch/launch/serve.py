@@ -19,8 +19,15 @@ package's streams for the same seed::
     PYTHONPATH=src python -m repro_torch.launch.serve engine --device cpu \
         --temperature 0.8 --top-k 50 --top-p 0.95 --gen-seed 7
 
-Speculative decoding (``--draft-member``) raises ``NotImplementedError``,
-and so do the ``online`` and ``http`` modes: neither is ported yet.
+``--draft-member ARCH`` serves through routed speculative decoding: ARCH
+(full size, as the JAX launcher builds it, random weights of seed 0) drafts
+``--spec-k`` tokens a round for the target, paged layout only::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-m \
+        --draft-member tiny-s --device cpu --requests 6 --batch-prompt 3
+
+The ``online`` and ``http`` modes raise ``NotImplementedError``: the control
+plane is not ported yet.
 """
 import argparse
 import sys
@@ -53,7 +60,7 @@ def engine_main(argv):
     ap.add_argument("--gen-seed", type=int, default=0,
                     help="PRNG seed for sampled decoding")
     ap.add_argument("--draft-member", default="",
-                    help="speculative-decoding draft arch (not ported yet)")
+                    help="speculative-decoding draft arch (paged layout only)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="speculation depth with --draft-member")
     ap.add_argument("--device", default="cuda",
@@ -69,8 +76,6 @@ def engine_main(argv):
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.serving.generation import GenerationConfig
 
-    if args.draft_member:
-        raise NotImplementedError("speculative decoding (--draft-member) is not ported yet")
     cfg = get_arch(args.arch)
     if args.reduced or cfg.param_count() > 5e7:
         cfg = cfg.reduced()
@@ -79,9 +84,20 @@ def engine_main(argv):
                          f"decoder with vocab ≥ 259 (use tiny-s/m/l or --reduced dense archs)")
     model = Model(cfg, device=args.device)
     model.init(torch.Generator(device=model.device).manual_seed(0))
-    engine = ServingEngine(model, max_slots=args.slots, max_len=args.max_len,
-                           decode_block=args.decode_block, paged=not args.contiguous,
-                           page_size=args.page_size, device=model.device)
+    if args.draft_member:
+        from repro_torch.serving.speculative import SpeculativeEngine
+
+        if args.contiguous:
+            raise SystemExit("--draft-member needs the paged KV layout (drop --contiguous)")
+        dmodel = Model(get_arch(args.draft_member), device=args.device)
+        dmodel.init(torch.Generator(device=dmodel.device).manual_seed(0))
+        engine = SpeculativeEngine(model, dmodel, max_slots=args.slots, max_len=args.max_len,
+                                   spec_k=args.spec_k, page_size=args.page_size,
+                                   device=model.device)
+    else:
+        engine = ServingEngine(model, max_slots=args.slots, max_len=args.max_len,
+                               decode_block=args.decode_block, paged=not args.contiguous,
+                               page_size=args.page_size, device=model.device)
     fmt = BatchPromptFormatter("Answer each question.")
 
     gen = None
@@ -114,6 +130,9 @@ def engine_main(argv):
               f"shares, {occ['cow_forks']} CoW forks")
     else:
         print(f"  kv: contiguous, {occ['kv_bytes'] / 2**20:.1f} MiB committed")
+    if args.draft_member:
+        print(f"  speculative: k={engine.spec_k} rounds={engine.n_rounds} "
+              f"accept={engine.accept_rate():.2f} bonus={engine.n_bonus}")
     for r in reqs[:3]:
         print(f"  req{r.rid}: prompt {len(r.tokens)} toks -> "
               f"{tok.decode(r.out_tokens)[:48]!r}")

@@ -3,8 +3,8 @@ paged or contiguous KV cache, the RWKV6 recurrent state, or the RG-LRU
 hybrid's mixed cache (ring K/V and recurrent state).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the families
-ported so far (``Model.init``, ``prefill``, ``decode_step``, ``init_cache``,
-``init_paged_cache``).  Where JAX stacks the layers on a leading axis and
+ported so far (``Model.init``, ``prefill``, ``decode_step``, ``decode_span``,
+``init_cache``, ``init_paged_cache``).  Where JAX stacks the layers on a leading axis and
 scans over them, the port keeps an ``nn.ModuleList`` of blocks and loops;
 the weight bridge (``repro_torch.models.bridge``) unstacks the JAX leaves.
 Caches keep the JAX layout with the layers stacked on axis 0.
@@ -24,7 +24,12 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention, attention_decode, attention_full
+from repro_torch.models.attention import (
+    Attention,
+    attention_decode,
+    attention_full,
+    attention_span,
+)
 from repro_torch.models.layers import (
     empty_param,
     init_normal_,
@@ -426,4 +431,33 @@ class Model(nn.Module):
                                      cache["v"][j], pos, table, rope, window=blk.window)
             x = x + blk.mlp(blk.n2(x))
         cache["len"] += 1
+        return self._logits(x)
+
+    @torch.no_grad()
+    def decode_span(self, tokens, cache: dict, table=None):
+        """tokens: (B, S) int, a short run of S new tokens appended in one
+        pass (speculative verification).  Returns logits (B, S, V) float32,
+        position i's those of the token after ``tokens[:, i]``, and advances
+        ``cache`` by S tokens, in place: ``cache["len"]`` grows by S in its
+        own tensor, so a graph captured over spans replays on the same
+        memory.  ``table`` as in :meth:`decode_step`.
+
+        Global-attention stacks only, as in the JAX package (``_block_span``):
+        a recurrent or hybrid model, or a sliding-window layer, raises
+        ``ValueError``.  Causality inside the span is a mask, so each
+        position sees what a sequence of :meth:`decode_step` calls would;
+        the projections run over B·S rows at once, so in low precision their
+        rounding may differ from the B-row steps'.
+        """
+        if self.recurrent or self.hybrid:
+            raise ValueError("decode_span supports global-attention blocks only")
+        x = self._embed_in(tokens)
+        S = x.shape[1]
+        pos = cache["len"]
+        rope = self._rope(pos[:, None] + torch.arange(S, dtype=torch.int32, device=self.device))
+        for blk, j in zip(self.blocks, self.cache_index):
+            x = x + attention_span(blk.attn, self.cfg, blk.n1(x), cache["k"][j], cache["v"][j],
+                                   pos, table, rope, window=blk.window)
+            x = x + blk.mlp(blk.n2(x))
+        cache["len"] += S
         return self._logits(x)

@@ -425,30 +425,41 @@ class ServingEngine:
             temp[i], top_k[i], top_p[i] = g.temperature, g.top_k, g.top_p
         return sample, keys, temp, top_k, top_p
 
+    def _sampling_state(self):
+        """The sampling arrays of the live slots (``_sampling_arrays`` over
+        ``slot_req``), under the JAX engine's name: what the speculative
+        engine's dispatches read."""
+        return self._sampling_arrays(self.slot_req)
+
     def _load_state(self) -> bool:
         """Fill the fused dispatch's static state from the host bookkeeping.
         Returns ``sample``."""
         last, act, n_out, limit = self._slot_state()
-        sample, keys, temp, top_k, top_p = self._sampling_arrays(self.slot_req)
+        sample, keys, temp, top_k, top_p = self._sampling_state()
         self._state.load(np.stack([last, act.astype(np.int32), n_out, limit,
                                    keys[:, 0].view(np.int32), keys[:, 1].view(np.int32),
                                    temp.view(np.int32), top_k, top_p.view(np.int32)], axis=1))
         return sample
 
-    def _prepare_paged(self, active: list[int], horizon: int):
+    def _prepare_paged(self, active: list[int], horizon: int, offset: int = 0):
         """Page maintenance before one decode dispatch: grow every active
         slot's table to cover its next ``decode_block`` writes, CoW-fork any
         still-shared page in that write range (one copy for the whole tick),
         and upload the table sliced to the horizon's column count — the
         slice bounds per-step attention cost.  The table goes into the
-        static buffer of its column count, which the dispatch reads."""
+        static buffer of its column count, which the dispatch reads.
+
+        ``offset`` shifts the first write position from ``prompt +
+        emitted``: the speculative engine passes −1, since its dispatches
+        re-feed the last emitted token, whose K/V was rolled back or never
+        written."""
         ps = self.page_size
         cap = self.kv.pages_per_slot * ps
         src: list[int] = []
         dst: list[int] = []
         for i in active:
             req = self.slot_req[i]
-            ln = len(req.tokens) + len(req.out_tokens)
+            ln = len(req.tokens) + len(req.out_tokens) + offset
             end = min(ln + self.decode_block, cap)
             self.kv.extend_slot(i, -(-end // ps))
             s, d = self.kv.fork_for_write(i, ln, end)

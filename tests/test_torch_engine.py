@@ -180,17 +180,23 @@ def test_allocator_pinned_to_reference_on_full_pool():
     assert states[0] == states[1] == (2, 1, 1, 1, 0)
 
 
-def test_unported_paths_raise(models, monkeypatch):
-    """Speculative decoding (``--draft-member``) and the ``online`` and
-    ``http`` modes of the launcher are not ported yet and raise; the paged
-    KV cache refuses a sliding window, as the JAX package asserts (ring
-    caches are the contiguous layout's).  Sampled decoding is ported now
-    (``tests/test_torch_sampling.py``), so a sampled request is served."""
+def test_unported_paths_raise(models, monkeypatch, capsys):
+    """The ``online`` and ``http`` modes of the launcher are not ported yet
+    and raise; the paged KV cache refuses a sliding window, as the JAX
+    package asserts (ring caches are the contiguous layout's).  Sampled
+    decoding and speculative decoding are ported now
+    (``tests/test_torch_sampling.py``, ``tests/test_torch_speculative.py``), so
+    a sampled request is served, and so is a speculative one through the
+    launcher's ``--draft-member``, which the contiguous layout refuses."""
     from repro_torch.launch import serve as launcher
 
     _, _, model = models
-    with pytest.raises(NotImplementedError, match="draft-member"):
-        launcher.engine_main(["--draft-member", "tiny-s", "--device", "cpu"])
+    launcher.engine_main(["--arch", "tiny-m", "--draft-member", "tiny-s", "--device", "cpu",
+                          "--requests", "2", "--max-new", "6"])
+    out = capsys.readouterr().out
+    assert "served 2/2 requests" in out and "speculative: k=4 rounds=" in out
+    with pytest.raises(SystemExit, match="paged"):
+        launcher.engine_main(["--draft-member", "tiny-s", "--contiguous", "--device", "cpu"])
     for mode in ("online", "http"):
         monkeypatch.setattr("sys.argv", ["serve", mode])
         with pytest.raises(NotImplementedError, match="control plane"):

@@ -21,6 +21,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models.rglru, repro_torch.kernels.rglru_scan\n"
             "import repro_torch.configs.recurrentgemma_9b\n"
             "import repro_torch.serving.graphs, repro_torch.utils.prng\n"
+            "import repro_torch.serving.speculative, repro_torch.configs.qwen1_5_4b\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
