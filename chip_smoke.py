@@ -83,7 +83,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       reject-most case): graphed against eager (streams, counters,
       launches identical), paged launches = rounds × (K+1) × (draft +
       target layers), the accepted, bonus and mismatch tokens counted
-      again from the dispatches' outputs adding up to the tokens emitted;
+      again from the dispatches' outputs adding up to the tokens emitted,
+      and ``decode_span`` bit-equal to K+1 ``decode_step``s (checked);
       against the target alone the streams are printed, unchecked, with the
       target's top-2 logit gap at each first differing token, and tokens/s
       of both timed in turns.
@@ -101,7 +102,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    at each first differing token: other admission batches give the
    prefill other shapes, and bf16 rounds differently with them; beside it,
    whether each operator of a step gives a row the same bits in batches of
-   4 and 8 rows and of 8 and 8·(K+1) rows.
+   4 and 8 rows and of 8 and 8·(K+1) rows (the fp32 leg of path f prints
+   the same in fp32).
    Every bf16 flash, decode and paged case of phase 3 and the flash,
    paged, decode and D=256 main-path entries are held row by row as well:
    the error of each output row over the row's largest plain value.  Each
@@ -431,9 +433,10 @@ def top2_gap(model, prompt, prefix):
 def batch_invariance(label, model):
     """Whether each operator of a decode step gives a row the same bits
     whatever the batch: rows 0-3 of 8 against a batch of those 4 (the K = 8
-    on 8 slots against K = 1 on 4 comparison), and a verify-shaped product
-    over 8 × (K+1) rows against the 8 rows of one step.  Printed, not
-    checked."""
+    on 8 slots against K = 1 on 4 comparison), and a product over the 8 ×
+    (K+1) rows of a speculative verify against each position's 8 rows as a
+    contiguous batch of their own, as a decode step has them.  Printed, not
+    checked: what ``Model.decode_span`` must work around."""
     gen = torch.Generator(device=model.device).manual_seed(SEED + 11)
     d = model.cfg.d_model
     x = torch.randn((8, 1, d), generator=gen, device=model.device).to(model.dtype)
@@ -442,12 +445,31 @@ def batch_invariance(label, model):
     fns = {"q projection (GEMM)": blk.attn.q, "MLP (3 GEMMs)": blk.mlp, "RMSNorm": blk.n1,
            "lm_head (GEMM)": lambda h: h @ model.lm_head}
     out = {f"{name}, 4 rows of 8": bool(torch.equal(f(x)[:4], f(x[:4]))) for name, f in fns.items()}
-    out.update({f"{name}, 8 rows of {8 * (SPEC_K + 1)}": bool(torch.equal(f(xs)[:, :1],
-                                                                          f(xs[:, :1])))
-                for name, f in fns.items()})
-    print(f"[{label}] bf16 batch invariance on the card, not checked (a row's bits the same "
-          f"in both batches): {out}")
+    out.update({f"{name}, 8 rows of {8 * (SPEC_K + 1)}": bool(torch.equal(
+        f(xs), torch.cat([f(xs[:, i:i + 1].contiguous()) for i in range(SPEC_K + 1)], dim=1)))
+        for name, f in fns.items()})
+    print(f"[{label}] {str(model.dtype)[6:]} batch invariance on the card, not checked (a row's "
+          f"bits the same in both batches): {out}")
     return out
+
+
+def span_matches_steps(label, model):
+    """``Model.decode_span`` of K+1 tokens against K+1 ``decode_step``s from
+    one prefill of 8 random prompts into a contiguous cache: logits and
+    cache bit for bit (checked), the JAX package's contract for the span."""
+    prompts = random_prompts(model.cfg.vocab_size, 8, 64, SEED + 5).to(model.device)
+    span = random_prompts(model.cfg.vocab_size, 8, SPEC_K + 1, SEED + 6).to(model.device)
+    _, cache = model.prefill(prompts, max_len=80)
+    steps = {k: v.clone() for k, v in cache.items()}
+    got = model.decode_span(span, cache)
+    want = torch.cat([model.decode_step(span[:, i:i + 1], steps) for i in range(SPEC_K + 1)],
+                     dim=1)
+    same = bool(torch.equal(got, want)) and all(torch.equal(cache[k], steps[k]) for k in cache)
+    print(f"[{label}] {str(model.dtype)[6:]} decode_span of {SPEC_K + 1} tokens vs as many "
+          f"decode_steps: logits and cache {'bit-equal' if same else 'DIFFER'} (max |logit "
+          f"difference| {(got - want).abs().max().item():.3g})")
+    check(same, f"{label}: decode_span differs from sequential decode_steps")
+    return same
 
 
 class RoundLog:
@@ -1652,6 +1674,7 @@ def main() -> int:
         otherwise than a step's B rows), with the top-2 logit gap at each
         first differing token; tokens/s against the target alone in turns."""
         K = SPEC_K
+        span_matches_steps(label, target)
         runs = {}
         for leg in ("graphed", "eager"):
             eng = spec_engine(target, draft)
@@ -2133,6 +2156,8 @@ def main() -> int:
         """Path f in fp32: the half-sampled workload through the speculative
         engine must give the target-only engine's streams, greedy and
         sampled alike (required)."""
+        batch_invariance(label, target)
+        span_matches_steps(label, target)
         spec, reqs = spec_engine(target, draft), sampled_requests()
         serve_once(spec, reqs)
         tgt, ref = target_only(target), sampled_requests()

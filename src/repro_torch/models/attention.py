@@ -20,7 +20,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Dense, apply_rope
+from repro_torch.models.layers import Dense, apply_rope, per_position
 
 
 class Attention(nn.Module):
@@ -140,7 +140,9 @@ def attention_span(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, tab
     written first, at positions ``pos + i``; then query i attends ``pos + i
     + 1`` keys, so the future keys of the span are masked as S sequential
     :func:`attention_decode` steps would not yet have written them.  The
-    projections run over all B·S rows at once.
+    projections run position by position (``layers.per_position``), so the
+    result is that of S steps bit for bit, as the JAX package's contract
+    for ``decode_span`` asks.
 
     Paged writes to an unmapped page go to the drop page, as in
     :func:`attention_decode`.  Contiguous writes at or past the buffer are
@@ -153,9 +155,9 @@ def attention_span(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, tab
         raise ValueError("decode_span supports global attention only, not a sliding window")
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_rope(_heads(p.q(x), H, hd), rope)
-    k_new = apply_rope(_heads(p.k(x), Hk, hd), rope).to(k_cache.dtype)
-    v_new = _heads(p.v(x), Hk, hd).to(v_cache.dtype)
+    q = apply_rope(_heads(per_position(p.q, x), H, hd), rope)
+    k_new = apply_rope(_heads(per_position(p.k, x), Hk, hd), rope).to(k_cache.dtype)
+    v_new = _heads(per_position(p.v, x), Hk, hd).to(v_cache.dtype)
     positions = pos.long()[:, None] + torch.arange(S, device=x.device)      # (B, S)
     rows = torch.arange(B, device=x.device)
     if table is not None:
@@ -175,4 +177,4 @@ def attention_span(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, tab
             k_cache[rows, at] = torch.where(inside, k_new[:, i], k_cache[rows, at])
             v_cache[rows, at] = torch.where(inside, v_new[:, i], v_cache[rows, at])
         out = ops.span_attention(q, k_cache, v_cache, pos)
-    return p.o(out.reshape(B, S, H * hd))
+    return per_position(p.o, out.reshape(B, S, H * hd))

@@ -34,6 +34,7 @@ from repro_torch.models.layers import (
     empty_param,
     init_normal_,
     make_norm,
+    per_position,
     rope_freqs,
     rope_tables,
 )
@@ -445,9 +446,14 @@ class Model(nn.Module):
         Global-attention stacks only, as in the JAX package (``_block_span``):
         a recurrent or hybrid model, or a sliding-window layer, raises
         ``ValueError``.  Causality inside the span is a mask, so each
-        position sees what a sequence of :meth:`decode_step` calls would;
-        the projections run over B·S rows at once, so in low precision their
-        rounding may differ from the B-row steps'.
+        position sees what a sequence of :meth:`decode_step` calls would,
+        and the row-wise operators (norms, projections, MLP, logits) run
+        position by position on B rows, so the logits and the cache are
+        those of S ``decode_step`` calls bit for bit: the JAX package's
+        contract, which makes the speculative stream the target's own.  On
+        the card a product over B·S rows rounds otherwise than one over B
+        (``chip_smoke.py`` shows it), and a flipped rounding can flip a
+        token.
         """
         if self.recurrent or self.hybrid:
             raise ValueError("decode_span supports global-attention blocks only")
@@ -456,8 +462,8 @@ class Model(nn.Module):
         pos = cache["len"]
         rope = self._rope(pos[:, None] + torch.arange(S, dtype=torch.int32, device=self.device))
         for blk, j in zip(self.blocks, self.cache_index):
-            x = x + attention_span(blk.attn, self.cfg, blk.n1(x), cache["k"][j], cache["v"][j],
-                                   pos, table, rope, window=blk.window)
-            x = x + blk.mlp(blk.n2(x))
+            x = x + attention_span(blk.attn, self.cfg, per_position(blk.n1, x), cache["k"][j],
+                                   cache["v"][j], pos, table, rope, window=blk.window)
+            x = x + per_position(lambda h: blk.mlp(blk.n2(h)), x)
         cache["len"] += S
-        return self._logits(x)
+        return per_position(self._logits, x)
