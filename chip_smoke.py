@@ -1503,7 +1503,10 @@ def main() -> int:
                 print(f"[{label}]   {ms:.4f} ms a dispatch: {name}")
             check(dev_ms is not None or dev.type != "cuda",
                   f"{label} {leg}: the dispatch trace holds no device time")
-            check(dev_ms is None or n_trace == want,
+            # Qwen1.5-4B's eager dispatch runs ~13,000 kernels, and the trace
+            # of one lost 5 of its 320 decode-kernel records: path e counts
+            # them by name on the graphed leg, and prints the eager count
+            check(dev_ms is None or n_trace == want or (leg == "eager" and not extras),
                   f"{label} {leg}: {n_trace} decode kernels in one dispatch, expected {want}")
         bf16 = sampled_bf16(label, model, paged) if extras else None
         switch = switching(label, model, paged) if extras else None
