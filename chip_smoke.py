@@ -1751,11 +1751,37 @@ def main() -> int:
         print(f"[{label}] tokens/s in turns: target alone "
               f"{[round(x, 1) for x in tps['target_only']]}, speculative "
               f"{[round(x, 1) for x in tps['speculative']]}")
+        # one more serve with every dispatch clocked and the fifth draft and
+        # fifth verify traced: the card's busy share of each, and the paged
+        # kernel counted by name in each replay
+        clocks = {side: DispatchClock(getattr(eng, side), trace_at=4)
+                  for side in ("draft", "target")}
+        serve_once(eng, sampled_requests())
+        traces = {}
+        for side, clock in clocks.items():
+            getattr(eng, side)._graphs.run = clock.inner
+            dev_ms = device_total_ms(clock.rows)
+            disp_ms = 1e3 * float(np.mean(clock.times[:4] + clock.times[5:]))
+            n_trace = trace_counts(clock.rows, ["paged_decode_kernel"])["paged_decode_kernel"]
+            want = (K + 1) * (draft if side == "draft" else target).cfg.n_layers
+            traces[side] = dict(device_ms=dev_ms, dispatch_ms=disp_ms, paged_in_trace=n_trace,
+                                top=top_device(clock.rows))
+            print(f"[{label}] {'draft' if side == 'draft' else 'verify'} dispatch trace: device "
+                  f"busy " + ("not measured" if dev_ms is None else
+                              f"{dev_ms:.3f} ms of {disp_ms:.3f} ms "
+                              f"({100 * dev_ms / disp_ms:.1f}%)")
+                  + f"; paged_decode_kernel in the trace {n_trace} (expected {want})")
+            for name, ms in traces[side]["top"][:6]:
+                print(f"[{label}]   {ms:.4f} ms a dispatch: {name}")
+            check(dev_ms is not None or dev.type != "cuda",
+                  f"{label} {side}: the dispatch trace holds no device time")
+            check(dev_ms is None or n_trace == want,
+                  f"{label} {side}: {n_trace} paged kernels in one dispatch, expected {want}")
         stamp(label)
-        return dict(rounds=g["telemetry"][0], telemetry=g["telemetry"][:7],
+        return dict(telemetry=g["telemetry"][:7],
                     accept_rate=accept, launches=g["counts"], tally=tally,
                     seconds=g["seconds"], eager_seconds=e["seconds"], final_cache_diff=diff,
-                    vs_target_only=split, tokens_per_s_turns=tps)
+                    vs_target_only=split, tokens_per_s_turns=tps, traces=traces)
 
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
     results["speculative_bf16"] = {"self": speculative("spec-self", model, model),

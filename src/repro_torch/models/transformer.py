@@ -437,7 +437,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_span(self, tokens, cache: dict, table=None):
         """tokens: (B, S) int, a short run of S new tokens appended in one
-        pass (speculative verification).  Returns logits (B, S, V) float32,
+        call, one dispatch (speculative verification).  Returns logits (B, S, V) float32,
         position i's those of the token after ``tokens[:, i]``, and advances
         ``cache`` by S tokens, in place: ``cache["len"]`` grows by S in its
         own tensor, so a graph captured over spans replays on the same

@@ -222,6 +222,9 @@ def test_generate_text_matches_plain_engine(models):
     assert occ["peak_kv_bytes"] > spec.target.kv_occupancy()["peak_kv_bytes"]
     with pytest.raises(ValueError, match="spec_k"):
         _spec(models, "small", spec_k=0)
+    other = Model(dataclasses.replace(get_arch("tiny-s"), vocab_size=300), device="cpu")
+    with pytest.raises(ValueError, match="vocab"):
+        SpeculativeEngine(models["target"][2], other, device="cpu")
 
 
 def _logged(run, log):
