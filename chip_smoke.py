@@ -87,7 +87,11 @@ Phases, in order; any failure raises and the script exits non-zero:
       and ``decode_span`` bit-equal to K+1 ``decode_step``s (checked);
       against the target alone the streams are printed, unchecked, with the
       target's top-2 logit gap at each first differing token, and tokens/s
-      of both timed in turns.
+      of both timed in turns.  ``SpanProbe`` prints, unchecked, which
+      operator a one-pass verify (one product over the 8·(K+1) rows) would
+      round otherwise than the steps: on a random span, and for the
+      self-draft in the workload itself, with a one-pass verify's accept
+      rate and streams.
    Graphed against eager, each path a-e must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
@@ -102,8 +106,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    at each first differing token: other admission batches give the
    prefill other shapes, and bf16 rounds differently with them; beside it,
    whether each operator of a step gives a row the same bits in batches of
-   4 and 8 rows and of 8 and 8·(K+1) rows (the fp32 leg of path f prints
-   the same in fp32).
+   4 and 8 rows.
    Every bf16 flash, decode and paged case of phase 3 and the flash,
    paged, decode and D=256 main-path entries are held row by row as well:
    the error of each output row over the row's largest plain value.  Each
@@ -127,7 +130,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    tail, no draw outside the kept ranks).
 7. Path e in fp32 (prefill logits within 1e-3 of the plain versions',
    identical greedy streams), and path f in fp32: both pairs' streams of
-   the half-sampled workload identical to the target alone's.  Then the
+   the half-sampled workload identical to the target alone's, and the
+   random span's ``SpanProbe`` report in fp32.  Then the
    recurrent paths' parity of phase 5.
 
 The line before the last is a JSON object with one entry per kernel (time,
@@ -433,23 +437,129 @@ def top2_gap(model, prompt, prefix):
 def batch_invariance(label, model):
     """Whether each operator of a decode step gives a row the same bits
     whatever the batch: rows 0-3 of 8 against a batch of those 4 (the K = 8
-    on 8 slots against K = 1 on 4 comparison), and a product over the 8 ×
-    (K+1) rows of a speculative verify against each position's 8 rows as a
-    contiguous batch of their own, as a decode step has them.  Printed, not
-    checked: what ``Model.decode_span`` must work around."""
+    on 8 slots against K = 1 on 4 comparison).  Printed, not checked."""
     gen = torch.Generator(device=model.device).manual_seed(SEED + 11)
     d = model.cfg.d_model
     x = torch.randn((8, 1, d), generator=gen, device=model.device).to(model.dtype)
-    xs = torch.randn((8, SPEC_K + 1, d), generator=gen, device=model.device).to(model.dtype)
     blk = model.blocks[0]
     fns = {"q projection (GEMM)": blk.attn.q, "MLP (3 GEMMs)": blk.mlp, "RMSNorm": blk.n1,
            "lm_head (GEMM)": lambda h: h @ model.lm_head}
     out = {f"{name}, 4 rows of 8": bool(torch.equal(f(x)[:4], f(x[:4]))) for name, f in fns.items()}
-    out.update({f"{name}, 8 rows of {8 * (SPEC_K + 1)}": bool(torch.equal(
-        f(xs), torch.cat([f(xs[:, i:i + 1].contiguous()) for i in range(SPEC_K + 1)], dim=1)))
-        for name, f in fns.items()})
     print(f"[{label}] {str(model.dtype)[6:]} batch invariance on the card, not checked (a row's "
           f"bits the same in both batches): {out}")
+    return out
+
+
+class SpanProbe:
+    """``Model.decode_span`` written as one pass over the B·S rows of a span
+    (one product a weight: the form a verify needs to cost less than K+1
+    steps, and the JAX package's form of it), with every row-wise operator
+    run both that way and once a position on B rows, as the steps run it.
+    The calls where the two differ are counted in ``seen`` (on the device,
+    read by ``report``); the one-pass result goes on for the operators
+    named in ``one_pass`` (``ALL``: every one), the per-position result for
+    the rest.  Called as ``decode_span`` (set on a model
+    in its place), it writes the cache as the span does: paged writes to an
+    unmapped page go to the drop page, contiguous ones stay inside the
+    buffer (the caller keeps them there)."""
+
+    ALL = frozenset(["embedding", "RMSNorm", "q projection", "k projection", "v projection",
+                     "RoPE", "o projection", "MLP gate", "MLP up", "MLP down", "lm_head"])
+
+    def __init__(self, model, one_pass=frozenset()):
+        self.model, self.one_pass, self.seen = model, one_pass, {}
+
+    def both(self, name, fn, *xs):
+        one = fn(*xs)
+        per = torch.cat([fn(*(x[:, i:i + 1].contiguous() for x in xs))
+                         for i in range(xs[0].shape[1])], dim=1)
+        d = (one.float() - per.float()).abs().max()
+        n, of, m = self.seen.get(name, (0, 0, d))
+        self.seen[name] = (n + (d > 0).int(), of + 1, torch.maximum(m, d))
+        return one if name in self.one_pass else per
+
+    def __call__(self, tokens, cache, table=None):
+        from repro_torch.kernels import ops
+        from repro_torch.models.layers import apply_rope
+
+        model, both = self.model, self.both
+        cfg, (B, S) = model.cfg, tokens.shape
+        H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        pos = cache["len"]
+        positions = pos[:, None] + torch.arange(S, dtype=torch.int32, device=model.device)
+        at = positions.long()
+        rows = torch.arange(B, device=model.device)[:, None]
+        if table is not None:
+            P, ps, n_cols = cache["k"].shape[1] - 1, cache["k"].shape[2], table.shape[1]
+            page = at // ps
+            at = (torch.where(page < n_cols, table[rows, page.clamp(max=n_cols - 1)].long(),
+                              P).clamp(max=P), at % ps)
+        else:
+            at = (rows, at)
+
+        def rope(t, p):
+            return apply_rope(t, model._rope(p))
+
+        def head(t):                              # Model._logits after its norm
+            logits = (t @ model.lm_head.to(t.dtype)).float()
+            logits[..., cfg.vocab_size:] = -1e30
+            return logits
+
+        x = both("embedding", model._embed_in, tokens)
+        for j, blk in enumerate(model.blocks):
+            h = both("RMSNorm", blk.n1, x)
+            q = both("q projection", blk.attn.q, h).reshape(B, S, H, hd)
+            k = both("k projection", blk.attn.k, h).reshape(B, S, Hk, hd)
+            v = both("v projection", blk.attn.v, h).reshape(B, S, Hk, hd)
+            q, k = both("RoPE", rope, q, positions), both("RoPE", rope, k, positions)
+            kc, vc = cache["k"][j], cache["v"][j]
+            kc[at], vc[at] = k, v
+            a = (ops.span_attention(q, kc, vc, pos) if table is None else
+                 ops.paged_span_attention(q, kc[:P], vc[:P], table, pos))
+            x = x + both("o projection", blk.attn.o, a.reshape(B, S, H * hd))
+            h = both("RMSNorm", blk.n2, x)
+            g, u = both("MLP gate", blk.mlp.gate, h), both("MLP up", blk.mlp.up, h)
+            x = x + both("MLP down", blk.mlp.down, blk.mlp.act(g) * u)
+        cache["len"] += S
+        return both("lm_head", head, both("RMSNorm", model.final_norm, x))
+
+    def report(self):
+        return {name: dict(differ=int(n), of=of, max_abs=m.item())
+                for name, (n, of, m) in self.seen.items()}
+
+    def text(self):
+        return str({name: f"{r['differ']}/{r['of']} (max |d| {r['max_abs']:.3g})"
+                    for name, r in self.report().items()})
+
+
+def span_rounding(label, model):
+    """Where a one-pass verify would round a row otherwise than decode steps
+    do, from one prefill of 8 random prompts: a span of K+1 positions
+    through ``SpanProbe``, carrying the per-position results (whose logits
+    must be ``decode_span``'s for the probe to be faithful; printed), then
+    again carrying the one-pass results, whose logits are compared with the
+    first's.  Printed, not checked."""
+    B, S = 8, SPEC_K + 1
+    prompts = random_prompts(model.cfg.vocab_size, B, 64, SEED + 5).to(model.device)
+    span = random_prompts(model.cfg.vocab_size, B, S, SEED + 6).to(model.device)
+    _, cache0 = model.prefill(prompts, max_len=80)
+    logits = {}
+    for how in ("steps", "per", "one"):
+        cache = {k: v.clone() for k, v in cache0.items()}
+        probe = SpanProbe(model, SpanProbe.ALL if how == "one" else frozenset())
+        logits[how] = (model.decode_span if how == "steps" else probe)(span, cache)
+        if how == "per":
+            per_probe = probe
+    one, per = logits["one"], logits["per"]
+    out = dict(operators=per_probe.report(), one_pass_logits_max_abs=(one - per).abs().max().item(),
+               one_pass_argmax_differs=int((one.argmax(-1) != per.argmax(-1)).sum()),
+               positions=B * S, probe_equals_decode_span=bool(torch.equal(per, logits["steps"])))
+    print(f"[{label}] {str(model.dtype)[6:]} span rounding on the card, not checked: calls of "
+          f"each operator where one pass over {B * S} rows differs from {S} passes over {B} "
+          + per_probe.text()
+          + f"; a one-pass span's logits differ by {out['one_pass_logits_max_abs']:.3g}, argmax "
+            f"at {out['one_pass_argmax_differs']}/{B * S} positions; the per-position probe "
+            f"{'equals' if out['probe_equals_decode_span'] else 'DIFFERS from'} decode_span")
     return out
 
 
@@ -1416,13 +1526,14 @@ def main() -> int:
                   f"{'is' if drop_same else 'is not'} bit-equal too")
         return diff
 
-    def serve(label, model, paged, record, extras=True):
+    def serve(label, model, paged, record, extras=True, eager_trace_count=True):
         """The serving path through the graphs (the main path), then the
         same workload through the eager body on a fresh engine (inputs
         recorded there): streams, counters, occupancy, launches and the
         final cache compared; tokens/s of both in turns; a trace of each.
         ``extras``: also the bf16 (K, slots) report and the key-switching
-        leg."""
+        leg.  ``eager_trace_count``: check the decode kernels counted by
+        name in the eager dispatch's trace (else print it only)."""
         n_per_dispatch = model.cfg.n_layers * 8
         engine, reqs = serving_engine(model, dev, paged=paged), serving_requests()
         with main_path(label, ("flash_attention", record)) as counts:
@@ -1506,7 +1617,7 @@ def main() -> int:
             # Qwen1.5-4B's eager dispatch runs ~13,000 kernels, and the trace
             # of one lost 5 of its 320 decode-kernel records: path e counts
             # them by name on the graphed leg, and prints the eager count
-            check(dev_ms is None or n_trace == want or (leg == "eager" and not extras),
+            check(dev_ms is None or n_trace == want or (leg == "eager" and not eager_trace_count),
                   f"{label} {leg}: {n_trace} decode kernels in one dispatch, expected {want}")
         bf16 = sampled_bf16(label, model, paged) if extras else None
         switch = switching(label, model, paged) if extras else None
@@ -1648,7 +1759,7 @@ def main() -> int:
     print(f"[paged-4b] {qcfg.name}: {model4.param_count() / 1e9:.3f} B parameters in "
           f"{str(model4.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
     _, paged4_counts, _, paged4_call = serve("paged-4b", model4, True, "paged_attention",
-                                             extras=False)
+                                             extras=False, eager_trace_count=False)
     check(paged4_call[0][0].shape[-1] == 128, "paged-4b: the recorded paged call is not D=128")
     stamp("paged serving of qwen1.5-4b")
 
@@ -1665,7 +1776,33 @@ def main() -> int:
         return ServingEngine(target, max_slots=8, max_len=SERVE_MAX_LEN, decode_block=SPEC_K + 1,
                              paged=True, page_size=16, device=dev)
 
-    def speculative(label, target, draft):
+    def in_serve_span_rounding(label, target, draft, streams):
+        """``SpanProbe`` as the target's ``decode_span`` in this workload,
+        eager on engines of its own: once carrying every one-pass result
+        (the JAX package's verify), counting the operators that differ on
+        the serve's own activations, and once carrying them all but the
+        RMSNorms' (in bf16 the only operator found to differ).  Each
+        leg's accept rate and streams against the speculative ones are
+        printed, not checked."""
+        out = {}
+        for how, one_pass in (("every", SpanProbe.ALL),
+                              ("all but RMSNorm's", SpanProbe.ALL - {"RMSNorm"})):
+            probe = target.decode_span = SpanProbe(target, one_pass)
+            eng = spec_engine(target, draft)
+            eng.draft._graphs.run = eng.target._graphs.run = eager_run
+            rs = sampled_requests()
+            serve_once(eng, rs)
+            del target.decode_span
+            div = first_divergence(streams, [r.out_tokens for r in rs])
+            out[how] = dict(operators=probe.report(), accept_rate=eng.accept_rate(),
+                            first_divergence=div)
+            print(f"[{label}] bf16 verify carrying {how} one-pass result in this workload, not "
+                  f"checked: accept rate {eng.accept_rate():.4f}, streams identical to the "
+                  f"speculative ones {16 - len(div)}/16 {div or ''}; calls of each operator where "
+                  f"one pass differs from per position {probe.text()}")
+        return out
+
+    def speculative(label, target, draft, probe=False):
         """Path f for one pair in bf16: the half-sampled workload through
         ``SpeculativeEngine`` (every draft and verify dispatch a graph
         replay), then through the eager bodies: streams, counters, launches
@@ -1673,11 +1810,13 @@ def main() -> int:
         × (K+1) × (draft layers + target layers); the accepted, bonus and
         mismatch tokens, counted again from the dispatches' own outputs,
         must add up to the tokens emitted.  Against the target alone the
-        streams are reported (bf16 rounds the span's B·(K+1)-row products
-        otherwise than a step's B rows), with the top-2 logit gap at each
-        first differing token; tokens/s against the target alone in turns."""
+        streams are reported (other admission times could still split a
+        bf16 stream), with the top-2 logit gap at each first differing
+        token; tokens/s against the target alone in turns.  ``probe``: also
+        ``in_serve_span_rounding``."""
         K = SPEC_K
         span_matches_steps(label, target)
+        rounding = span_rounding(label, target)
         runs = {}
         for leg in ("graphed", "eager"):
             eng = spec_engine(target, draft)
@@ -1741,6 +1880,7 @@ def main() -> int:
         print(f"[{label}] bf16, not checked: speculative vs the target alone "
               f"{16 - len(div)}/16 streams identical; first differing token and the target's "
               f"top-2 logit gap there {split or 'none'}")
+        in_serve = in_serve_span_rounding(label, target, draft, g["streams"]) if probe else None
         # tokens/s in turns on the two warm engines, fresh requests each time
         tps = {"target_only": [], "speculative": []}
         for leg in ("target_only", "speculative", "speculative", "target_only", "target_only",
@@ -1781,10 +1921,11 @@ def main() -> int:
         return dict(telemetry=g["telemetry"][:7],
                     accept_rate=accept, launches=g["counts"], tally=tally,
                     seconds=g["seconds"], eager_seconds=e["seconds"], final_cache_diff=diff,
-                    vs_target_only=split, tokens_per_s_turns=tps, traces=traces)
+                    vs_target_only=split, tokens_per_s_turns=tps, traces=traces,
+                    span_rounding=rounding, in_serve_span_rounding=in_serve)
 
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
-    results["speculative_bf16"] = {"self": speculative("spec-self", model, model),
+    results["speculative_bf16"] = {"self": speculative("spec-self", model, model, probe=True),
                                    "4b": speculative("spec-4b", model4, model)}
     del model, model4
     torch.cuda.empty_cache()
@@ -2185,7 +2326,7 @@ def main() -> int:
         """Path f in fp32: the half-sampled workload through the speculative
         engine must give the target-only engine's streams, greedy and
         sampled alike (required)."""
-        batch_invariance(label, target)
+        rounding = span_rounding(label, target)
         span_matches_steps(label, target)
         spec, reqs = spec_engine(target, draft), sampled_requests()
         serve_once(spec, reqs)
@@ -2198,7 +2339,8 @@ def main() -> int:
               + (f"; first differing token {div}" if div else ""))
         check(not div, f"{label}: fp32 speculative streams differ from the target alone's: {div}")
         results.setdefault("speculative_fp32", {})[label] = dict(
-            identical=16 - len(div), rounds=spec.n_rounds, accept_rate=spec.accept_rate())
+            identical=16 - len(div), rounds=spec.n_rounds, accept_rate=spec.accept_rate(),
+            span_rounding=rounding)
 
     speculative_fp32("spec-self", model32, model32)
     speculative_fp32("spec-4b", model4_32, model32)

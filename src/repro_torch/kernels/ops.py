@@ -61,7 +61,9 @@ def span_attention(q, k, v, base_len):
     One :func:`decode_attention` call per position, as the JAX package loops
     its one-token decode (``ops.span_attention``), so every position is the
     one-token decode computation: on the card one kernel launch each.  Each
-    query slice is made contiguous, as the kernels take it."""
+    query slice is made contiguous, as the kernels take it.  The port's
+    ``Model.decode_span`` runs whole decode steps instead; ``chip_smoke.py``'s
+    one-pass span probe comes here."""
     return torch.cat([decode_attention(q[:, i:i + 1].contiguous(), k, v, base_len + (i + 1))
                       for i in range(q.shape[1])], dim=1)
 

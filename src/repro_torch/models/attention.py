@@ -1,14 +1,13 @@
 """Attention block of the port: GQA with RoPE and optional QKV bias, the
 full-sequence (prefill) path with an optional sliding window, the
-single-token decode path over a paged, a contiguous or a ring KV cache, and
-the S-token span decode of speculative verification.
+single-token decode path over a paged, a contiguous or a ring KV cache.
 
-Counterpart of the JAX package's ``models/attention.py`` (``attention_full``,
-the paged, contiguous and ring branches of ``attention_decode``, and
-``attention_span``).  Prefill attention goes through ``ops.flash_attention``,
-decode through ``ops.paged_attention`` or ``ops.decode_attention``, a span
-through their per-position loops ``ops.paged_span_attention`` /
-``ops.span_attention``; on the card all of them are the hand-written CUDA
+Counterpart of the JAX package's ``models/attention.py`` (``attention_full``
+and the paged, contiguous and ring branches of ``attention_decode``; its
+``attention_span`` is S of these decode steps here, through
+``Model.decode_span``).  Prefill attention goes through
+``ops.flash_attention``, decode through ``ops.paged_attention`` or
+``ops.decode_attention``; on the card all of them are the hand-written CUDA
 kernels.  A sliding-window layer keeps a ring
 buffer of its last ``S_buf`` keys: keys are RoPE-rotated at write time, so
 the order of the ring's slots does not matter.
@@ -20,7 +19,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Dense, apply_rope, per_position
+from repro_torch.models.layers import Dense, apply_rope
 
 
 class Attention(nn.Module):
@@ -128,53 +127,3 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, t
         v_cache[rows, at] = torch.where(inside, v_new, v_cache[rows, at])
         out = ops.decode_attention(q, k_cache, v_cache, torch.clamp(pos + 1, max=S_buf))
     return p.o(out.reshape(B, 1, H * hd))
-
-
-def attention_span(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, table, rope,
-                   *, window=None):
-    """S-token decode in one pass (speculative verification), against a
-    paged (``table`` given) or a contiguous (``table=None``) KV cache.
-
-    x: (B, S, d); pos: (B,) int32 valid lengths before the span; rope: the
-    RoPE tables of positions ``pos + i`` (B, S).  All S new K/V entries are
-    written first, at positions ``pos + i``; then query i attends ``pos + i
-    + 1`` keys, so the future keys of the span are masked as S sequential
-    :func:`attention_decode` steps would not yet have written them.  The
-    projections run position by position (``layers.per_position``), so the
-    result is that of S steps bit for bit, as the JAX package's contract
-    for ``decode_span`` asks.
-
-    Paged writes to an unmapped page go to the drop page, as in
-    :func:`attention_decode`.  Contiguous writes at or past the buffer are
-    dropped: each position's write is :func:`attention_decode`'s where-write,
-    one position at a time, so no two writes of a call meet at the clamped
-    index.  A sliding window raises ``ValueError``, as the JAX package
-    rejects it (the span has no ring form).  Returns (B, S, d).
-    """
-    if window is not None:
-        raise ValueError("decode_span supports global attention only, not a sliding window")
-    B, S, _ = x.shape
-    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_rope(_heads(per_position(p.q, x), H, hd), rope)
-    k_new = apply_rope(_heads(per_position(p.k, x), Hk, hd), rope).to(k_cache.dtype)
-    v_new = _heads(per_position(p.v, x), Hk, hd).to(v_cache.dtype)
-    positions = pos.long()[:, None] + torch.arange(S, device=x.device)      # (B, S)
-    rows = torch.arange(B, device=x.device)
-    if table is not None:
-        P, ps = k_cache.shape[0] - 1, k_cache.shape[1]
-        n_cols = table.shape[1]
-        page = positions // ps
-        phys = torch.where(page < n_cols, table[rows[:, None], page.clamp(max=n_cols - 1)].long(),
-                           P).clamp(max=P)       # any sentinel lands on the drop page
-        k_cache[phys, positions % ps] = k_new
-        v_cache[phys, positions % ps] = v_new
-        out = ops.paged_span_attention(q, k_cache[:P], v_cache[:P], table, pos)
-    else:
-        S_buf = k_cache.shape[1]
-        for i in range(S):
-            at = positions[:, i].clamp(max=S_buf - 1)
-            inside = (positions[:, i] < S_buf)[:, None, None]
-            k_cache[rows, at] = torch.where(inside, k_new[:, i], k_cache[rows, at])
-            v_cache[rows, at] = torch.where(inside, v_new[:, i], v_cache[rows, at])
-        out = ops.span_attention(q, k_cache, v_cache, pos)
-    return per_position(p.o, out.reshape(B, S, H * hd))

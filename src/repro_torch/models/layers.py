@@ -107,16 +107,6 @@ def make_norm(kind: str, d: int, eps: float, *, dtype, device) -> nn.Module:
     raise NotImplementedError(f"norm {kind!r} is not ported yet")
 
 
-def per_position(fn, x):
-    """``fn`` applied to each position's rows of x (B, S, ...) on their own,
-    as a (B, 1, ...) contiguous tensor, and the results concatenated on the
-    position axis.  A span of S tokens runs its row-wise operators this way
-    so that every row rounds as in a one-token decode step: on the card a
-    product over B·S rows does not (cuBLAS picks its kernel, and with it the
-    order of each row's sums, by shape), nor does a norm's mean in fp32."""
-    return torch.cat([fn(x[:, i:i + 1].contiguous()) for i in range(x.shape[1])], dim=1)
-
-
 def rope_freqs(head_dim: int, rotary_pct: float, theta: float) -> np.ndarray:
     rot = int(head_dim * rotary_pct) // 2 * 2
     return 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float64) / rot))

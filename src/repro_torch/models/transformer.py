@@ -24,17 +24,11 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (
-    Attention,
-    attention_decode,
-    attention_full,
-    attention_span,
-)
+from repro_torch.models.attention import Attention, attention_decode, attention_full
 from repro_torch.models.layers import (
     empty_param,
     init_normal_,
     make_norm,
-    per_position,
     rope_freqs,
     rope_tables,
 )
@@ -437,33 +431,20 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_span(self, tokens, cache: dict, table=None):
         """tokens: (B, S) int, a short run of S new tokens appended in one
-        call, one dispatch (speculative verification).  Returns logits (B, S, V) float32,
+        call (speculative verification).  Returns logits (B, S, V) float32,
         position i's those of the token after ``tokens[:, i]``, and advances
-        ``cache`` by S tokens, in place: ``cache["len"]`` grows by S in its
-        own tensor, so a graph captured over spans replays on the same
-        memory.  ``table`` as in :meth:`decode_step`.
+        ``cache`` by S tokens, in place.  ``table`` as in :meth:`decode_step`.
 
         Global-attention stacks only, as in the JAX package (``_block_span``):
-        a recurrent or hybrid model, or a sliding-window layer, raises
-        ``ValueError``.  Causality inside the span is a mask, so each
-        position sees what a sequence of :meth:`decode_step` calls would,
-        and the row-wise operators (norms, projections, MLP, logits) run
-        position by position on B rows, so the logits and the cache are
-        those of S ``decode_step`` calls bit for bit: the JAX package's
-        contract, which makes the speculative stream the target's own.  On
-        the card a product over B·S rows rounds otherwise than one over B
-        (``chip_smoke.py`` shows it), and a flipped rounding can flip a
-        token.
+        a recurrent or hybrid model (the only stacks with a sliding-window
+        layer) raises ``ValueError``.  The span is S :meth:`decode_step`
+        calls, so its logits and cache are theirs bit for bit: the JAX
+        package's contract, which makes the speculative stream the target's
+        own.  One product over the B·S rows would round a row otherwise on
+        the card (``chip_smoke.py``'s ``span_rounding`` shows where), so a
+        single-pass span waits for a batch-invariant product.
         """
         if self.recurrent or self.hybrid:
             raise ValueError("decode_span supports global-attention blocks only")
-        x = self._embed_in(tokens)
-        S = x.shape[1]
-        pos = cache["len"]
-        rope = self._rope(pos[:, None] + torch.arange(S, dtype=torch.int32, device=self.device))
-        for blk, j in zip(self.blocks, self.cache_index):
-            x = x + attention_span(blk.attn, self.cfg, per_position(blk.n1, x), cache["k"][j],
-                                   cache["v"][j], pos, table, rope, window=blk.window)
-            x = x + per_position(lambda h: blk.mlp(blk.n2(h)), x)
-        cache["len"] += S
-        return per_position(self._logits, x)
+        return torch.cat([self.decode_step(tokens[:, i:i + 1], cache, table)
+                          for i in range(tokens.shape[1])], dim=1)

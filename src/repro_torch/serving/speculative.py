@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``serving/speculative.py``
 paged :class:`ServingEngine`s over the same token stream, each with
 ``decode_block = spec_k + 1``: the *draft* runs K+1 fused decode steps to
 propose ``spec_k`` tokens, then the *target* scores all of them in one
-:meth:`Model.decode_span` pass.  Each keeps its own paged KV, so batch-prompt
+:meth:`Model.decode_span` call (K+1 of its decode steps in one dispatch).
+Each keeps its own paged KV, so batch-prompt
 prefixes share pages on both sides, and a rejected draft suffix rolls back by
 block-table truncation (``PagedCacheManager.truncate_slot``) plus a write of
 the host's lengths into ``cache["len"]`` at the entry of the next dispatch:
@@ -18,7 +19,7 @@ next token at every draft position (argmax, or for a sampled request
 target alone would draw it).  A draft token is accepted iff it equals that
 choice; the first mismatch emits the target's choice instead, and a fully
 accepted window emits the target's K+1-th token as a bonus.  So the emitted
-stream is the target's own by construction, wherever ``decode_span`` gives
+stream is the target's own by construction, since ``decode_span`` gives
 the logits of sequential decode steps: the draft moves the accept rate,
 never the text.
 

@@ -307,8 +307,8 @@ def _clone(cache):
 @pytest.mark.parametrize("layout", ["paged", "contiguous"])
 def test_decode_span_matches_steps_and_reference(models, layout):
     """A span of 5 tokens against 5 sequential ``decode_step``s of the port
-    (logits and caches bit for bit: the span runs its row-wise operators
-    position by position) and against JAX's ``decode_span`` (within 1e-4).  Paged: row
+    (logits and caches bit for bit: the span is those steps) and against
+    JAX's ``decode_span`` (within 1e-4).  Paged: row
     3 is retired (all sentinels): JAX drops its writes and clips its reads,
     the port writes to the drop page and masks, so only finiteness is
     asked of it.  Contiguous: row 0 runs past ``max_len``, where both drop
