@@ -52,7 +52,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-6 of 0, the fp32 ones also held against the token-by-token oracle, and
    each launched twice (the chain's scratch is left zeroed, so the second
    launch must give the same bits).
-4. Six main paths, each driven with every launch count set to 0 just
+4. Seven main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched and no plain version may see a CUDA tensor.  Each path runs as
    the port runs it, every fused decode dispatch one CUDA-graph replay
@@ -92,6 +92,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       round otherwise than the steps: on a random span, and for the
       self-draft in the workload itself, with a one-pass verify's accept
       rate and streams.
+   g. RoBatch's control plane over a live pool: ``Gateway`` over two
+      ``ServedPoolMember``s of the paths' engines (paged, page 16, graphed,
+      max_len 1024), full-width Qwen1.5-0.5B priced as the tiny pool's
+      ``tiny-s`` ($0.1/$0.4 per 1M tokens in/out) and full-width
+      Qwen1.5-4B as ``tiny-l`` ($0.8/$3.2), on the tiny pool's addition
+      task (32 train, 32 test queries), each model's output head cut to the
+      byte tokenizer's ids and each answer judged by ``parity_judge`` (random
+      weights answer no sum right).  ``fit()`` with the MLP router on the
+      card, coreset 8, ``grid_multiple`` 2 (stages timed); ``submit()`` at
+      two budgets (the plan within each, its groups the invocations, the
+      exact cost equal to the engines' tokens times the prices, every
+      utility the judge's verdict on the parsed answers); ``serve()`` of
+      Poisson arrivals (8 qps, 6 s virtual, windows of 0.5 s, a fifth
+      repeats) through the ``robatch`` policy, the two members dispatched
+      on two threads at once (every capture on its set's own stream):
+      completed + shed = arrivals, repeats hit the cache, every breaker
+      closed, a window dispatched to both members and their invocations
+      overlapping in time; the scheduler's router, proxy and greedy time a
+      window beside the rest of it, and one window traced (busy share).
+      Paged launches = decode dispatches × K × layers and flash launches =
+      prefills × layers, summed over the two engines; one group of each
+      member served again gives the same greedy tokens.
    Graphed against eager, each path a-e must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
@@ -147,6 +169,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -884,6 +907,348 @@ def recurrent_compare(label, streams, streams_e, dec, dec_e, counts, eager_count
     diff = states_equal(label, dec.cache(B), dec_e.cache(B))
     return dict(streams_identical=same, graphs=len(dec.graphs.graphs),
                 replays=dec.graphs.n_replays, final_state_diff=diff)
+
+
+# ---- path g: RoBatch's control plane over a live pool -------------------
+G_PRICES = ("tiny-s", "tiny-l")  # TINY_PRICES of the small and the large member: $0.1/$0.4
+#                                  and $0.8/$3.2 per 1M tokens in/out, a ratio of 8 near
+#                                  the models' 0.46 B : 3.95 B parameters
+G_TRAIN = G_TEST = 32            # the task's queries (build_task_workload)
+G_CORESET = 8
+G_BUDGETS = (1.5, 4.0)           # submit budgets, times the initial plan's amortized cost
+G_QPS, G_SECONDS, G_WINDOW_S, G_REPEAT = 8.0, 6.0, 0.5, 0.2
+G_BUDGET_X = 10.0                # serve budget rate: qps x initial-state cost x this
+G_TRACE_WINDOW = 4               # the serve's window traced by torch.profiler
+BYTE_IDS = 259                   # the byte tokenizer's ids (256 bytes, pad, bos, eos)
+
+
+def byte_head(model):
+    """Zero the output head's columns past the byte tokenizer's 259 ids.  A
+    model with random weights then answers the byte-level task in bytes (the
+    other ids' logits are 0, below the largest of 259 random ones), as a
+    byte-level model would; at full vocab it draws a byte 0.17% of the time,
+    so every parsed answer would be empty.  The product stays at full
+    width."""
+    with torch.no_grad():
+        model.lm_head[:, BYTE_IDS:] = 0
+
+
+def parity_judge(pred, gold):
+    """Path g's verdict on a parsed answer: 1 if its byte length is even.
+    Random weights answer no sum right, so the task's own judge (the last
+    digit) scores every answer 0 and every plan puts all queries on the
+    cheaper member; this judge is a pure function of the parsed answer that
+    varies from answer to answer, so the router's labels vary and RoBatch
+    routes to both members."""
+    return float(len(pred.encode()) % 2 == 0)
+
+
+class Ledger:
+    """Every invocation of a pool member: the member, its queries, the
+    request its engine served (prompt and generated tokens, the engine's own
+    counts), its wall interval and thread, and the member's result."""
+
+    def __init__(self, pool):
+        self.calls = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        for k, m in enumerate(pool):
+            self._wrap(k, m)
+
+    def _wrap(self, k, member):
+        serve, invoke = member.engine.serve, member.invoke_batch
+
+        def engine_serve(reqs):
+            self._local.reqs = reqs
+            return serve(reqs)
+
+        def invoke_batch(wl, batch_idx, **kw):
+            t0 = time.perf_counter()
+            res = invoke(wl, batch_idx, **kw)
+            t1 = time.perf_counter()
+            (req,) = self._local.reqs
+            with self._lock:
+                self.calls.append(dict(k=k, idx=np.asarray(batch_idx).copy(),
+                                       tokens=list(req.tokens), out=list(req.out_tokens),
+                                       t0=t0, t1=t1, thread=threading.get_ident(), res=res))
+            return res
+
+        member.engine.serve = engine_serve
+        member.invoke_batch = invoke_batch
+
+
+@contextlib.contextmanager
+def timing(module, name, into):
+    """Replace ``module.name`` by a wrapper adding each call's wall time to
+    ``into[name]``."""
+    orig = getattr(module, name)
+    into.setdefault(name, 0.0)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            into[name] += time.perf_counter() - t0
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def control_plane(label, dev, models, main_path):
+    """Path g: ``Gateway`` fit, submit and serve over ``ServedPoolMember``s of
+    the port's engines (paged, page 16, graphed, 8 slots, max_len 1024), one
+    a model of ``models``, priced ``G_PRICES``, on the tiny pool's addition
+    task judged by ``parity_judge``; the MLP router trains and predicts on
+    the card.  The whole of it is the main path: launch counts from 0 before
+    fit, read after serve, and held to the engines' own dispatch counts.
+    Returns what it measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Gateway, RunSpec
+    from repro_torch.core import robatch as robatch_mod
+    from repro_torch.core.router import MLPRouter
+    from repro_torch.serving.batcher import BatchPromptFormatter
+    from repro_torch.serving.online import OnlineConfig, OnlineRobatchServer, poisson_arrivals
+    from repro_torch.serving.pool import ServedPoolMember
+    from repro_torch.serving.tinypool import SYSTEM_PROMPT, TINY_PRICES, build_task_workload
+
+    fmt = BatchPromptFormatter(SYSTEM_PROMPT)
+    wl, task = build_task_workload(np.random.default_rng(SEED), fmt, n_train=G_TRAIN,
+                                   n_test=G_TEST)
+    task.judge = parity_judge
+    pool = []
+    for model, price in zip(models, G_PRICES):
+        byte_head(model)
+        c_in, c_out = TINY_PRICES[price]
+        pool.append(ServedPoolMember(model.cfg.name, serving_engine(model, dev), fmt, task,
+                                     c_in=c_in, c_out=c_out, context_len=SERVE_MAX_LEN))
+    ledger = Ledger(pool)
+    spec = RunSpec(router="mlp", coreset_size=G_CORESET, grid_multiple=2, seed=SEED)
+    test = wl.subset_indices("test")
+    out = {"pool": [(m.name, m.c_in, m.c_out) for m in pool]}
+    stages = {}
+    steps, win = [], {}
+    with main_path(label, ("flash_attention", "paged_attention")) as counts:
+        # ---- fit: b=1 labels, router, coreset profiling and calibration
+        gw = Gateway(pool, wl, spec=spec, device=dev)
+        t0 = time.perf_counter()
+        with timing(robatch_mod, "collect_router_labels", stages), \
+                timing(robatch_mod, "train_mlp_router", stages), \
+                timing(robatch_mod, "calibrate_model", stages):
+            n_fit0 = len(ledger.calls)
+            gw.fit()
+        fit_s = time.perf_counter() - t0
+        rb = gw.robatch
+        label_calls = len(wl.subset_indices("train")) * len(pool)
+        profiling = ledger.calls[n_fit0 + label_calls:]
+        stages["profiling"] = sum(c["t1"] - c["t0"] for c in profiling)
+        stages["calibration"] = stages["calibrate_model"] - stages["profiling"]
+        check(isinstance(rb.router, MLPRouter) and rb.router.device == dev,
+              f"{label}: the MLP router is not on {dev}")
+        print(f"[{label}] fit {fit_s:.2f}s: b=1 labels {stages['collect_router_labels']:.2f}s "
+              f"({label_calls} invocations), router {stages['train_mlp_router']:.2f}s on "
+              f"{rb.router.device}, profiling {stages['profiling']:.2f}s, calibration "
+              f"{stages['calibration']:.3f}s; probes {rb.profile.n_probes}, billed tokens "
+              f"{rb.profile.billed_tokens}; labels' mean by member "
+              f"{[round(float(x), 4) for x in rb.train_labels.mean(0)]}")
+        for c in rb.calibrations:
+            print(f"[{label}]   {pool[c.k].name}: b_max {c.b_max}, b_effect {c.b_effect}, "
+                  f"grid {c.grid.tolist()}, profiled means "
+                  f"{ {b: round(u, 4) for b, u in c.u_mean_at.items()} }")
+        out["fit"] = dict(seconds=fit_s, stages=dict(stages), probes=rb.profile.n_probes,
+                          billed_tokens=rb.profile.billed_tokens,
+                          calibrations=[dict(member=pool[c.k].name, b_max=c.b_max,
+                                             b_effect=c.b_effect, grid=c.grid.tolist())
+                                        for c in rb.calibrations])
+
+        # ---- submit at two budgets: plan, commit, and the bill recomputed
+        n_plans0 = len(ledger.calls)
+        pol = gw.policy()
+        space = rb.candidate_space(test)
+        init = float(space.cost[:, space.initial_state].sum())
+        out["submit"] = []
+        for mult in G_BUDGETS:
+            budget = mult * init
+            plan = gw.plan(test, budget)
+            check(plan.est_cost <= budget + 1e-12,
+                  f"{label}: plan costs {plan.est_cost} over the budget {budget}")
+            n0 = len(ledger.calls)
+            got = gw.submit(test, budget)
+            calls = ledger.calls[n0:]
+            check([(c["k"], c["idx"].tolist()) for c in calls]
+                  == [(int(st.model), m.tolist()) for st, m in plan.groups]
+                  and got.n_invocations == len(plan.groups),
+                  f"{label}: the invocations are not the plan's groups")
+            bill = 0.0
+            util = {}
+            for c in calls:
+                member = pool[c["k"]]
+                bill += len(c["tokens"]) * member.c_in / 1e6
+                bill += len(c["out"]) * member.c_out / 1e6
+                ids = c["out"]
+                eos = member.engine.eos_id
+                ids = ids[:ids.index(eos)] if eos in ids else ids
+                answers = fmt.parse(fmt.tokenizer.decode(ids), len(c["idx"]))
+                for q, a in zip(c["idx"], answers):
+                    util[int(q)] = parity_judge(a, task.answers[int(q)])
+            check(got.exact_cost == bill,
+                  f"{label}: exact_cost {got.exact_cost!r}, tokens x prices {bill!r}")
+            check(np.array_equal(got.per_query_utility, [util[int(q)] for q in test]),
+                  f"{label}: a utility is not the judge's verdict on the parsed answer")
+            by = {}
+            for st, m in plan.groups:
+                by.setdefault(pool[int(st.model)].name, []).append(len(m))
+            print(f"[{label}] submit at ${budget:.8f} ({mult} x the initial plan): est cost "
+                  f"${plan.est_cost:.8f}, exact ${got.exact_cost:.8f} (= tokens x prices), "
+                  f"accuracy {got.accuracy:.4f}, {got.n_invocations} invocations, batch sizes "
+                  f"by member {by}")
+            out["submit"].append(dict(budget=budget, est_cost=plan.est_cost,
+                                      exact_cost=got.exact_cost, accuracy=got.accuracy,
+                                      invocations=got.n_invocations, groups=by))
+
+        # ---- serve: Poisson arrivals through the robatch policy
+        base = float(rb.cost_model.state_cost(0, rb.calibrations[0].b_effect, test).mean())
+        cfg = OnlineConfig(budget_per_s=G_QPS * base * G_BUDGET_X, window_s=G_WINDOW_S)
+        arrivals = poisson_arrivals(np.random.default_rng(SEED), G_QPS, G_SECONDS, test,
+                                    repeat_frac=G_REPEAT)
+        orig_ws, orig_pw, orig_step = pol.window_space, pol.plan_window, OnlineRobatchServer.step
+
+        def window_space(query_idx):
+            t = {}
+            sp = rb.candidate_space(query_idx, timings=t)
+            win["router"] += t["router"]
+            win["proxy"] += t["proxy"]
+            return sp
+
+        def plan_window(sp, query_idx, budget, caps=None):
+            t0 = time.perf_counter()
+            try:
+                return orig_pw(sp, query_idx, budget, caps=caps)
+            finally:
+                win["greedy"] += time.perf_counter() - t0
+
+        def step(srv, now=None):
+            win.update(router=0.0, proxy=0.0, greedy=0.0)
+            n0 = len(ledger.calls)
+            rows = None
+            if len(steps) == G_TRACE_WINDOW:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    rep = orig_step(srv, now)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                rows = device_rows(prof)
+            else:
+                t0 = time.perf_counter()
+                rep = orig_step(srv, now)
+                wall = time.perf_counter() - t0
+            steps.append(dict(t=rep.t, wall_s=wall, groups=list(rep.group_models),
+                              sched_s=win["router"] + win["proxy"] + win["greedy"],
+                              split={k: win[k] for k in ("router", "proxy", "greedy")},
+                              invocations=len(ledger.calls) - n0, rows=rows))
+            return rep
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()            # the profiler's start-up, before the serve
+        pol.window_space, pol.plan_window = window_space, plan_window
+        OnlineRobatchServer.step = step
+        n_serve0 = len(ledger.calls)
+        try:
+            t0 = time.perf_counter()
+            stats = gw.serve(arrivals, cfg)
+            serve_s = time.perf_counter() - t0
+        finally:
+            OnlineRobatchServer.step = orig_step
+            pol.window_space, pol.plan_window = orig_ws, orig_pw
+    srv = gw.server
+    engines = [(m.engine.n_prefill_calls, m.engine.n_decode_calls, m.engine.decode_block,
+                m.engine.model.cfg.n_layers) for m in pool]
+    want_paged = sum(d * K * L for _, d, K, L in engines)
+    want_flash = sum(p * L for p, _, _, L in engines)
+    print(f"[{label}] launches: paged {counts['paged_attention']} (decode dispatches x K x "
+          f"layers {want_paged}), flash {counts['flash_attention']} (prefills x layers "
+          f"{want_flash}); engines' (prefills, dispatches): "
+          f"{[(p, d) for p, d, _, _ in engines]}; graphs "
+          f"{[len(m.engine._graphs.graphs) for m in pool]}, replays "
+          f"{[m.engine._graphs.n_replays for m in pool]}")
+    check(counts["paged_attention"] == want_paged > 0,
+          f"{label}: {counts['paged_attention']} paged launches, expected {want_paged}")
+    check(counts["flash_attention"] == want_flash > 0,
+          f"{label}: {counts['flash_attention']} flash launches, expected {want_flash}")
+    check(all(m.engine._graphs.n_replays > 0 for m in pool),
+          f"{label}: a member's engine replayed no graph")
+
+    # ---- the serve's checks
+    shed = sum(w.n_shed for w in srv.windows)
+    print(f"[{label}] serve: {stats.summary()}; {len(srv.windows)} windows in {serve_s:.2f}s")
+    check(stats.n_submitted == len(arrivals) and stats.n_completed == stats.n_submitted
+          and stats.n_dropped == shed, f"{label}: completed + shed != arrivals")
+    check(stats.n_cache_hits > 0, f"{label}: no repeat hit the response cache")
+    check(all(br.state.value == "closed" for br in srv.breakers),
+          f"{label}: a breaker ended {[br.state.value for br in srv.breakers]}")
+    check(sum(w.n_failed for w in srv.windows) == 0 and stats.n_reroutes == 0,
+          f"{label}: a dispatch failed")
+    torch.cuda.synchronize()
+    calls = ledger.calls[n_serve0:]
+    both = [w for w in srv.windows if set(w.group_models) == {0, 1}]
+    overlap = sum(1 for a in calls for b in calls
+                  if a["k"] == 0 and b["k"] == 1 and a["thread"] != b["thread"]
+                  and a["t0"] < b["t1"] and b["t0"] < a["t1"])
+    print(f"[{label}] {len(both)} windows dispatched to both members; {overlap} pairs of a "
+          f"Qwen1.5-0.5B and a Qwen1.5-4B invocation overlapped in time on two threads")
+    check(both and overlap > 0, f"{label}: the two members never ran concurrently")
+    for st in steps:
+        sp = st["split"]
+        print(f"[{label}]   window t={st['t']:.2f}s groups {st['groups']}: scheduler "
+              f"{1e3 * st['sched_s']:.3f} ms (router {1e3 * sp['router']:.3f}, proxy "
+              f"{1e3 * sp['proxy']:.3f}, greedy {1e3 * sp['greedy']:.3f}), the rest of the "
+              f"window (caches, admission, dispatch) {1e3 * (st['wall_s'] - st['sched_s']):.1f}"
+              f" ms" + (" [traced]" if st["rows"] is not None else ""))
+    busy = [s for s in steps if s["rows"] is not None]
+    if busy:
+        st = busy[0]
+        dev_ms = device_total_ms(st["rows"])
+        print(f"[{label}] traced window t={st['t']:.2f}s (groups {st['groups']}): device busy "
+              + ("not measured" if dev_ms is None else
+                 f"{dev_ms:.3f} ms of {1e3 * st['wall_s']:.3f} ms "
+                 f"({100 * dev_ms / (1e3 * st['wall_s']):.1f}%)"))
+        for name, ms in top_device(st["rows"], n=6):
+            print(f"[{label}]   {ms:.4f} ms: {name}")
+        out["traced_window"] = dict(t=st["t"], groups=st["groups"], wall_ms=1e3 * st["wall_s"],
+                                    device_ms=dev_ms, top=top_device(st["rows"], n=6))
+    busy_steps = [s for s in steps if s["groups"]]
+    sched = [s["sched_s"] for s in busy_steps]
+    rest = [s["wall_s"] - s["sched_s"] for s in busy_steps if s["rows"] is None]
+    if sched and rest:
+        print(f"[{label}] windows that dispatched: scheduler {1e3 * np.mean(sched):.3f} ms a "
+              f"window (max {1e3 * max(sched):.3f}), the rest {1e3 * np.mean(rest):.1f} ms "
+              f"(untraced): the scheduler {100 * sum(sched) / (sum(sched) + sum(rest)):.2f}% "
+              f"of those windows")
+
+    # ---- one plan group of each member served again: the same greedy tokens
+    again = []
+    for k in range(len(pool)):
+        first = next((c for c in ledger.calls[n_plans0:] if c["k"] == k), None)
+        check(first is not None, f"{label}: {pool[k].name} served no group")
+        n0 = len(ledger.calls)
+        pool[k].invoke_batch(wl, first["idx"])
+        redo = ledger.calls[n0]
+        again.append(redo["out"] == first["out"] and redo["tokens"] == first["tokens"])
+    print(f"[{label}] one group of each member served again: greedy tokens identical {again}")
+    check(all(again), f"{label}: a group served again gave other tokens")
+    out["serve"] = dict(arrivals=len(arrivals), completed=stats.n_completed, shed=shed,
+                        cache_hits=stats.n_cache_hits, windows=len(srv.windows),
+                        seconds=serve_s, mean_utility=stats.mean_utility,
+                        total_cost=stats.total_cost, windows_both_members=len(both),
+                        overlapping_pairs=overlap,
+                        steps=[{k: v for k, v in s.items() if k != "rows"} for s in steps])
+    out["launches"] = dict(counts)
+    out["engines"] = engines
+    return out
 
 
 def main() -> int:
@@ -1927,6 +2292,9 @@ def main() -> int:
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
     results["speculative_bf16"] = {"self": speculative("spec-self", model, model, probe=True),
                                    "4b": speculative("spec-4b", model4, model)}
+    # ---- path g: RoBatch's control plane over a live pool of the two models
+    results["control_plane"] = control_plane("robatch-pool", dev, (model, model4), main_path)
+    stamp("robatch control plane")
     del model, model4
     torch.cuda.empty_cache()
     # the kernels on the inputs the main paths gave them

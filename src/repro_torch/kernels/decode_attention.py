@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 __all__ = ["decode_attention_cuda", "decode_attention_plain", "HEAD_DIMS"]
 
@@ -174,7 +174,7 @@ def decode_attention_cuda(q, k, v, lengths):
                                          _DTYPE_CODE[q.dtype], bs, ss, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_cuda: launch failed with CUDA error {err}")
-    decode_attention_cuda.launches += 1
+    launches.count(decode_attention_cuda)
     return out
 
 

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "HEAD_DIMS"]
 
@@ -142,7 +142,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
                                     int(window or 0), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed with CUDA error {err}")
-    flash_attention_cuda.launches += 1
+    launches.count(flash_attention_cuda)
     return out
 
 

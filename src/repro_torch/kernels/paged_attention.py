@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 from repro_torch.kernels.decode_attention import decode_attention_plain
 
 __all__ = ["paged_attention_cuda", "paged_attention_plain", "HEAD_DIMS"]
@@ -99,7 +99,7 @@ def paged_attention_cuda(q, k_pool, v_pool, table, lengths):
                                     _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_cuda: launch failed with CUDA error {err}")
-    paged_attention_cuda.launches += 1
+    launches.count(paged_attention_cuda)
     return out
 
 

@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 __all__ = ["rglru_cuda", "rglru_plain", "CHUNK"]
 
@@ -143,7 +143,7 @@ def rglru_cuda(x, a_log, state=None):
                                _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rglru_cuda: launch failed with CUDA error {err}")
-    rglru_cuda.launches += 1
+    launches.count(rglru_cuda)
     return out, h_out
 
 

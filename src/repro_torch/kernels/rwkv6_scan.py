@@ -33,7 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launches
 
 __all__ = ["wkv6_cuda", "wkv6_plain", "HEAD_DIMS", "CHUNK"]
 
@@ -156,7 +156,7 @@ def wkv6_cuda(r, k, v, w, u, state=None):
                          _DTYPE_CODE[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"wkv6_cuda: launch failed with CUDA error {err}")
-    wkv6_cuda.launches += 1
+    launches.count(wkv6_cuda)
     return out, s_out
 
 

@@ -25,28 +25,40 @@ static buffers.  On the card nothing falls back: a capture or a replay that
 fails raises.
 
 The kernel wrappers count their launches in Python, which a replay does not
-run; the set records each wrapper's launches at capture, takes them back
-(capture launched nothing), and adds them at every replay, so the counts
-stay those of the work the card did.
+run; the set collects each wrapper's launches at capture in the capturing
+thread's tally (capture launched nothing), and adds them at every replay,
+so the counts stay those of the work the card did
+(:mod:`repro_torch.kernels.launches`).
+
+Captures may run on several threads at once: the online server runs each
+pool member's engine on its own worker thread, and a member's engine may
+capture while another's launches or synchronises.  So each set captures on
+a stream of its own, in CUDA's thread-local capture mode (another thread's
+allocations and synchronisations neither fail nor invalidate the capture),
+and without the device-wide synchronisation that ``torch.cuda.graph`` makes
+on entry, which would touch the other thread's capturing stream.  PyTorch
+hands streams out from a pool of 32 a device, so two sets may draw the
+same one; a lock a stream keeps their captures apart.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable, Hashable
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import paged_attention_cuda
-from repro_torch.kernels.rglru_scan import rglru_cuda
-from repro_torch.kernels.rwkv6_scan import wkv6_cuda
+from repro_torch.kernels import launches as launch_counts
 
-__all__ = ["GraphSet", "StaticInput", "RecurrentDecoder", "KERNEL_WRAPPERS"]
+__all__ = ["GraphSet", "StaticInput", "RecurrentDecoder"]
 
-# every wrapper that counts its launches (``<wrapper>.launches``)
-KERNEL_WRAPPERS = (flash_attention_cuda, paged_attention_cuda, decode_attention_cuda,
-                   wkv6_cuda, rglru_cuda)
+_stream_locks: dict[int, threading.Lock] = {}     # capture stream handle -> its lock
+_stream_locks_guard = threading.Lock()
+
+
+def _capture_lock(stream) -> threading.Lock:
+    with _stream_locks_guard:
+        return _stream_locks.setdefault(stream.cuda_stream, threading.Lock())
 
 
 class GraphSet:
@@ -57,13 +69,15 @@ class GraphSet:
     later call replays.  On the CPU it runs ``body()``.  Returns what the
     body returned (for a graph, the tensors it returned at capture, which
     each replay rewrites).  ``graphs`` maps each key to its graph;
-    ``n_replays`` counts replays.
+    ``n_replays`` counts replays.  On the card ``stream`` is the set's own
+    capture stream.
     """
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
+        self.stream = torch.cuda.Stream(self.device) if self.on_card else None
         self.graphs: dict[Hashable, Captured] = {}
         self._warm: set = set()
         self.n_replays = 0
@@ -79,28 +93,33 @@ class GraphSet:
             entry = self.graphs[key] = self._capture(body)
         entry.graph.replay()
         for fn, n in entry.launches:
-            fn.launches += n
+            launch_counts.count(fn, n)
         self.n_replays += 1
         return entry.out
 
     def _capture(self, body: Callable) -> "Captured":
         """Capture ``body`` into a graph of this set's pool, with its outputs
         and each wrapper's launches in it."""
-        before = [fn.launches for fn in KERNEL_WRAPPERS]
-        graph, out = self._record(body)
-        launches = []
-        for fn, n0 in zip(KERNEL_WRAPPERS, before):
-            if fn.launches != n0:
-                launches.append((fn, fn.launches - n0))
-            fn.launches = n0
-        return Captured(graph, out, launches)
+        with launch_counts.tally() as tally:
+            graph, out = self._record(body)
+        return Captured(graph, out, list(tally.items()))
 
     def _record(self, body: Callable):
-        """The CUDA capture itself: runs the body's Python once on the
-        capture stream, which records its launches without running them."""
+        """The CUDA capture itself: runs the body's Python once on the set's
+        capture stream, which records its launches without running them.
+        The capture stream first waits for the work queued on the current
+        stream, and the current stream (where replays run) for the capture."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(graph, pool=self.pool):
-            out = body()
+        with torch.cuda.device(self.device), _capture_lock(self.stream):
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+                try:
+                    out = body()
+                finally:
+                    graph.capture_end()
+            current.wait_stream(self.stream)
         return graph, out
 
 

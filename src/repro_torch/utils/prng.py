@@ -19,7 +19,12 @@ port is the JAX package's stream:
 * :func:`uniform`, :func:`gumbel` and :func:`categorical` — ``jax.random``'s
   float32 ``uniform`` on ``[minval, 1)`` (23 random mantissa bits under the
   exponent of 1.0, minus 1), its "low" gumbel ``−log(−log(u))`` with ``u``
-  on ``[tiny, 1)``, and ``argmax(gumbel + logits)``.
+  on ``[tiny, 1)``, and ``argmax(gumbel + logits)``;
+* :func:`split` and :func:`normal` — ``jax.random.split`` (with
+  ``jax_threefry_partitionable`` on, key i of a split is ``fold_in(key, i)``)
+  and float32 ``jax.random.normal``: ``√2 · erfinv(u)`` with u uniform on
+  ``(−1, 1)``, through :func:`erfinv32`, XLA's single-precision inverse error
+  function (Giles' polynomials), since ``torch.erfinv`` rounds otherwise.
 
 Keys are ``(..., 2)`` tensors and every word is held in ``int64``, masked to
 32 bits, because ``torch.uint32`` lacks arithmetic on some devices; the
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 __all__ = ["prng_key", "threefry2x32", "fold_in", "random_bits", "uniform", "gumbel",
-           "categorical"]
+           "categorical", "split", "normal", "erfinv32"]
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -117,3 +122,45 @@ def categorical(keys, logits):
     of the largest ``gumbel + logits``.  keys (B, 2); logits (B, n) float32.
     Returns (B,) int64."""
     return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
+
+
+def split(key, n: int = 2):
+    """``jax.random.split(key, n)`` of one key ((2,) int64 words): (n, 2),
+    row i the key hashed with the counter pair ``(0, i)``."""
+    count = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(count), count)
+    return torch.stack([y0, y1], dim=-1)
+
+
+# Giles' single-precision coefficients, as XLA's ``ErfInv32`` holds them
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv32(x):
+    """XLA's float32 inverse error function: w = −log1p(−x²), a degree-8
+    polynomial in w − 2.5 (w < 5) or √w − 3, times x; ±1 maps to ±max."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype, device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype, device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(x.abs() == 1, x * torch.finfo(x.dtype).max, p * x)
+
+
+def normal(key, shape):
+    """float32 ``jax.random.normal(key, shape)`` of one key ((2,) int64
+    words): ``√2 · erfinv(u)``, u uniform on [nextafter(−1, 0), 1), the bits
+    those of the flattened shape."""
+    n = int(np.prod(shape))
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, n, lo)
+    return (float(np.sqrt(np.float32(2.0))) * erfinv32(u)).reshape(shape)

@@ -22,6 +22,9 @@ from repro.serving import engine as jengine
 from repro.serving import kvpool as jkvpool
 from repro_torch.config import get_arch
 from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.kernels import launches
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.models.attention import attention_decode
 from repro_torch.models.bridge import state_from_jax
 from repro_torch.models.transformer import Model
@@ -181,8 +184,10 @@ def test_allocator_pinned_to_reference_on_full_pool():
 
 
 def test_unported_paths_raise(models, monkeypatch, capsys):
-    """The ``online`` and ``http`` modes of the launcher are not ported yet
-    and raise; the paged KV cache refuses a sliding window, as the JAX
+    """The ``http`` mode of the launcher is not ported yet and raises; the
+    ``online`` mode is ported (``tests/test_torch_online.py``) and, like
+    every entry point, raises without a card unless ``--device cpu`` is
+    given; the paged KV cache refuses a sliding window, as the JAX
     package asserts (ring caches are the contiguous layout's).  Sampled
     decoding and speculative decoding are ported now
     (``tests/test_torch_sampling.py``, ``tests/test_torch_speculative.py``), so
@@ -197,9 +202,12 @@ def test_unported_paths_raise(models, monkeypatch, capsys):
     assert "served 2/2 requests" in out and "speculative: k=4 rounds=" in out
     with pytest.raises(SystemExit, match="paged"):
         launcher.engine_main(["--draft-member", "tiny-s", "--contiguous", "--device", "cpu"])
-    for mode in ("online", "http"):
-        monkeypatch.setattr("sys.argv", ["serve", mode])
-        with pytest.raises(NotImplementedError, match="control plane"):
+    monkeypatch.setattr("sys.argv", ["serve", "http"])
+    with pytest.raises(NotImplementedError, match="HTTP front end"):
+        launcher.main()
+    if not torch.cuda.is_available():
+        monkeypatch.setattr("sys.argv", ["serve", "online"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             launcher.main()
     for paged in (True, False):
         eng = engine.ServingEngine(model, max_slots=2, max_len=64, paged=paged, device="cpu")
@@ -220,8 +228,8 @@ class EmulatedGraphs(graphs.GraphSet):
     """``GraphSet`` with its card path emulated on the CPU.  A "capture"
     runs the body once (its work stands for the first replay's, which is
     then skipped), and every later replay runs the captured closure again
-    into the captured outputs, with the wrappers' counters left as they
-    were, as a replay runs no Python.  The body (the engine's is a
+    into the captured outputs, its launches tallied aside and dropped, as a
+    replay runs no Python.  The body (the engine's is a
     ``partial`` of its dispatch's values) keeps the values it was made with,
     as a graph keeps its inputs' addresses; but unlike a graph the rerun
     reads attributes afresh, so only the card holds a replay against the
@@ -239,10 +247,8 @@ class EmulatedGraphs(graphs.GraphSet):
             if first[0]:
                 first[0] = False
                 return
-            saved = [fn.launches for fn in graphs.KERNEL_WRAPPERS]
-            out.copy_(body())
-            for fn, n in zip(graphs.KERNEL_WRAPPERS, saved):
-                fn.launches = n
+            with launches.tally():          # a replay runs no Python
+                out.copy_(body())
 
         return SimpleNamespace(replay=replay), out
 
@@ -317,16 +323,17 @@ def test_graph_path_replays_keys_out_of_capture_order(models, paged):
 
 def test_graph_set_keys_and_launch_counts():
     """First call of a key eager, second captured then replayed, later ones
-    replayed; a wrapper's launches ticked at capture are taken back and
-    added at every replay, so they count the work done."""
+    replayed; a wrapper's launches ticked at capture go to the capture's
+    tally, not the counter, and are added at every replay, so they count the
+    work done."""
     gs = EmulatedGraphs()
-    wrapper = graphs.KERNEL_WRAPPERS[1]
+    wrapper = paged_attention_cuda
     start = wrapper.launches
     calls = []
 
     def body(tag):
         calls.append(tag)
-        wrapper.launches += 3
+        launches.count(wrapper, 3)
         return torch.tensor([len(calls)])
 
     try:
@@ -338,4 +345,47 @@ def test_graph_set_keys_and_launch_counts():
         assert gs.run("b", lambda: body("b")).item() == 4 and len(gs.graphs) == 1
         assert gs.n_replays == 2
     finally:
+        wrapper.launches = start
+
+
+def test_launch_counts_hold_across_threads():
+    """Launches counted from many threads at once while one thread holds a
+    capture's tally open: the counter ends at the launches made outside the
+    tally, and the tally holds exactly its own thread's."""
+    import sys
+    import threading
+
+    wrapper = flash_attention_cuda
+    start = wrapper.launches
+    n_threads, per = 16, 2000
+    tallies = []
+    in_tally, others_done = threading.Event(), threading.Barrier(n_threads)
+
+    def work(i):
+        if i == 0:
+            with launches.tally() as t:
+                in_tally.set()
+                for _ in range(per):
+                    launches.count(wrapper)
+                others_done.wait(timeout=60)
+            tallies.append(t)
+        else:
+            in_tally.wait(timeout=60)
+            for _ in range(per):
+                launches.count(wrapper)
+            others_done.wait(timeout=60)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert wrapper.launches == start + (n_threads - 1) * per
+        assert tallies == [{wrapper: per}]
+    finally:
+        sys.setswitchinterval(old)
         wrapper.launches = start

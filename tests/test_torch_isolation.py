@@ -22,6 +22,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.configs.recurrentgemma_9b\n"
             "import repro_torch.serving.graphs, repro_torch.utils.prng\n"
             "import repro_torch.serving.speculative, repro_torch.configs.qwen1_5_4b\n"
+            "import repro_torch.api, repro_torch.core, repro_torch.serving.online\n"
+            "import repro_torch.serving.pool, repro_torch.serving.tinypool\n"
+            "import repro_torch.serving.semcache, repro_torch.training.optimizer\n"
+            "import repro_torch.data, repro_torch.kernels.launches\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")

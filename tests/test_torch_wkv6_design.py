@@ -259,3 +259,32 @@ def test_bfloat16_inputs_round_the_output_only():
     np.testing.assert_allclose(out.to(torch.bfloat16).float().numpy(), plain_out.float().numpy(),
                                atol=2e-2, rtol=2e-2)
     _close(s_t, plain_s, PLAIN_TOL)
+
+
+def _criterion(got, want):
+    """The smallest tol at which ``_close(got, want, tol)`` holds (atol =
+    rtol = tol): max |got − want| / (1 + |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (1 + np.abs(want))))
+
+
+def test_wkv6_jnp_pair_exponent_fault_is_pinned():
+    """A fault of the reference: ``_wkv6_jnp`` takes each pair decay as
+    ``exp(L_excl[t] − L[s])``, a difference of fp32 cumulative sums of the
+    log-decays (``src/repro/kernels/ops.py:286-296``).  With decays near 1
+    beside 1e-12 in one chunk (``wide``) those sums run to hundreds, and at
+    RWKV6-3B's head width (D=64, 4 heads, 64 tokens, seed 6) its output
+    leaves the oracle's 2e-4 (2.6e-4 from ``wkv6_ref`` and from the float64
+    oracle), while ``wkv6_ref`` stays within 1e-5 of the float64 oracle and
+    the port's plain version within 2e-5.  The port follows the oracles."""
+    arrs = _inputs(np.random.default_rng(6), 1, 64, 4, 64, "wide")
+    j = [jnp.asarray(a) for a in arrs]
+    t = [torch.from_numpy(a) for a in arrs]
+    jnp_out, _ = jops._wkv6_jnp(*j, C)
+    ref_out, _ = jref.wkv6_ref(*j)
+    exact_out, _ = _oracle64(*t)
+    plain_out, _ = wkv6_plain(*t)
+    assert _criterion(jnp_out, ref_out) > WKV_TOL
+    assert _criterion(jnp_out, exact_out.numpy()) > WKV_TOL
+    assert _criterion(ref_out, exact_out.numpy()) < 1e-5
+    assert _criterion(plain_out.numpy(), exact_out.numpy()) < PLAIN_TOL
