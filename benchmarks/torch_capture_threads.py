@@ -8,26 +8,21 @@ This script serves two full-width Qwen1.5-0.5B engines (bf16, paged, page
 16, random weights) from two threads started together, each through serves
 whose table widths change, so that every serve captures a new key, and
 holds the streams and the paged kernel's launches against the same serves
-run one engine after the other.  It does so twice, each time in a process
-of its own, since a failed capture can leave the CUDA context unusable:
+run one engine after the other, in 3 rounds.  ``GraphSet`` captures on a
+stream of its own in thread-local mode, each capture's launches in a tally
+of its own thread; a capture through ``torch.cuda.graph`` (one capture
+stream shared by every graph of the process, global mode, a device-wide
+synchronisation on entry) failed here at its first capture beside the
+other thread's serving, as ``PERF.md`` records.
 
-* ``parent`` — the capture as the port made it before the online server
-  came: ``torch.cuda.graph`` (one capture stream shared by every graph of
-  the process, global capture mode, a device-wide synchronisation on
-  entry), its launches read as the change of the global counters;
-* ``sets`` — ``GraphSet`` as it is: a capture stream a set, thread-local
-  capture mode, no device-wide synchronisation, each capture's launches in
-  a tally of its own thread.
+    python3 benchmarks/torch_capture_threads.py
 
-    python3 benchmarks/torch_capture_threads.py [--rounds 3]
-
-Each mode prints one JSON line: the errors raised, whether the concurrent
-streams and launches equal the sequential ones, captures and replays, and
-how many captures overlapped the other thread's serving.  Needs one card.
+Prints one JSON line (the errors raised, whether the concurrent streams and
+launches equal the sequential ones, captures and replays, and how many
+captures overlapped the other thread's serving), then whether the captures
+were safe; exits 0 only if they were.  Needs one card.
 """
-import argparse
 import json
-import subprocess
 import sys
 import threading
 import time
@@ -40,32 +35,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 N_SERVES = 6          # serves a thread; each widens the page table
+ROUNDS = 3
 SLOTS = 8
-
-
-def parent_capture(gs, body):
-    """``GraphSet._capture`` as the parent tree had it: the wrappers'
-    launches at capture taken back as a change of the global counters, the
-    capture in ``torch.cuda.graph``."""
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
-    from repro_torch.kernels.rglru_scan import rglru_cuda
-    from repro_torch.kernels.rwkv6_scan import wkv6_cuda
-    from repro_torch.serving import graphs
-
-    wrappers = (flash_attention_cuda, paged_attention_cuda, decode_attention_cuda,
-                wkv6_cuda, rglru_cuda)
-    before = [fn.launches for fn in wrappers]
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(gs.device), torch.cuda.graph(graph, pool=gs.pool):
-        out = body()
-    launches = []
-    for fn, n0 in zip(wrappers, before):
-        if fn.launches != n0:
-            launches.append((fn, fn.launches - n0))
-        fn.launches = n0
-    return graphs.Captured(graph, out, launches)
 
 
 def requests(seed, serve):
@@ -79,7 +50,7 @@ def requests(seed, serve):
                     max_new=24) for i in range(SLOTS)]
 
 
-def child(mode: str, rounds: int) -> dict:
+def rounds() -> dict:
     from repro_torch.config import get_arch
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -97,7 +68,7 @@ def child(mode: str, rounds: int) -> dict:
     def timed_capture(gs, body):
         t0 = time.perf_counter()
         try:
-            return parent_capture(gs, body) if mode == "parent" else real_capture(gs, body)
+            return real_capture(gs, body)
         finally:
             spans[gs.tag].append((t0, time.perf_counter(), "capture"))
 
@@ -126,8 +97,8 @@ def child(mode: str, rounds: int) -> dict:
             traceback.print_exc()
         spans[i].append((t0, time.perf_counter(), "serve"))
 
-    out = dict(mode=mode, torch=torch.__version__, errors=[], rounds=[])
-    for rnd in range(rounds):
+    out = dict(torch=torch.__version__, errors=[], rounds=[])
+    for _ in range(ROUNDS):
         for k in spans:
             spans[k].clear()
         paged_attention_cuda.launches = 0
@@ -173,34 +144,16 @@ def child(mode: str, rounds: int) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=("both", "parent", "sets"), default="both")
-    ap.add_argument("--rounds", type=int, default=3)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_capture_threads: needs a CUDA device", file=sys.stderr)
         return 1
-    if args.mode != "both":
-        print(json.dumps(child(args.mode, args.rounds)), flush=True)
-        return 0
-    ok = True
-    for mode in ("parent", "sets"):
-        p = subprocess.run([sys.executable, __file__, "--mode", mode, "--rounds",
-                            str(args.rounds)], capture_output=True, text=True, timeout=900)
-        last = p.stdout.strip().splitlines()[-1:] or [""]
-        try:
-            res = json.loads(last[0])
-        except json.JSONDecodeError:
-            res = dict(mode=mode, errors=[f"exit {p.returncode}"],
-                       stderr_tail=p.stderr.strip().splitlines()[-6:])
-        res["exit"] = p.returncode
-        print(json.dumps(res), flush=True)
-        if mode == "sets":
-            ok = (p.returncode == 0 and not res["errors"]
-                  and all(r["streams_identical"]
-                          and r["launches_concurrent"] == r["launches_sequential"]
-                          == r["launches_expected"] for r in res["rounds"]))
-    print(f"sets: {'safe' if ok else 'NOT SAFE'} under concurrent captures")
+    res = rounds()
+    print(json.dumps(res), flush=True)
+    ok = not res["errors"] and all(
+        r["streams_identical"]
+        and r["launches_concurrent"] == r["launches_sequential"] == r["launches_expected"]
+        for r in res["rounds"])
+    print(f"GraphSet: {'safe' if ok else 'NOT SAFE'} under concurrent captures")
     return 0 if ok else 1
 
 

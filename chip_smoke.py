@@ -112,8 +112,10 @@ Phases, in order; any failure raises and the script exits non-zero:
       overlapping in time; the scheduler's router, proxy and greedy time a
       window beside the rest of it, and one window traced (busy share).
       Paged launches = decode dispatches × K × layers and flash launches =
-      prefills × layers, summed over the two engines; one group of each
-      member served again gives the same greedy tokens.
+      prefills × layers, summed over the two engines; the first eager flash
+      and paged call at each head width (64 and 128) is recorded and held
+      against the plain version; one group of each member served again
+      gives the same greedy tokens.
    Graphed against eager, each path a-e must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
@@ -891,6 +893,31 @@ def recording(module, name, keep):
         setattr(module, name, orig)
 
 
+@contextlib.contextmanager
+def recording_by_width(module, name):
+    """Replace ``module.name`` by a wrapper that clones the arguments of the
+    first call at each head width (the first argument's last dimension)
+    made outside a CUDA-graph capture into ``calls[width]``, and then calls
+    through.  Safe across threads."""
+    orig = getattr(module, name)
+    calls = {}
+    lock = threading.Lock()
+
+    def wrapper(*args, **kwargs):
+        q = args[0]
+        width = int(q.shape[-1])
+        if width not in calls and not (q.is_cuda and torch.cuda.is_current_stream_capturing()):
+            with lock:
+                if width not in calls:
+                    calls[width] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                                    dict(kwargs))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
 
 
 def recurrent_compare(label, streams, streams_e, dec, dec_e, counts, eager_counts):
@@ -1005,11 +1032,16 @@ def control_plane(label, dev, models, main_path):
     task judged by ``parity_judge``; the MLP router trains and predicts on
     the card.  The whole of it is the main path: launch counts from 0 before
     fit, read after serve, and held to the engines' own dispatch counts.
-    Returns what it measured."""
+    The first eager flash and paged call at each member's head width is
+    recorded and, after the path, held against the plain version.  Returns
+    what it measured, and those calls by (kernel, head width)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import Gateway, RunSpec
     from repro_torch.core import robatch as robatch_mod
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as paged_mod
     from repro_torch.core.router import MLPRouter
     from repro_torch.serving.batcher import BatchPromptFormatter
     from repro_torch.serving.online import OnlineConfig, OnlineRobatchServer, poisson_arrivals
@@ -1032,7 +1064,9 @@ def control_plane(label, dev, models, main_path):
     out = {"pool": [(m.name, m.c_in, m.c_out) for m in pool]}
     stages = {}
     steps, win = [], {}
-    with main_path(label, ("flash_attention", "paged_attention")) as counts:
+    with main_path(label, ("flash_attention", "paged_attention")) as counts, \
+            recording_by_width(ops, "flash_attention") as flash_calls, \
+            recording_by_width(ops, "paged_attention") as paged_calls:
         # ---- fit: b=1 labels, router, coreset profiling and calibration
         gw = Gateway(pool, wl, spec=spec, device=dev)
         t0 = time.perf_counter()
@@ -1181,6 +1215,39 @@ def control_plane(label, dev, models, main_path):
           f"{label}: {counts['flash_attention']} flash launches, expected {want_flash}")
     check(all(m.engine._graphs.n_replays > 0 for m in pool),
           f"{label}: a member's engine replayed no graph")
+    widths = {}
+    for m, (p, d, K, L) in zip(pool, engines):
+        w = widths.setdefault(m.engine.model.cfg.head_dim, dict(flash_attention=0,
+                                                                 paged_attention=0))
+        w["flash_attention"] += p * L
+        w["paged_attention"] += d * K * L
+    out["launches_by_width"] = widths
+
+    # ---- each kernel against its plain version on this path's own inputs:
+    # the first eager call at each member's head width (a prefill of a b=1
+    # label's prompt, a decode dispatch's first layer)
+    recorded = {("flash_attention", D): c for D, c in flash_calls.items()}
+    recorded |= {("paged_attention", D): c for D, c in paged_calls.items()}
+    check(sorted(recorded) == sorted((n, D) for D in widths
+                                     for n in ("flash_attention", "paged_attention")),
+          f"{label}: inputs recorded at {sorted(recorded)}, widths {sorted(widths)}")
+    pair = {"flash_attention": (flash_mod.flash_attention_cuda, flash_mod.flash_attention_plain),
+            "paged_attention": (paged_mod.paged_attention_cuda, paged_mod.paged_attention_plain)}
+    out["kernels_vs_plain"] = []
+    for (name, D), (args, kw) in sorted(recorded.items()):
+        kw = {"causal": kw.get("causal", True), "window": kw.get("window")} \
+            if name == "flash_attention" else {}
+        fn, ref_fn = pair[name]
+        got, want = fn(*args, **kw), ref_fn(*args, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        tol = TOL[args[0].dtype]
+        print(f"[{label}] {name} at D={D} on this path's inputs, q {list(args[0].shape)} "
+              f"{str(args[0].dtype)[6:]}: max|err| {err:.3g}, row-relative {rel:.3g} (tol {tol})")
+        check(err <= tol and rel <= tol, f"{label}: {name} at D={D}: max abs err {err:.3g}, "
+              f"row-relative {rel:.3g} > {tol}")
+        out["kernels_vs_plain"].append(dict(name=name, head_dim=D, q=list(args[0].shape),
+                                            max_abs_err=err, row_rel_err=rel, tol=tol))
 
     # ---- the serve's checks
     shed = sum(w.n_shed for w in srv.windows)
@@ -1248,7 +1315,7 @@ def control_plane(label, dev, models, main_path):
                         steps=[{k: v for k, v in s.items() if k != "rows"} for s in steps])
     out["launches"] = dict(counts)
     out["engines"] = engines
-    return out
+    return out, recorded
 
 
 def main() -> int:
@@ -2293,7 +2360,8 @@ def main() -> int:
     results["speculative_bf16"] = {"self": speculative("spec-self", model, model, probe=True),
                                    "4b": speculative("spec-4b", model4, model)}
     # ---- path g: RoBatch's control plane over a live pool of the two models
-    results["control_plane"] = control_plane("robatch-pool", dev, (model, model4), main_path)
+    results["control_plane"], g_recorded = control_plane("robatch-pool", dev, (model, model4),
+                                                         main_path)
     stamp("robatch control plane")
     del model, model4
     torch.cuda.empty_cache()
@@ -2362,6 +2430,29 @@ def main() -> int:
         shape=dict(q=list(pargs4[0].shape), pool=list(pargs4[1].shape),
                    table=list(pargs4[3].shape), lengths=pargs4[4].tolist(),
                    dtype=str(pargs4[0].dtype))))
+    # flash at D=128: Qwen1.5-4B's prefill on path g
+    (hq, hk, hv), hkw = g_recorded["flash_attention", qcfg.head_dim]
+    hkw = {"causal": hkw.get("causal", True), "window": hkw.get("window")}
+    h_out, h_want = flash_kernel(hq, hk, hv, **hkw), flash_plain(hq, hk, hv, **hkw)
+    h_err = (h_out.float() - h_want.float()).abs().max().item()
+    h_rel = row_rel_err(h_out, h_want)
+    check(h_err <= TOL[hq.dtype] and h_rel <= TOL[hq.dtype], f"flash d128 on main-path inputs: "
+          f"max abs err {h_err:.3g}, row-relative {h_rel:.3g} > {TOL[hq.dtype]}")
+    hqt, hkt, hvt = (x.transpose(1, 2).contiguous() for x in (hq, hk, hv))
+    h_bound, h_by = bound_ms(*flash_work(hq, hk, hkw["window"]), hq.dtype)
+    entries.append(dict(
+        name="flash_attention_d128", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:124",
+        launches=results["control_plane"]["launches_by_width"][qcfg.head_dim][
+            "flash_attention"],
+        max_abs_err=h_err, atol=TOL[hq.dtype], rtol=0.0, row_rel_err=h_rel,
+        out_max=h_want.float().abs().max().item(),
+        ms=timed_ms(lambda: flash_kernel(hq, hk, hv, **hkw), 50, flush),
+        plain_ms=timed_ms(lambda: flash_plain(hq, hk, hv, **hkw), 10, flush),
+        bound_ms=h_bound, bound_by=h_by,
+        library_ms=timed_ms(lambda: sdpa(hqt, hkt, hvt, is_causal=True), 50, flush),
+        shape=dict(q=list(hq.shape), k=list(hk.shape), dtype=str(hq.dtype))))
     (dq, dk, dv, dlen), _ = decode_call
     dk, dv = horizon_view(dk, SERVE_MAX_LEN), horizon_view(dv, SERVE_MAX_LEN)
     d_out, d_want = decode_kernel(dq, dk, dv, dlen), decode_plain(dq, dk, dv, dlen)
@@ -2502,6 +2593,7 @@ def main() -> int:
     cupti = {"flash_attention": (lambda: flash_kernel(fq, fk, fv, **fkw), "flash_", 50),
              "paged_attention": (lambda: paged_kernel(*pargs), "paged_decode_kernel", 50),
              "paged_attention_d128": (lambda: paged_kernel(*pargs4), "paged_decode_kernel", 50),
+             "flash_attention_d128": (lambda: flash_kernel(hq, hk, hv, **hkw), "flash_", 50),
              "decode_attention": (lambda: decode_kernel(dq, dk, dv, dlen), "decode_", 50),
              "wkv6": (lambda: wkv6_kernel(*wpa), "wkv6_", 50),
              "rglru_scan": (lambda: rglru_kernel(*gpa), "rglru_", 50),
@@ -2509,6 +2601,7 @@ def main() -> int:
              "decode_attention_d256": (lambda: decode_kernel(eq, ek, ev, elen), "decode_", 50)}
     # the library calls the same way: every kernel SDPA runs, by CUPTI
     library = {"flash_attention": (lambda: sdpa(qt, kt, vt, is_causal=True), 50),
+               "flash_attention_d128": (lambda: sdpa(hqt, hkt, hvt, is_causal=True), 50),
                "decode_attention": (lambda: sdpa(sq, sk, sv, attn_mask=smask), 50),
                "flash_attention_d256": (lambda: sdpa(gqt, gkt, gvt, attn_mask=win_mask), 10),
                "decode_attention_d256": (lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50)}

@@ -38,7 +38,8 @@ allocations and synchronisations neither fail nor invalidate the capture),
 and without the device-wide synchronisation that ``torch.cuda.graph`` makes
 on entry, which would touch the other thread's capturing stream.  PyTorch
 hands streams out from a pool of 32 a device, so two sets may draw the
-same one; a lock a stream keeps their captures apart.
+same one; one lock keeps captures apart (they are rare: once a key), while
+replays and eager calls run unlocked.
 """
 from __future__ import annotations
 
@@ -52,13 +53,7 @@ from repro_torch.kernels import launches as launch_counts
 
 __all__ = ["GraphSet", "StaticInput", "RecurrentDecoder"]
 
-_stream_locks: dict[int, threading.Lock] = {}     # capture stream handle -> its lock
-_stream_locks_guard = threading.Lock()
-
-
-def _capture_lock(stream) -> threading.Lock:
-    with _stream_locks_guard:
-        return _stream_locks.setdefault(stream.cuda_stream, threading.Lock())
+_capture_lock = threading.Lock()     # held by a capture, capture_begin to capture_end
 
 
 class GraphSet:
@@ -110,7 +105,7 @@ class GraphSet:
         The capture stream first waits for the work queued on the current
         stream, and the current stream (where replays run) for the capture."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), _capture_lock(self.stream):
+        with torch.cuda.device(self.device), _capture_lock:
             current = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
