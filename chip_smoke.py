@@ -6,12 +6,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit, as nvidia-smi reports them.
-2. Build: the five CUDA kernel sources compiled by nvcc from
+2. Build: the six CUDA kernel sources compiled by nvcc from
    ``src/repro_torch/csrc``, one nvcc per source, all started together;
    ptxas's report per kernel (the paged kernel's D=128 instantiations,
    bf16 and fp32, must be among them), and no spill in the WKV6 kernels,
-   the RG-LRU kernel, the wide-head decode kernel or the paged kernel at
-   D=128;
+   the RG-LRU kernel, the wide-head decode kernel, the paged kernel at
+   D=128 or the flash backward's kernels;
    ``cuobjdump -sass`` of the flash library must show HGMMA (Hopper's
    tensor-core product) in the bf16 kernel at every head width, and the
    RG-LRU kernel's fp64 instructions (its exp(2a) near 0) are counted.
@@ -51,10 +51,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    with a carried state and log-gates mild, strong (down to −20) and within
    1e-6 of 0, the fp32 ones also held against the token-by-token oracle, and
    each launched twice (the chain's scratch is left zeroed, so the second
-   launch must give the same bits).
-4. Seven main paths, each driven with every launch count set to 0 just
+   launch must give the same bits); the flash backward (dq, dk, dv) at
+   D in {32, 64}, G in {1, 2, 4}, S in {1, 37, 128, 512} and with a window
+   shorter than S, bf16 and fp32, each gradient held row by row (fp32 1e-4,
+   bf16 2e-2) and each case launched twice with identical bits.
+4. Eight main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
-   launched and no plain version may see a CUDA tensor.  Each path runs as
+   launched, no plain version may see a CUDA tensor, and flash attention
+   builds autograd nodes (``FlashAttention``) on the training paths only.  Each path runs as
    the port runs it, every fused decode dispatch one CUDA-graph replay
    (``serving/graphs.py``: a key's first dispatch eager, the next captured),
    and then again on the same inputs through the eager body (the graphs'
@@ -116,6 +120,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       and paged call at each head width (64 and 128) is recorded and held
       against the plain version; one group of each member served again
       gives the same greedy tokens.
+   h. training on the card, in four parts, each its own main path:
+      h1, full-width Qwen1.5-0.5B in bf16 trained 12 steps of 8 x 512
+      tokens (``Trainer``, ``ShardedPipeline`` over ``synthetic_lm_stream``,
+      AdamW with the cosine schedule, a checkpoint every 6 steps): finite
+      losses and grad norms, the last 3 losses' mean below the first, flash
+      forward and backward launched 12 x 24 times each, a fresh ``Trainer``
+      restoring step 12 bit for bit; step times in turns against
+      ``remat="block"``, peak memory and one traced step (busy share, the
+      backward's share); h2, tiny-m in fp32 trained 3 steps through the
+      kernels and through the plain versions (losses within 1e-5 relative,
+      step-1 gradients within 1e-4 row-relative) and microbatches 4 against
+      1 (1e-4); h3, the tiny pool trained on the card (``build_tiny_pool``,
+      300 steps a member; backward launches = steps x layers), then
+      ``Gateway.fit`` with the MLP router and ``submit()`` at two budgets
+      judged by the task's own judge (plan within budget, invocations =
+      groups, exact cost = tokens x prices), with the exact cost over the
+      plan's estimate and each member's accuracy at b=1 and at its b_effect
+      printed; h4, ``Gateway.serve_http`` over that pool on loopback:
+      ``/v1/models``, ``/healthz``, four unary completions equal to
+      ``Gateway.serve``'s in-process bodies, a stream equal to its unary
+      twin, ``/metrics`` parsed with its request counters equal to the
+      requests sent, and a clean ``stop()``.
    Graphed against eager, each path a-e must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
@@ -160,7 +186,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The line before the last is a JSON object with one entry per kernel (time,
 CUPTI time, launches, bound, plain and library times, the library's by
-CUPTI too); the last line is
+CUPTI too), the flash backward's at h1's and h3's first call, beside the
+backward of SDPA on the same tensors; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke_results.json``.  Needs a CUDA device and the
 repository's ``src/`` beside this file.
@@ -169,8 +196,10 @@ import contextlib
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -246,7 +275,8 @@ def timed_ms(fn, iters, flush):
 
 def device_ms(fn, kernel_substr, iters=50, before=None):
     """CUPTI device time of one call of ``fn``: the self device time of every
-    kernel whose name holds ``kernel_substr``, summed over ``iters`` calls
+    kernel whose name holds ``kernel_substr`` (or one of a tuple of them),
+    summed over ``iters`` calls
     (each after ``before()``, an L2 flush, when it is given) and divided by
     ``iters``, so a call that runs several kernels counts them all."""
     from torch.profiler import ProfilerActivity, profile
@@ -259,16 +289,18 @@ def device_ms(fn, kernel_substr, iters=50, before=None):
                 before()
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel_substr in e.key]
+    frags = kernel_substr if isinstance(kernel_substr, tuple) else (kernel_substr,)
+    rows = [e for e in prof.key_averages() if any(f in e.key for f in frags)]
     total = sum(e.self_device_time_total for e in rows)
     return None if not rows else total / iters / 1e3
 
 
 def library_device_ms(fn, iters=50, before=None, op="aten::scaled_dot_product_attention"):
     """CUPTI device time of one library call ``fn``: the device time of every
-    kernel that the PyTorch operator ``op`` runs, its children's included,
-    summed over ``iters`` calls (each after ``before()``, which runs outside
-    the operator) and divided by ``iters``."""
+    kernel that the PyTorch operator ``op`` (a name, or a predicate on the
+    names) runs, its children's included, summed over ``iters`` calls (each
+    after ``before()``, which runs outside the operator) and divided by
+    ``iters``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -279,7 +311,8 @@ def library_device_ms(fn, iters=50, before=None, op="aten::scaled_dot_product_at
                 before()
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages() if e.key == op)
+    match = op if callable(op) else (lambda key: key == op)
+    total = sum(e.device_time_total for e in prof.key_averages() if match(e.key))
     return total / iters / 1e3 if total else None
 
 
@@ -920,6 +953,33 @@ def recording_by_width(module, name):
         setattr(module, name, orig)
 
 
+@contextlib.contextmanager
+def recording_backward(flash_mod):
+    """Clone the inputs of the first flash backward at each head width (the
+    saved q, k, v, the output's gradient and the mask arguments) into
+    ``calls[width]`` by wrapping ``FlashAttention.backward``; the kernel's
+    own wrapper, whose launch counter the paths read, is left as it is."""
+    cls = flash_mod.FlashAttention
+    orig = cls.backward
+    calls = {}
+    lock = threading.Lock()
+
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        with lock:
+            if q.shape[-1] not in calls:
+                calls[q.shape[-1]] = (
+                    [t.detach().clone() for t in (q, k, v, d_out.contiguous())],
+                    dict(causal=ctx.causal, window=ctx.window))
+        return orig(ctx, d_out)
+
+    cls.backward = staticmethod(backward)
+    try:
+        yield calls
+    finally:
+        cls.backward = staticmethod(orig)
+
+
 def recurrent_compare(label, streams, streams_e, dec, dec_e, counts, eager_counts):
     """Graphed against eager on a recurrent path: identical streams and
     launches (checked), the final state bit-equal (reported), and the
@@ -1025,6 +1085,54 @@ def timing(module, name, into):
         setattr(module, name, orig)
 
 
+def submit_checked(label, gw, pool, ledger, fmt, judge, test, budgets, init):
+    """``Gateway.submit`` at each of ``budgets`` times ``init`` (the initial
+    plan's cost): the plan within the budget, its groups the invocations
+    the ledger saw, the exact cost the engines' tokens times the members'
+    prices, and every utility ``judge``'s verdict on the parsed answer.
+    Returns what each submit gave."""
+    task = pool[0].task
+    out = []
+    for mult in budgets:
+        budget = mult * init
+        plan = gw.plan(test, budget)
+        check(plan.est_cost <= budget + 1e-12,
+              f"{label}: plan costs {plan.est_cost} over the budget {budget}")
+        n0 = len(ledger.calls)
+        got = gw.submit(test, budget)
+        calls = ledger.calls[n0:]
+        check([(c["k"], c["idx"].tolist()) for c in calls]
+              == [(int(st.model), m.tolist()) for st, m in plan.groups]
+              and got.n_invocations == len(plan.groups),
+              f"{label}: the invocations are not the plan's groups")
+        bill = 0.0
+        util = {}
+        for c in calls:
+            member = pool[c["k"]]
+            bill += len(c["tokens"]) * member.c_in / 1e6
+            bill += len(c["out"]) * member.c_out / 1e6
+            ids = c["out"]
+            eos = member.engine.eos_id
+            ids = ids[:ids.index(eos)] if eos in ids else ids
+            answers = fmt.parse(fmt.tokenizer.decode(ids), len(c["idx"]))
+            for q, a in zip(c["idx"], answers):
+                util[int(q)] = judge(a, task.answers[int(q)])
+        check(got.exact_cost == bill,
+              f"{label}: exact_cost {got.exact_cost!r}, tokens x prices {bill!r}")
+        check(np.array_equal(got.per_query_utility, [util[int(q)] for q in test]),
+              f"{label}: a utility is not the judge's verdict on the parsed answer")
+        by = {}
+        for st, m in plan.groups:
+            by.setdefault(pool[int(st.model)].name, []).append(len(m))
+        print(f"[{label}] submit at ${budget:.8f} ({mult} x the initial plan): est cost "
+              f"${plan.est_cost:.8f}, exact ${got.exact_cost:.8f} (= tokens x prices), "
+              f"accuracy {got.accuracy:.4f}, {got.n_invocations} invocations, batch sizes "
+              f"by member {by}")
+        out.append(dict(budget=budget, est_cost=plan.est_cost, exact_cost=got.exact_cost,
+                        accuracy=got.accuracy, invocations=got.n_invocations, groups=by))
+    return out
+
+
 def control_plane(label, dev, models, main_path):
     """Path g: ``Gateway`` fit, submit and serve over ``ServedPoolMember``s of
     the port's engines (paged, page 16, graphed, 8 slots, max_len 1024), one
@@ -1104,45 +1212,8 @@ def control_plane(label, dev, models, main_path):
         pol = gw.policy()
         space = rb.candidate_space(test)
         init = float(space.cost[:, space.initial_state].sum())
-        out["submit"] = []
-        for mult in G_BUDGETS:
-            budget = mult * init
-            plan = gw.plan(test, budget)
-            check(plan.est_cost <= budget + 1e-12,
-                  f"{label}: plan costs {plan.est_cost} over the budget {budget}")
-            n0 = len(ledger.calls)
-            got = gw.submit(test, budget)
-            calls = ledger.calls[n0:]
-            check([(c["k"], c["idx"].tolist()) for c in calls]
-                  == [(int(st.model), m.tolist()) for st, m in plan.groups]
-                  and got.n_invocations == len(plan.groups),
-                  f"{label}: the invocations are not the plan's groups")
-            bill = 0.0
-            util = {}
-            for c in calls:
-                member = pool[c["k"]]
-                bill += len(c["tokens"]) * member.c_in / 1e6
-                bill += len(c["out"]) * member.c_out / 1e6
-                ids = c["out"]
-                eos = member.engine.eos_id
-                ids = ids[:ids.index(eos)] if eos in ids else ids
-                answers = fmt.parse(fmt.tokenizer.decode(ids), len(c["idx"]))
-                for q, a in zip(c["idx"], answers):
-                    util[int(q)] = parity_judge(a, task.answers[int(q)])
-            check(got.exact_cost == bill,
-                  f"{label}: exact_cost {got.exact_cost!r}, tokens x prices {bill!r}")
-            check(np.array_equal(got.per_query_utility, [util[int(q)] for q in test]),
-                  f"{label}: a utility is not the judge's verdict on the parsed answer")
-            by = {}
-            for st, m in plan.groups:
-                by.setdefault(pool[int(st.model)].name, []).append(len(m))
-            print(f"[{label}] submit at ${budget:.8f} ({mult} x the initial plan): est cost "
-                  f"${plan.est_cost:.8f}, exact ${got.exact_cost:.8f} (= tokens x prices), "
-                  f"accuracy {got.accuracy:.4f}, {got.n_invocations} invocations, batch sizes "
-                  f"by member {by}")
-            out["submit"].append(dict(budget=budget, est_cost=plan.est_cost,
-                                      exact_cost=got.exact_cost, accuracy=got.accuracy,
-                                      invocations=got.n_invocations, groups=by))
+        out["submit"] = submit_checked(label, gw, pool, ledger, fmt, parity_judge, test,
+                                       G_BUDGETS, init)
 
         # ---- serve: Poisson arrivals through the robatch policy
         base = float(rb.cost_model.state_cost(0, rb.calibrations[0].b_effect, test).mean())
@@ -1318,6 +1389,384 @@ def control_plane(label, dev, models, main_path):
     return out, recorded
 
 
+# ---- path h: training, the trained tiny pool and the HTTP front end -------
+H_STEPS, H_BATCH, H_SEQ = 12, 8, 512    # h1: full-width Qwen1.5-0.5B steps of B x S tokens
+H_CKPT_EVERY = 6
+H_TURN_STEPS = 2                        # steps a leg of the remat turns: none, block, block, none
+H_PARITY_STEPS = 3                      # h2: fp32 steps, through the kernels and the plain versions
+H_POOL_STEPS = 300                      # h3: the tiny pool's training steps (the JAX default)
+H_POOL_QUERIES = 48                     # h3: the task's train and test queries each
+H_CORESET = 8
+H_BUDGETS = (1.5, 4.0)                  # h3: submit budgets, times the initial plan's cost
+H_HTTP_QUERIES = (0, 5, 11, 23)         # h4: positions in the test set asked over HTTP
+H_WINDOW_S = 0.05                       # h4: the live server's admission window
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # backward kernel vs plain, row-relative
+BWD_KERNELS = ("lse_delta_kernel", "dkdv_kernel", "dq_kernel")
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
+                         r'(,[a-zA-Z0-9_]+="[^"]*")*\})? (-?[0-9.e+-]+|\+Inf|NaN)$')
+
+
+def bwd_work(q, k, window):
+    """Bytes (q, k, v and dO read once, dq, dk, dv written once) and FLOPs
+    (five products of 2·D a visible causal pair: S, dP, dV, dK, dQ) of one
+    backward call."""
+    B, S, H, D = q.shape
+    Hk = k.shape[2]
+    i = np.arange(S)
+    pairs = int(np.minimum(i + 1, window).sum() if window else (i + 1).sum())
+    n_bytes = q.element_size() * (3 * B * S * H * D + 4 * B * S * Hk * D)
+    return n_bytes, 10 * D * pairs * B * H
+
+
+def parse_prometheus(text):
+    """Samples of a Prometheus text page as {line name with labels: value};
+    every line is a comment or a well-formed sample, and every sample's
+    family is declared."""
+    typed, samples = set(), {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            typed.add(line.split()[2])
+            continue
+        check(PROM_SAMPLE.match(line), f"/metrics: unparseable sample {line!r}")
+        key, value = line.rsplit(" ", 1)
+        name = re.split(r"[{ ]", key)[0]
+        check(name in typed or re.sub(r"_(bucket|sum|count)$", "", name) in typed,
+              f"/metrics: sample {name} of no declared family")
+        samples[key] = float(value)
+    return samples
+
+
+def train_qwen(label, dev, main_path, ckpt_dir):
+    """h1: full-width Qwen1.5-0.5B trained in bf16 for ``H_STEPS`` steps of
+    ``H_BATCH`` x ``H_SEQ`` tokens from ``synthetic_lm_stream`` through
+    ``ShardedPipeline``, as ``launch/train.py`` builds it (``remat="none"``,
+    AdamW with the cosine schedule, clip 1.0), checkpointing every
+    ``H_CKPT_EVERY`` steps; a fresh ``Trainer`` restores the last step bit
+    for bit.  Then step times in turns against ``remat="block"`` and one
+    traced step.  Returns what it measured and the first backward call's
+    inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ShardingConfig, get_arch
+    from repro_torch.data.pipeline import ShardedPipeline, synthetic_lm_stream
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+    from repro_torch.training.train_loop import Trainer, make_train_step, train_state
+
+    cfg = get_arch("qwen1.5-0.5b")
+    held = torch.cuda.memory_allocated()     # what earlier paths still hold
+    model = Model(cfg, ShardingConfig(remat="none"), device=dev)
+    opt = adamw(cosine_schedule(3e-3, warmup=10, total=H_STEPS), grad_clip=1.0)
+    tr = Trainer(model, opt, model.shard, ckpt_dir=ckpt_dir, ckpt_every=H_CKPT_EVERY)
+    params, state, start = tr.restore_or_init(torch.Generator(device=dev).manual_seed(SEED))
+    check(start == 0, f"{label}: a checkpoint was there before training")
+    pipe = ShardedPipeline(synthetic_lm_stream(cfg.vocab_size, H_BATCH, H_SEQ, seed=SEED),
+                           device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with main_path(label, ("flash_attention", "flash_attention_bwd"), autograd=True) as counts, \
+            recording_backward(flash_mod) as bwd_calls:
+        t0 = time.perf_counter()
+        params, state, hist = tr.fit(params, state, (b for _, b in zip(range(H_STEPS), pipe)),
+                                     log_every=1)
+        fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    step_s = np.diff([0.0] + [h["time"] for h in hist])
+    print(f"[{label}] {cfg.name} {model.param_count() / 1e9:.3f} B parameters, bf16, "
+          f"{H_STEPS} steps of {H_BATCH} x {H_SEQ} tokens in {fit_s:.1f}s (checkpoints every "
+          f"{H_CKPT_EVERY} included): losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in norms]}; host-clock step seconds "
+          f"{[round(float(x), 3) for x in step_s]}; peak memory {peak / 2**30:.2f} GiB (above "
+          f"{held / 2**30:.2f} GiB that earlier paths hold)")
+    check(len(hist) == H_STEPS and np.all(np.isfinite(losses)) and np.all(np.isfinite(norms)),
+          f"{label}: a loss or grad norm is not finite")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"{label}: the last 3 losses {losses[-3:]} are not below the first {losses[0]}")
+    want = H_STEPS * cfg.n_layers
+    check(counts["flash_attention"] == counts["flash_attention_bwd"] == want,
+          f"{label}: flash forward {counts['flash_attention']} and backward "
+          f"{counts['flash_attention_bwd']} launches, expected {want} each")
+
+    # ---- a fresh trainer restores the last checkpoint bit for bit
+    model2 = Model(cfg, ShardingConfig(remat="none"), device=dev)
+    tr2 = Trainer(model2, opt, model2.shard, ckpt_dir=ckpt_dir, ckpt_every=H_CKPT_EVERY)
+    t0 = time.perf_counter()
+    p2, s2, start2 = tr2.restore_or_init(torch.Generator(device=dev).manual_seed(SEED + 1))
+    restore_s = time.perf_counter() - t0
+    live, back = train_state(params, state), train_state(p2, s2)
+    differ = [k for k in live if k not in back or not torch.equal(live[k], back[k])]
+    print(f"[{label}] a fresh Trainer restored step {start2} in {restore_s:.1f}s: "
+          f"{len(back)} tensors, {len(differ)} differ from the trained state")
+    check(start2 == H_STEPS and set(back) == set(live) and not differ,
+          f"{label}: restored step {start2}, differing tensors {differ[:5]}")
+    del model2, tr2, p2, s2, back, live
+    torch.cuda.empty_cache()
+
+    # ---- step time in turns: remat none, block, block, none
+    run = {"params": params, "state": state}
+
+    def leg(remat):
+        step = make_train_step(model, opt, ShardingConfig(remat=remat))
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(H_TURN_STEPS):
+            batch = next(pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["params"], run["state"], m = step(run["params"], run["state"], batch)
+            check(np.isfinite(float(m["loss"])), f"{label}: remat {remat}: loss not finite")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times, torch.cuda.max_memory_allocated() - held
+
+    turns = {"none": [], "block": []}
+    peaks = {}
+    for remat in ("none", "block", "block", "none"):
+        times, pk = leg(remat)
+        turns[remat] += times
+        peaks[remat] = max(peaks.get(remat, 0), pk)
+    for remat, times in turns.items():
+        print(f"[{label}] remat={remat}: {1e3 * np.mean(times):.1f} ms a step (host clock, "
+              f"{len(times)} steps in two turns: {[round(1e3 * t, 1) for t in times]}), peak "
+              f"memory {peaks[remat] / 2**30:.2f} GiB")
+
+    # ---- one traced step
+    step = make_train_step(model, opt, ShardingConfig(remat="none"))
+    batch = next(pipe)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run["params"], run["state"], m = step(run["params"], run["state"], batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    pipe.close()
+    rows = device_rows(prof)
+    dev_ms = device_total_ms(rows)
+    bwd_ms = sum(e.self_device_time_total for e in rows
+                 if any(n in e.key for n in BWD_KERNELS)) / 1e3
+    print(f"[{label}] traced step: device busy "
+          + ("not measured (no device time in the trace)" if dev_ms is None else
+             f"{dev_ms:.2f} ms of {wall_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%); the "
+             f"backward kernels {bwd_ms:.3f} ms ({100 * bwd_ms / dev_ms:.2f}% of the busy "
+             f"time)"))
+    top = top_device(rows, n=8)
+    for name, ms in top:
+        print(f"[{label}]   {ms:.3f} ms: {name}")
+    out = dict(params=model.param_count(), losses=losses, grad_norms=norms,
+               step_s=step_s.tolist(), fit_s=fit_s, peak_bytes=peak, restore_s=restore_s,
+               remat_turns_s=turns, remat_peak_bytes=peaks,
+               traced_step=dict(wall_ms=wall_ms, device_ms=dev_ms, backward_ms=bwd_ms, top=top),
+               launches=dict(counts))
+    return out, bwd_calls[cfg.head_dim]
+
+
+def train_parity(label, dev, main_path, plain_kernels):
+    """h2: tiny-m in fp32 (head width 32) from one seeded init, trained
+    ``H_PARITY_STEPS`` steps through the kernels and again through the plain
+    versions (``ops`` routed to them, as the fp32 parity phases route them):
+    losses within 1e-5 relative, the first step's gradients within 1e-4
+    row-relative; and ``microbatches=4`` against 1 on one batch."""
+    from repro_torch.config import ShardingConfig, get_arch
+    from repro_torch.data.pipeline import synthetic_lm_stream
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import make_train_step, trainable
+
+    cfg = get_arch("tiny-m")
+    init = Model(cfg, ShardingConfig(remat="none"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED)).state_dict()
+    stream = synthetic_lm_stream(cfg.vocab_size, 8, 128, seed=SEED + 1)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+               for _ in range(H_PARITY_STEPS)]
+
+    def run(micro=1, steps=H_PARITY_STEPS):
+        model = Model(cfg, ShardingConfig(remat="none", microbatches=micro), device=dev)
+        model.load_state_dict(init)
+        opt = adamw(3e-3, grad_clip=1.0)
+        params = trainable(model)
+        grads = torch.autograd.grad(model.loss(batches[0]), list(params.values()))
+        step, st = make_train_step(model, opt, model.shard), opt.init(list(params.values()))
+        losses = []
+        for b in batches[:steps]:
+            params, st, m = step(params, st, b)
+            losses.append(float(m["loss"]))
+        return losses, dict(zip(params, grads))
+
+    with main_path(label, ("flash_attention", "flash_attention_bwd"), autograd=True):
+        lk, gk = run()
+        l1, _ = run(micro=1, steps=1)
+        l4, _ = run(micro=4, steps=1)
+    with plain_kernels():
+        lp, gp = run()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    grad_rel = {n: row_rel_err(gk[n], gp[n]) for n in gk}
+    worst = max(grad_rel, key=grad_rel.get)
+    micro_rel = abs(l4[0] - l1[0]) / abs(l1[0])
+    print(f"[{label}] tiny-m fp32, {H_PARITY_STEPS} steps: losses kernels {lk}, plain {lp}, "
+          f"max relative difference {loss_rel:.3g} (tol 1e-5); step-1 gradients row-relative "
+          f"max {grad_rel[worst]:.3g} at {worst} (tol 1e-4); microbatches 4 vs 1: losses "
+          f"{l4[0]:.6f} vs {l1[0]:.6f}, relative {micro_rel:.3g} (tol 1e-4)")
+    check(loss_rel <= 1e-5, f"{label}: kernel and plain losses differ by {loss_rel:.3g}")
+    check(grad_rel[worst] <= 1e-4, f"{label}: gradient {worst} differs by {grad_rel[worst]:.3g}")
+    check(micro_rel <= 1e-4, f"{label}: microbatches 4 vs 1 differ by {micro_rel:.3g}")
+    return dict(losses_kernels=lk, losses_plain=lp, loss_rel=loss_rel,
+                grad_row_rel=grad_rel[worst], worst_grad=worst, micro_rel=micro_rel)
+
+
+def tiny_pool_path(label, dev, main_path):
+    """h3 and h4: the tiny pool trained on the card (``build_tiny_pool``, the
+    JAX package's steps, prices and members), ``Gateway.fit`` with the MLP
+    router on the card and ``submit()`` at two budgets judged by the task's
+    own judge; then the HTTP front end over that pool on loopback, its unary
+    answers held to ``Gateway.serve``'s in-process ones.  Returns what it
+    measured and the first backward call's inputs."""
+    import urllib.request
+
+    from repro_torch.api import RunSpec
+    from repro_torch.api.gateway import Gateway
+    from repro_torch.core.router import MLPRouter
+    from repro_torch.http.protocol import completion_response
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.serving.online import OnlineConfig
+    from repro_torch.serving.tinypool import build_tiny_pool
+
+    out = {}
+    expect = ("flash_attention", "flash_attention_bwd", "paged_attention")
+    with main_path(f"{label}-train-fit-submit", expect, autograd=True) as counts, \
+            recording_backward(flash_mod) as bwd_calls:
+        t0 = time.perf_counter()
+        wl, pool, fmt = build_tiny_pool(np.random.default_rng(SEED), steps=H_POOL_STEPS,
+                                        n_train=H_POOL_QUERIES, n_test=H_POOL_QUERIES,
+                                        device=dev)
+        train_s = time.perf_counter() - t0
+        out["members"] = {}
+        for m in pool:
+            log = m.engine.model.train_log
+            ls = log["losses"]
+            print(f"[{label}] trained {m.name} ({m.engine.model.param_count() / 1e6:.2f} M "
+                  f"parameters, fp32): loss {ls[0]:.4f} -> {np.mean(ls[-20:]):.4f} (mean of "
+                  f"the last 20) in {log['seconds']:.1f}s, {len(ls)} steps")
+            check(np.all(np.isfinite(ls)) and np.mean(ls[-20:]) < ls[0],
+                  f"{label}: {m.name}'s loss is not finite or did not fall")
+            out["members"][m.name] = dict(first=ls[0], last20=float(np.mean(ls[-20:])),
+                                          seconds=log["seconds"])
+        ledger = Ledger(pool)
+        test = wl.subset_indices("test")
+        gw = Gateway(pool, wl, spec=RunSpec(router="mlp", coreset_size=H_CORESET,
+                                            grid_multiple=2, seed=SEED), device=dev)
+        t0 = time.perf_counter()
+        gw.fit()
+        fit_s = time.perf_counter() - t0
+        rb = gw.robatch
+        check(isinstance(rb.router, MLPRouter) and rb.router.device == dev,
+              f"{label}: the MLP router is not on {dev}")
+        for c in rb.calibrations:
+            u = c.u_mean_at
+            print(f"[{label}]   {pool[c.k].name}: accuracy at b=1 {u.get(1, float('nan')):.4f}, "
+                  f"at b_effect={c.b_effect} {u.get(c.b_effect, float('nan')):.4f}; profiled "
+                  f"means { {b: round(x, 4) for b, x in u.items()} }")
+        space = rb.candidate_space(test)
+        init = float(space.cost[:, space.initial_state].sum())
+        subs = submit_checked(label, gw, pool, ledger, fmt, pool[0].task.judge, test,
+                              H_BUDGETS, init)
+        for sub in subs:
+            print(f"[{label}] exact cost / the plan's estimate at ${sub['budget']:.8f}: "
+                  f"{sub['exact_cost'] / sub['est_cost']:.4f}")
+    n_layers = sum(m.engine.model.cfg.n_layers for m in pool)
+    print(f"[{label}] pool trained in {train_s:.1f}s, fit {fit_s:.1f}s; flash backward "
+          f"launches {counts['flash_attention_bwd']} (steps x layers over the three: "
+          f"{H_POOL_STEPS * n_layers})")
+    check(counts["flash_attention_bwd"] == H_POOL_STEPS * n_layers,
+          f"{label}: {counts['flash_attention_bwd']} backward launches, expected "
+          f"{H_POOL_STEPS * n_layers}")
+    out.update(train_s=train_s, fit_s=fit_s, submit=subs, launches=dict(counts),
+               calibrations=[dict(member=pool[c.k].name, b_effect=c.b_effect,
+                                  u_mean_at={int(b): float(x) for b, x in c.u_mean_at.items()})
+                             for c in rb.calibrations])
+
+    # ---- h4: the HTTP front end over the trained pool, on loopback
+    def post(base, body):
+        req = urllib.request.Request(base + "/v1/chat/completions",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=120)
+
+    cfg = OnlineConfig(budget_per_s=1e6, window_s=H_WINDOW_S, realtime=True)
+    with main_path(f"{label}-http", ("flash_attention", "paged_attention")):
+        fe = gw.serve_http(cfg, policy="robatch", host="127.0.0.1", port=0)
+        try:
+            base = f"http://127.0.0.1:{fe.port}"
+            with urllib.request.urlopen(base + "/v1/models", timeout=30) as r:
+                models = [m["id"] for m in json.loads(r.read())["data"]]
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+            unary = []
+            for q in H_HTTP_QUERIES:       # sequential: each rides its own window
+                with post(base, {"messages": [{"role": "user", "content": "x"}],
+                                 "query_idx": q}) as r:
+                    body = json.loads(r.read())
+                body["robatch"].pop("latency_s")
+                unary.append(body)
+            frames = []
+            with post(base, {"messages": [{"role": "user", "content": "x"}],
+                             "query_idx": H_HTTP_QUERIES[0], "stream": True}) as r:
+                for line in r:
+                    line = line.strip()
+                    if line.startswith(b"data: "):
+                        payload = line[len(b"data: "):]
+                        frames.append("DONE" if payload == b"[DONE]" else json.loads(payload))
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                metrics = r.read().decode()
+        finally:
+            fe.stop()
+    check(models == [m.name for m in pool], f"{label}-http: /v1/models lists {models}")
+    check(health["status"] == "ok", f"{label}-http: /healthz says {health['status']}")
+    check(frames and frames[-1] == "DONE", f"{label}-http: the stream did not end in [DONE]")
+    streamed = "".join(c["choices"][0]["delta"].get("content", "") for c in frames[:-1])
+    check(streamed == unary[0]["choices"][0]["message"]["content"],
+          f"{label}-http: streamed {streamed!r}, unary "
+          f"{unary[0]['choices'][0]['message']['content']!r}")
+    samples = parse_prometheus(metrics)
+
+    def total(prefix):
+        return sum(v for k, v in samples.items() if k.startswith(prefix))
+
+    sent = {"/v1/chat/completions": len(H_HTTP_QUERIES) + 1, "/v1/models": 1, "/healthz": 1}
+    counted = {p: total(f'robatch_http_requests_total{{path="{p}"') for p in sent}
+    completed = total("robatch_requests_total{")
+    print(f"[{label}-http] /v1/models {models}; /healthz {health['status']}; "
+          f"{len(H_HTTP_QUERIES)} unary answers "
+          f"{[b['choices'][0]['message']['content'] for b in unary]} by "
+          f"{[b['model'] for b in unary]}; the stream's {len(frames)} frames give {streamed!r}; "
+          f"/metrics: {len(samples)} samples, HTTP requests by path {counted}, completed "
+          f"requests {completed}; threads leaked at stop {fe.threads_leaked}")
+    check(counted == sent and completed == len(H_HTTP_QUERIES) + 1,
+          f"{label}-http: /metrics counts {counted} and {completed} completed, sent {sent}")
+    check(not fe.threads_leaked, f"{label}-http: stop() leaked {fe.threads_leaked}")
+    # the same queries through Gateway.serve in process, each in its own window
+    gw.serve([(i * H_WINDOW_S * 2, int(test[q])) for i, q in enumerate(H_HTTP_QUERIES)],
+             OnlineConfig(budget_per_s=1e6, window_s=H_WINDOW_S))
+    by_rid = {r.rid: r for r in gw.server.completed}
+    same = []
+    for rid, body in enumerate(unary):
+        req = by_rid[rid]
+        want = completion_response(req, pool[req.model].name, wl)
+        want["robatch"].pop("latency_s")
+        same.append(body == want)
+    print(f"[{label}-http] unary bodies equal to Gateway.serve's in process (latency left out): "
+          f"{same}")
+    check(all(same), f"{label}-http: an HTTP answer differs from the in-process one")
+    out["http"] = dict(models=models, unary=[b["choices"][0]["message"]["content"]
+                                             for b in unary], streamed=streamed,
+                       requests_by_path=counted, completed=completed)
+    return out, bwd_calls[pool[0].engine.model.cfg.head_dim], gw
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
@@ -1339,13 +1788,17 @@ def main() -> int:
             "decode_attention": (decode_mod, "decode_attention_cuda", "decode_attention_plain"),
             "wkv6": (wkv6_mod, "wkv6_cuda", "wkv6_plain"),
             "rglru_scan": (rglru_mod, "rglru_cuda", "rglru_plain")}
-    kernel = {n: getattr(m, c) for n, (m, c, _) in kern.items()}
-    plain = {n: getattr(m, p) for n, (m, _, p) in kern.items()}
+    # the backward is reached through FlashAttention, not an ops entry point
+    wrapped = {**kern, "flash_attention_bwd": (flash_mod, "flash_attention_backward_cuda",
+                                               "flash_attention_backward_plain")}
+    kernel = {n: getattr(m, c) for n, (m, c, _) in wrapped.items()}
+    plain = {n: getattr(m, p) for n, (m, _, p) in wrapped.items()}
     flash_kernel, flash_plain = kernel["flash_attention"], plain["flash_attention"]
     paged_kernel, paged_plain = kernel["paged_attention"], plain["paged_attention"]
     decode_kernel, decode_plain = kernel["decode_attention"], plain["decode_attention"]
     wkv6_kernel, wkv6_plain = kernel["wkv6"], plain["wkv6"]
     rglru_kernel, rglru_plain = kernel["rglru_scan"], plain["rglru_scan"]
+    bwd_kernel, bwd_plain = kernel["flash_attention_bwd"], plain["flash_attention_bwd"]
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False        # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -1384,8 +1837,8 @@ def main() -> int:
                     paged128 = re.search(PAGED_D128, entry)
                     if paged128 and "Used" in line:
                         d128_seen.add(paged128[1])
-                    redesigned = (name in ("rwkv6_scan", "rglru_scan") or "decode_wide" in entry
-                                  or paged128)
+                    redesigned = (name in ("rwkv6_scan", "rglru_scan", "flash_attention_bwd")
+                                  or "decode_wide" in entry or paged128)
                     check(not redesigned or spill is None or spill[1] == spill[2] == "0",
                           f"ptxas spills in {entry}: {line}")
     check(d128_seen == {"f", "13__nv_bfloat16"},
@@ -1453,6 +1906,36 @@ def main() -> int:
         flash_case("mha-window-d128", 1, 130, 4, 4, 128, dtype, window=100)
         flash_case("rgemma-prefill-d256", 4, 3072, 16, 1, 256, dtype, window=2048)
     flash_case("gqa3-window-d256", 1, 250, 12, 4, 256, torch.bfloat16, window=64)
+
+    def bwd_case(label, B, S, H, Hk, D, dtype, window=None):
+        """The backward kernel, launched twice (the same bits required: it
+        has no atomics), against its plain version, each gradient held row
+        by row."""
+        q, k, v, do = (randn(B, S, h, D, dtype=dtype) for h in (H, Hk, Hk, H))
+        got = bwd_kernel(q, k, v, do, window=window)
+        again = bwd_kernel(q, k, v, do, window=window)
+        want = bwd_plain(q, k, v, do, window=window)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rel = [row_rel_err(a, b) for a, b in zip(got, want)]
+        err = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+        tol = BWD_TOL[dtype]
+        print(f"[kernels] flash backward {label} B={B} S={S} H={H} Hk={Hk} D={D} "
+              f"{str(dtype)[6:]} window={window}: row-relative dq {rel[0]:.3g}, dk {rel[1]:.3g}, "
+              f"dv {rel[2]:.3g} (tol {tol}); max|err| {max(err):.3g}; two launches "
+              f"{'identical' if same else 'DIFFER'}")
+        check(same, f"flash backward {label}: two launches gave different bits")
+        check(max(rel) <= tol, f"flash backward {label}: row-relative err {max(rel):.3g} > {tol}")
+        results["cases"].append(dict(kernel="flash_attention_bwd", label=label, B=B, S=S, H=H,
+                                     Hk=Hk, D=D, dtype=str(dtype), window=window,
+                                     row_rel_err=rel, max_abs_err=err, identical=same))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (32, 64):
+            for G in (1, 2, 4):
+                for S in (1, 37, 128, 512):
+                    bwd_case(f"G={G}", 2, S, 8, 8 // G, D, dtype)
+            bwd_case("window", 2, 300, 8, 2, D, dtype, window=64)
 
     def paged_inputs(dtype, B=8, ps=16, H=16, Hk=16, D=64, max_len=512):
         """Pools and a table with a shared prefix of up to 8 pages (rows 0-3), a CoW
@@ -1820,27 +2303,40 @@ def main() -> int:
         return wrapper
 
     @contextlib.contextmanager
-    def main_path(label, expect):
+    def main_path(label, expect, autograd=False):
         """Launch counts to 0 before the path, read after; every kernel of
         ``expect`` must have launched and no plain version may see a CUDA
-        tensor."""
+        tensor.  ``FlashAttention`` nodes (flash attention under autograd)
+        are counted too: a training path (``autograd``) must build them, a
+        serving path none."""
         for fn in kernel.values():
             fn.launches = 0
         plain_on_cuda["n"] = 0
-        for n, (m, _, p) in kern.items():
+        nodes = {"n": 0}
+        apply = flash_mod.FlashAttention.apply
+
+        def counted_apply(*args):
+            nodes["n"] += 1
+            return apply(*args)
+
+        for n, (m, _, p) in wrapped.items():
             setattr(m, p, guard(plain[n]))
+        flash_mod.FlashAttention.apply = counted_apply
         counts = {}
         try:
             torch.cuda.synchronize()
             yield counts
             torch.cuda.synchronize()
         finally:
-            for n, (m, _, p) in kern.items():
+            del flash_mod.FlashAttention.apply
+            for n, (m, _, p) in wrapped.items():
                 setattr(m, p, plain[n])
         counts.update({n: fn.launches for n, fn in kernel.items()})
-        print(f"[{label}] launches {counts}; plain calls on CUDA tensors {plain_on_cuda['n']}")
+        print(f"[{label}] launches {counts}; plain calls on CUDA tensors {plain_on_cuda['n']}; "
+              f"FlashAttention nodes {nodes['n']}")
         check(all(counts[n] > 0 for n in expect), f"{label}: a kernel never launched: {counts}")
         check(plain_on_cuda["n"] == 0, f"{label}: a plain version ran on CUDA tensors")
+        check((nodes["n"] > 0) == autograd, f"{label}: {nodes['n']} FlashAttention nodes")
         results.setdefault("launches", {})[label] = dict(counts)
 
     cfg = get_arch("qwen1.5-0.5b")
@@ -2365,6 +2861,21 @@ def main() -> int:
     stamp("robatch control plane")
     del model, model4
     torch.cuda.empty_cache()
+
+    # ---- path h: training on the card, the trained tiny pool, HTTP over it
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    try:
+        results["train"], h1_call = train_qwen("train-qwen", dev, main_path, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stamp("training full-width qwen1.5-0.5b")
+    results["train_parity"] = train_parity("train-parity", dev, main_path, plain_kernels)
+    results["tiny_pool"], h3_call, h_gw = tiny_pool_path("tiny-pool", dev, main_path)
+    del h_gw
+    torch.cuda.empty_cache()
+    stamp("tiny pool trained, fit, submit and served over HTTP")
     # the kernels on the inputs the main paths gave them
     entries = []
     (fq, fk, fv), fkw = flash_call
@@ -2584,6 +3095,44 @@ def main() -> int:
         library_ms=timed_ms(lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50, flush),
         shape=dict(q=list(eq.shape), k=list(ek.shape), lengths=elen.tolist(),
                    dtype=str(eq.dtype))))
+    # the backward kernel at h1's and h3's first call; the library call is
+    # SDPA's backward on the same tensors (its gradients' autograd call)
+    bwd_lib = {}
+    for name, ((bq, bk, bv, bdo), bkw), h_counts in (
+            ("flash_attention_bwd", h1_call, results["train"]["launches"]),
+            ("flash_attention_bwd_d32", h3_call, results["tiny_pool"]["launches"])):
+        bkw = {"causal": bkw.get("causal", True), "window": bkw.get("window")}
+        b_out, b_want = bwd_kernel(bq, bk, bv, bdo, **bkw), bwd_plain(bq, bk, bv, bdo, **bkw)
+        b_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(b_out, b_want))
+        b_rel = max(row_rel_err(a, w) for a, w in zip(b_out, b_want))
+        b_tol = BWD_TOL[bq.dtype]
+        check(b_rel <= b_tol, f"{name} on main-path inputs: row-relative {b_rel:.3g} > {b_tol}")
+        b_max = max(w.float().abs().max().item() for w in b_want)
+        del b_out, b_want
+        G = bq.shape[2] // bk.shape[2]
+        lq = bq.transpose(1, 2).contiguous().requires_grad_()
+        lk, lv = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous().requires_grad_()
+                  for x in (bk, bv))
+        ldo = bdo.transpose(1, 2).contiguous()
+        lo = sdpa(lq, lk, lv, is_causal=True)
+
+        def lib_bwd(lo=lo, lq=lq, lk=lk, lv=lv, ldo=ldo):
+            return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+        bwd_lib[name] = lib_bwd
+        b_bound, b_by = bound_ms(*bwd_work(bq, bk, bkw["window"]), bq.dtype)
+        entries.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/ops.py:57 (jax.grad of _flash_jnp; no pallas_call)",
+            launches=h_counts["flash_attention_bwd"], max_abs_err=b_err, atol=0.0, rtol=b_tol,
+            scale="row", row_rel_err=b_rel, out_max=b_max,
+            ms=timed_ms(lambda bq=bq, bk=bk, bv=bv, bdo=bdo, bkw=bkw: bwd_kernel(
+                bq, bk, bv, bdo, **bkw), 20, flush),
+            plain_ms=timed_ms(lambda bq=bq, bk=bk, bv=bv, bdo=bdo, bkw=bkw: bwd_plain(
+                bq, bk, bv, bdo, **bkw), 5, flush),
+            bound_ms=b_bound, bound_by=b_by, library_ms=timed_ms(lib_bwd, 20, flush),
+            shape=dict(q=list(bq.shape), k=list(bk.shape), window=bkw["window"],
+                       dtype=str(bq.dtype))))
     # CUPTI device time a call, read after every event timing of the run (a
     # process that has run the profiler pays more host time a launch), each
     # call after a reading flush of the 128 MB buffer; the name fragment
@@ -2598,7 +3147,11 @@ def main() -> int:
              "wkv6": (lambda: wkv6_kernel(*wpa), "wkv6_", 50),
              "rglru_scan": (lambda: rglru_kernel(*gpa), "rglru_", 50),
              "flash_attention_d256": (lambda: flash_kernel(gq, gk, gv, **gkw), "flash_", 20),
-             "decode_attention_d256": (lambda: decode_kernel(eq, ek, ev, elen), "decode_", 50)}
+             "decode_attention_d256": (lambda: decode_kernel(eq, ek, ev, elen), "decode_", 50),
+             "flash_attention_bwd": (lambda: bwd_kernel(*h1_call[0], **h1_call[1]),
+                                     BWD_KERNELS, 20),
+             "flash_attention_bwd_d32": (lambda: bwd_kernel(*h3_call[0], **h3_call[1]),
+                                         BWD_KERNELS, 50)}
     # the library calls the same way: every kernel SDPA runs, by CUPTI
     library = {"flash_attention": (lambda: sdpa(qt, kt, vt, is_causal=True), 50),
                "flash_attention_d128": (lambda: sdpa(hqt, hkt, hvt, is_causal=True), 50),
@@ -2612,6 +3165,12 @@ def main() -> int:
         if e["name"] in library:
             fn, iters = library[e["name"]]
             e["library_cupti_ms"] = library_device_ms(fn, iters, before=flush.max)
+        elif e["name"] in bwd_lib:
+            # the aten operator of SDPA's backward that runs its kernels
+            e["library_cupti_ms"] = library_device_ms(
+                bwd_lib[e["name"]], 20, before=flush.max,
+                op=lambda key: key.startswith("aten::_scaled_dot_product")
+                and key.endswith("_backward"))
     wkv6_extra["decode"]["cupti_ms"] = device_ms(lambda: wkv6_kernel(*wda), "wkv6_", 50,
                                                  before=flush.max)
     rglru_extra["decode"]["cupti_ms"] = device_ms(lambda: rglru_kernel(*gda), "rglru_", 50,

@@ -13,7 +13,8 @@ gateway and shared by every policy requested from it, so sweeping strategies
 
 The gateway runs on ``device`` (the card unless ``"cpu"`` is asked): its MLP
 router trains and predicts there, and the semantic cache keeps its keys
-there.  The HTTP front end (``serve_http``, ``metrics=``) is not ported yet.
+there.  ``serve_http`` puts the HTTP front end (``repro_torch.http``) over
+a live online server.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ class Gateway:
         elif isinstance(spec, dict):
             spec = RunSpec.from_dict(spec)
         device = resolve_device(device)
-        wl, pool = spec.pool.build()
+        wl, pool = spec.pool.build(device=device)
         return cls(pool, wl, spec=spec, device=device)
 
     def fit(self) -> "Gateway":
@@ -171,13 +172,9 @@ class Gateway:
         ``config.autoscale`` (see :meth:`_resolve_autoscale`).  ``metrics``
         takes a :class:`repro_torch.http.metrics.MetricsRegistry` populated live
         through the server's observability hooks (the same wiring
-        :meth:`serve_http` exposes at ``GET /metrics``); the port has no
-        HTTP layer yet, so ``metrics`` raises ``NotImplementedError``."""
+        :meth:`serve_http` exposes at ``GET /metrics``)."""
         from repro_torch.serving.online import OnlineRobatchServer
 
-        if metrics is not None:
-            raise NotImplementedError("Gateway.serve(metrics=...): the HTTP layer "
-                                      "(repro_torch.http) is not ported yet")
         if live and not getattr(config, "realtime", False):
             raise ValueError("Gateway.serve(live=True) needs "
                              "OnlineConfig(realtime=True) — a live arrival "
@@ -187,6 +184,10 @@ class Gateway:
         pol = self.policy(policy, **params)
         srv = OnlineRobatchServer(pol, pool if pool is not None else pol.exec_pool,
                                   self.wl, config, clock=clock)
+        if metrics is not None:
+            from repro_torch.http.metrics import bind_server_metrics
+
+            bind_server_metrics(metrics, srv)
         try:
             if live:
                 stats = srv.run_live(arrivals)
@@ -200,7 +201,18 @@ class Gateway:
     def serve_http(self, config, policy: Optional[str] = None,
                    pool: Optional[Sequence] = None, host: str = "127.0.0.1",
                    port: int = 0, autoscale=None, metrics=None, **params):
-        """The OpenAI-compatible HTTP front end over a live online server:
-        not ported yet (raises ``NotImplementedError``)."""
-        raise NotImplementedError("Gateway.serve_http: the HTTP front end "
-                                  "(repro_torch.http) is not ported yet")
+        """Bring up the OpenAI-compatible HTTP front-end (:mod:`repro_torch.http`)
+        over a live online server and return the started
+        :class:`repro_torch.http.server.HttpFrontend` (``.port`` carries the bound
+        port; call ``.stop()`` to shut down).  The underlying server is left
+        on ``self.server`` for inspection, as with :meth:`serve`."""
+        from repro_torch.http.server import HttpFrontend
+        from repro_torch.serving.online import OnlineRobatchServer
+
+        config = self._resolve_generation(
+            self._resolve_semcache(self._resolve_autoscale(config, autoscale)))
+        pol = self.policy(policy, **params)
+        srv = OnlineRobatchServer(pol, pool if pool is not None else pol.exec_pool,
+                                  self.wl, config)
+        self.server = srv
+        return HttpFrontend(srv, host=host, port=port, metrics=metrics).start()

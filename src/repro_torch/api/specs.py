@@ -61,7 +61,7 @@ class PoolSpec:
     top_p: float = 1.0
     gen_seed: int = 0                # PRNG seed for sampled decoding
 
-    def build(self):
+    def build(self, device="cuda"):
         """Materialize → (workload, pool).
 
         ``replicas > 1`` wraps every member in a
@@ -72,7 +72,8 @@ class PoolSpec:
         declares the pool autoscalable: members are wrapped in ReplicaSets
         even at ``replicas=1`` and carry a replica factory, so
         :class:`repro_torch.serving.autoscale.Autoscaler` can grow them to the
-        ceiling at serving time."""
+        ceiling at serving time.  The tiny pool trains and serves on
+        ``device`` (the card unless ``"cpu"`` is asked)."""
         if self.replicas < 1:
             raise ValueError(f"PoolSpec.replicas must be >= 1, got {self.replicas}")
         if self.max_replicas and self.max_replicas < max(self.replicas,
@@ -107,7 +108,8 @@ class PoolSpec:
                                              replicas=self.replicas,
                                              scalable=scalable,
                                              draft_member=self.draft_member,
-                                             spec_k=self.spec_k)
+                                             spec_k=self.spec_k,
+                                             device=device)
             return wl, pool
         raise ValueError(f"PoolSpec.kind must be 'simulated' or 'tiny', "
                          f"got {self.kind!r}")

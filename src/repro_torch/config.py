@@ -207,10 +207,15 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """The fields of the JAX package's ``ShardingConfig`` that the paged
-    serving path reads: the plain flash version's tile sizes and its causal
-    block skip.  The mesh, remat and optimizer knobs belong to later slices."""
+    """The fields of the JAX package's ``ShardingConfig`` that the port
+    reads, with its defaults: the plain flash version's tile sizes and its
+    causal block skip (serving), and the training loop's remat, gradient
+    accumulation and accumulation dtype.  The mesh, ZeRO and FSDP knobs
+    belong to a later slice."""
 
+    remat: str = "block"                # none | block: recompute each block in backward
+    microbatches: int = 1               # gradient accumulation steps
+    acc_dtype: str = "float32"          # gradient-accumulation buffer dtype
     attn_q_block: int = 512             # flash-attention tile sizes
     attn_kv_block: int = 1024
     causal_skip: bool = True            # skip fully-masked KV blocks

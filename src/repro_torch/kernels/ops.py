@@ -26,8 +26,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     """q: (B, S, H, D); k/v: (B, S, Hk, D) -> (B, S, H, D).
 
     The tile sizes and ``causal_skip`` shape the plain version only; the
-    kernel picks its own tiles and always skips hidden KV tiles.
+    kernel picks its own tiles and always skips hidden KV tiles.  With grad
+    enabled and an input that requires it, the call goes through
+    ``FlashAttention`` (forward and backward kernels on the card); otherwise,
+    as on every serving path, no autograd node is built.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _flash.FlashAttention.apply(q, k, v, causal, window, q_block, kv_block,
+                                           causal_skip)
     if q.device.type == "cpu":
         return _flash.flash_attention_plain(q, k, v, causal=causal, window=window,
                                             q_block=q_block, kv_block=kv_block,

@@ -1,4 +1,4 @@
-"""Serving launcher of the port: the ``engine`` subcommand.
+"""Serving launcher of the port: the ``engine``, ``online`` and ``http`` subcommands.
 
 Brings up one continuous-batching engine (paged, or with ``--contiguous``
 the contiguous KV layout) for an architecture and serves a batched-prompt
@@ -36,8 +36,17 @@ semantic cache run on ``--device`` (the card unless ``cpu`` is given)::
         --qps 25 --duration 8 --n-train 192 --coreset 32
     PYTHONPATH=src python -m repro_torch.launch.serve online --policy routellm --device cpu
 
-The ``http`` mode raises ``NotImplementedError``: the HTTP front end is not
-ported yet.
+``http`` — the OpenAI-compatible HTTP front end (``repro_torch.http``), with
+the JAX launcher's flags: fit the same control plane, then serve it over the
+wire — ``POST /v1/chat/completions`` (SSE streaming with ``"stream":
+true``), ``GET /v1/models``, ``GET /healthz`` and Prometheus ``GET
+/metrics`` — until SIGINT/SIGTERM (or ``--max-seconds``); ``--port 0`` binds
+an ephemeral port, printed on the ``listening on`` line::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve http --device cpu --port 0 \
+        --max-seconds 5 --n-train 192 --coreset 32
+    curl -N localhost:8000/v1/chat/completions -d \
+        '{"messages":[{"role":"user","content":"#7"}],"stream":true}'
 """
 import argparse
 import sys
@@ -398,15 +407,136 @@ def online_main(argv):
             print(f"  t={e.t:7.2f}s {e.member}: {e.from_n} -> {e.to_n} ({e.reason})")
 
 
+def http_main(argv):
+    ap = argparse.ArgumentParser(prog="serve http")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="bind port (0 = ephemeral; the bound port is printed "
+                         "on the 'listening on' line)")
+    ap.add_argument("--policy", default=None,
+                    help="registered policy name (repro_torch.api.list_policies())")
+    ap.add_argument("--spec", default=None,
+                    help="RunSpec JSON — a file path or an inline JSON string")
+    ap.add_argument("--task", default=None, help="workload benchmark name")
+    ap.add_argument("--family", default=None, help="simulated pool family")
+    ap.add_argument("--qps", type=float, default=40.0,
+                    help="assumed offered load for budget sizing")
+    ap.add_argument("--window", type=float, default=0.1, help="admission window (s)")
+    ap.add_argument("--budget-x", type=float, default=3.0,
+                    help="budget rate = qps × cheapest-state cost × this factor")
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="engines per pool member (ReplicaSet when > 1)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="backlog-driven replica autoscaling between "
+                         "--min-replicas and --max-replicas")
+    ap.add_argument("--min-replicas", type=int, default=None,
+                    help="autoscale floor (default 1)")
+    ap.add_argument("--max-replicas", type=int, default=None,
+                    help="autoscale ceiling (default 4 with --autoscale)")
+    ap.add_argument("--semantic-cache", action="store_true",
+                    help="embedding-space near-duplicate response cache "
+                         "(repro_torch.serving.semcache; see docs/caching.md)")
+    ap.add_argument("--sim-threshold", type=float, default=None,
+                    help="semantic-cache cosine hit threshold (default 0.92)")
+    _add_generation_flags(ap)
+    _add_robust_flags(ap)
+    ap.add_argument("--max-seconds", type=float, default=0.0,
+                    help="serve for N wall seconds then exit (0 = until "
+                         "SIGINT/SIGTERM)")
+    ap.add_argument("--n-train", type=int, default=None)
+    ap.add_argument("--coreset", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the router, the semantic cache and a "
+                         "tiny pool's models: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import signal
+    import threading
+
+    from repro_torch.api import Gateway, UnknownPolicyError, get_policy, list_policies
+    from repro_torch.data import BENCHMARKS
+    from repro_torch.serving.online import OnlineConfig
+
+    if args.qps <= 0:
+        raise SystemExit("serve http: --qps must be positive")
+    spec = _online_spec(args)
+    if args.replicas is not None:
+        spec.pool.replicas = args.replicas
+    if args.min_replicas is not None:
+        spec.pool.min_replicas = args.min_replicas
+    if args.max_replicas is not None:
+        spec.pool.max_replicas = args.max_replicas
+    if args.autoscale and spec.pool.max_replicas <= 0:
+        spec.pool.max_replicas = 4
+    if args.semantic_cache:
+        spec.pool.semantic_cache = True
+    if args.sim_threshold is not None:
+        spec.pool.semantic_cache = True
+        spec.pool.sim_threshold = args.sim_threshold
+    _apply_generation_flags("serve http", spec, args)
+    _apply_robust_flags("serve http", spec, args)
+    if spec.pool.kind == "simulated" and spec.pool.task not in BENCHMARKS:
+        raise SystemExit(f"serve http: unknown task {spec.pool.task!r}; "
+                         f"known: {sorted(BENCHMARKS)}")
+    try:
+        get_policy(spec.policy.name)
+    except UnknownPolicyError:
+        raise SystemExit(f"serve http: unknown policy {spec.policy.name!r}; "
+                         f"known: {list_policies()}")
+
+    gw = Gateway.from_spec(spec, device=args.device)
+    print(f"fitting RoBatch on {spec.pool.task}/{spec.pool.family} "
+          f"({spec.pool.n_train} train, coreset {spec.coreset_size})...",
+          flush=True)
+    gw.fit()
+    rb = gw.robatch
+
+    test = gw.wl.subset_indices("test")
+    base = float(rb.cost_model.state_cost(0, rb.calibrations[0].b_effect, test).mean())
+    rate = args.qps * base * args.budget_x
+    autoscale = spec.pool.autoscale_policy() if args.autoscale else None
+    cfg = OnlineConfig(budget_per_s=rate, window_s=args.window,
+                       realtime=True, autoscale=autoscale)
+    fe = gw.serve_http(cfg, host=args.host, port=args.port)
+    print(f"serve http: listening on http://{args.host}:{fe.port} "
+          f"(policy={spec.policy.name}, {len(gw.pool)} members, "
+          f"window {args.window}s, budget ${rate:.6f}/s)", flush=True)
+
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    t0 = time.monotonic()
+    while not stop.is_set():
+        stop.wait(0.25)
+        if args.max_seconds and time.monotonic() - t0 >= args.max_seconds:
+            break
+    fe.stop()
+    srv = gw.server
+    if fe.threads_leaked:
+        print(f"serve http: shutdown LEAKED threads {fe.threads_leaked} — "
+              f"{fe.n_http_requests} http requests, "
+              f"{len(srv.completed)} completed", flush=True)
+    else:
+        print(f"serve http: shutdown clean — {fe.n_http_requests} http "
+              f"requests, {len(srv.completed)} completed, "
+              f"{len(srv.windows)} windows, "
+              f"${srv.bucket.total_spent:.6f} spent", flush=True)
+    if srv.semcache is not None:
+        sc = srv.semcache.stats()
+        print(f"semcache: hits={sc['hits']} misses={sc['misses']} "
+              f"entries={sc['entries']} bytes={sc['bytes']}", flush=True)
+    if srv.windows:
+        print(f"  last window: {srv.windows[-1].summary()}", flush=True)
+
+
 def main():
     argv = sys.argv[1:]
-    if argv and argv[0] == "http":
-        raise NotImplementedError("serve http: the HTTP front end is not ported yet")
-    if argv and argv[0] in ("engine", "online"):
-        mode, argv = argv[0], argv[1:]
+    if argv and argv[0] in ("engine", "online", "http"):
+        mode, rest = argv[0], argv[1:]
     else:
-        mode = "engine"                 # legacy: bare flags mean engine mode
-    {"online": online_main}.get(mode, engine_main)(argv)
+        mode, rest = "engine", argv     # legacy: bare flags mean engine mode
+    {"online": online_main, "http": http_main}.get(mode, engine_main)(rest)
 
 
 if __name__ == "__main__":

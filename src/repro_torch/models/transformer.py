@@ -3,8 +3,9 @@ paged or contiguous KV cache, the RWKV6 recurrent state, or the RG-LRU
 hybrid's mixed cache (ring K/V and recurrent state).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the families
-ported so far (``Model.init``, ``prefill``, ``decode_step``, ``decode_span``,
-``init_cache``, ``init_paged_cache``).  Where JAX stacks the layers on a leading axis and
+ported so far (``Model.init``, ``forward``, ``loss``, ``prefill``,
+``decode_step``, ``decode_span``, ``init_cache``, ``init_paged_cache``).
+Where JAX stacks the layers on a leading axis and
 scans over them, the port keeps an ``nn.ModuleList`` of blocks and loops;
 the weight bridge (``repro_torch.models.bridge``) unstacks the JAX leaves.
 Caches keep the JAX layout with the layers stacked on axis 0.
@@ -21,6 +22,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.device import resolve_device
@@ -164,7 +166,11 @@ class Model(nn.Module):
     (``recurrent``), or RG-LRU and attention blocks for family ``hybrid``
     (``hybrid``).  Parameters are created uninitialized on ``device``
     (default ``"cuda"``, which raises when no card is present): fill them
-    with :meth:`init` or from the JAX package through the weight bridge."""
+    with :meth:`init` or from the JAX package through the weight bridge.
+
+    Parameters are created with ``requires_grad=False``, so a serving model
+    builds no autograd graph; the trainer (``training.train_loop``) turns
+    them on with ``requires_grad_()`` for the model it trains."""
 
     def __init__(self, cfg: ModelConfig, shard: Optional[ShardingConfig] = None, *,
                  device="cuda"):
@@ -239,6 +245,53 @@ class Model(nn.Module):
         if self.rope_inv_freq is None:
             return None
         return rope_tables(positions, self.rope_inv_freq)
+
+    # ---------------- full-sequence forward (training) ----------------
+    def _dense_block(self, blk, x, rope):
+        a, _ = attention_full(blk.attn, self.cfg, blk.n1(x), rope, window=blk.window,
+                              shard=self.shard)
+        x = x + a
+        return x + blk.mlp(blk.n2(x))
+
+    def forward(self, tokens, positions=None):
+        """tokens: (B, S) int; positions: (B, S) int or None (0 .. S−1).
+        Returns ``(logits (B, S, V) float32, aux)``, aux the auxiliary loss
+        (0 for the families ported so far), as JAX's ``Model.forward``.
+
+        With ``shard.remat == "block"`` and grad enabled, each block runs
+        under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed
+        in the backward, as JAX wraps each scan group in ``jax.checkpoint``.
+        Attention stacks only: the WKV6 and RG-LRU kernels have no backward
+        yet, so a recurrent or hybrid model raises ``NotImplementedError``."""
+        if self.recurrent or self.hybrid:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training a {self.cfg.family} stack needs backward kernels "
+                f"for its recurrence (WKV6 / RG-LRU), which are not written yet")
+        x = self._embed_in(tokens)
+        B, S = x.shape[:2]
+        pos = positions if positions is not None else self._positions(B, S)
+        rope = self._rope(pos.to(self.device))
+        remat = self.shard.remat == "block" and torch.is_grad_enabled()
+        for blk in self.blocks:
+            if remat:
+                x = checkpoint(self._dense_block, blk, x, rope, use_reentrant=False)
+            else:
+                x = self._dense_block(blk, x, rope)
+        return self._logits(x), torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def loss(self, batch: dict):
+        """batch: {"tokens" (B, S), "labels" (B, S), optional "positions"}.
+        Next-token cross-entropy (labels already shifted), mean over the
+        labels that are not −100, plus ``aux``; float32, as JAX's
+        ``Model.loss``."""
+        logits, aux = self.forward(batch["tokens"], positions=batch.get("positions"))
+        labels = batch["labels"].to(device=logits.device, dtype=torch.long)
+        mask = (labels >= 0).float()
+        safe = labels.clamp_min(0)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+        ce = (logz - gold) * mask
+        return ce.sum() / mask.sum().clamp_min(1.0) + aux
 
     # ---------------- caches ----------------
     def init_cache(self, batch: int, max_len: int) -> dict:

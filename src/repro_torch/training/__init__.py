@@ -1,1 +1,2 @@
-"""Training substrate of the port: the AdamW optimizer the router trains with."""
+"""Training substrate of the port: the AdamW optimizer and its schedule, the
+train step and the ``Trainer`` (``train_loop``)."""

@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["OptimizerState", "Optimizer", "clip_by_global_norm", "adamw"]
+__all__ = ["OptimizerState", "Optimizer", "clip_by_global_norm", "cosine_schedule", "adamw"]
 
 
 class OptimizerState(NamedTuple):
@@ -38,6 +38,23 @@ def clip_by_global_norm(grads: list, max_norm: float):
     gnorm = torch.sqrt(total)
     scale = torch.clamp_max(max_norm / (gnorm + 1e-9), 1.0)
     return [g * scale for g in grads], gnorm
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int, min_ratio: float = 0.1):
+    """Linear warmup to ``base_lr`` over ``warmup`` steps, then a cosine decay
+    to ``min_ratio · base_lr`` at ``total``; a function of the step, computed
+    in float32 as JAX's schedule, returned as a Python float."""
+    f32 = torch.float32
+
+    def lr(step):
+        step = torch.tensor(float(step), dtype=f32)
+        warm = base_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * (min_ratio + (1 - min_ratio) * 0.5
+                         * (1 + torch.cos(torch.tensor(torch.pi, dtype=f32) * t)))
+        return float(torch.where(step < warmup, warm, cos))
+
+    return lr
 
 
 def adamw(

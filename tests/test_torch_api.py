@@ -97,13 +97,20 @@ def test_submit_matches_under_every_policy(gateways, name):
 
 
 def test_tiny_pool_and_http_wait_for_their_slices(gateways):
-    _, gw, _ = gateways
-    with pytest.raises(NotImplementedError, match="training"):
-        api.PoolSpec(kind="tiny", n_train=8, n_test=8).build()
-    with pytest.raises(NotImplementedError, match="HTTP"):
-        gw.serve_http(None)
-    with pytest.raises(NotImplementedError, match="HTTP"):
-        gw.serve([], None, metrics=object())
+    """The trained tiny pool and the HTTP front end are ported now
+    (``tests/test_torch_tinypool.py``, ``tests/test_torch_http.py``): the pool
+    trains on the card unless ``device="cpu"`` is asked, so without one it
+    raises, and ``serve(metrics=)`` binds the registry to the server."""
+    from repro_torch.http import MetricsRegistry
+    from repro_torch.serving.online import OnlineConfig
+
+    _, gw, budget = gateways
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api.PoolSpec(kind="tiny", n_train=8, n_test=8, steps=1).build()
+    reg = MetricsRegistry()
+    gw.serve([], OnlineConfig(budget_per_s=budget), metrics=reg)
+    assert "robatch_windows_total" in reg.render()
 
 
 def test_control_plane_entry_points_default_to_the_card():

@@ -184,9 +184,9 @@ def test_allocator_pinned_to_reference_on_full_pool():
 
 
 def test_unported_paths_raise(models, monkeypatch, capsys):
-    """The ``http`` mode of the launcher is not ported yet and raises; the
-    ``online`` mode is ported (``tests/test_torch_online.py``) and, like
-    every entry point, raises without a card unless ``--device cpu`` is
+    """The ``online`` and ``http`` modes of the launcher are ported
+    (``tests/test_torch_online.py``, ``tests/test_torch_http.py``) and, like
+    every entry point, raise without a card unless ``--device cpu`` is
     given; the paged KV cache refuses a sliding window, as the JAX
     package asserts (ring caches are the contiguous layout's).  Sampled
     decoding and speculative decoding are ported now
@@ -202,13 +202,11 @@ def test_unported_paths_raise(models, monkeypatch, capsys):
     assert "served 2/2 requests" in out and "speculative: k=4 rounds=" in out
     with pytest.raises(SystemExit, match="paged"):
         launcher.engine_main(["--draft-member", "tiny-s", "--contiguous", "--device", "cpu"])
-    monkeypatch.setattr("sys.argv", ["serve", "http"])
-    with pytest.raises(NotImplementedError, match="HTTP front end"):
-        launcher.main()
     if not torch.cuda.is_available():
-        monkeypatch.setattr("sys.argv", ["serve", "online"])
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            launcher.main()
+        for mode in ("online", "http"):
+            monkeypatch.setattr("sys.argv", ["serve", mode])
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                launcher.main()
     for paged in (True, False):
         eng = engine.ServingEngine(model, max_slots=2, max_len=64, paged=paged, device="cpu")
         req = engine.Request(rid=0, tokens=TOK.encode("hi"),

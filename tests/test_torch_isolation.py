@@ -26,6 +26,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serving.pool, repro_torch.serving.tinypool\n"
             "import repro_torch.serving.semcache, repro_torch.training.optimizer\n"
             "import repro_torch.data, repro_torch.kernels.launches\n"
+            "import repro_torch.training.train_loop, repro_torch.checkpoint\n"
+            "import repro_torch.data.pipeline, repro_torch.utils.tree\n"
+            "import repro_torch.launch.train, repro_torch.http\n"
+            "import repro_torch.http.server, repro_torch.http.protocol\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\n")
