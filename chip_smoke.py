@@ -221,6 +221,7 @@ SEED = 0
 DEVICE = "cuda:0"
 DECODE_WARPS = 8               # warps a block of the decode body (csrc/decode_body.cuh)
 PAGED_D128 = r"paged_decode_kernelI(f|13__nv_bfloat16)Li128E"   # its D=128 paged instantiations
+FLUSH_KERNEL = "ReduceOp<unsigned char"   # the reading flush's kernel: max of a uint8 buffer
 SPEC_K = 4                     # the speculative paths' depth
 
 
@@ -273,12 +274,18 @@ def timed_ms(fn, iters, flush):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def device_ms(fn, kernel_substr, iters=50, before=None):
+def device_ms(fn, kernel_substr, iters=50, before=None, records=None):
     """CUPTI device time of one call of ``fn``: the self device time of every
     kernel whose name holds ``kernel_substr`` (or one of a tuple of them),
     summed over ``iters`` calls
     (each after ``before()``, an L2 flush, when it is given) and divided by
-    ``iters``, so a call that runs several kernels counts them all."""
+    ``iters``, so a call that runs several kernels counts them all.
+
+    A long-lived profiling process loses CUPTI records (half of them, at
+    times, late in this script), so a kernel with no more records than
+    calls counts its time a record once a call; one with more records than
+    calls runs several times a call and counts its total over the calls.
+    A dict ``records`` gets {kernel name: (records a call, ms a record)}."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -290,30 +297,37 @@ def device_ms(fn, kernel_substr, iters=50, before=None):
             fn()
         torch.cuda.synchronize()
     frags = kernel_substr if isinstance(kernel_substr, tuple) else (kernel_substr,)
-    rows = [e for e in prof.key_averages() if any(f in e.key for f in frags)]
-    total = sum(e.self_device_time_total for e in rows)
-    return None if not rows else total / iters / 1e3
+    rows = [e for e in prof.key_averages()
+            if e.count and any(f in e.key for f in frags)]
+    if records is not None:
+        records.update({e.key[:90]: (e.count / iters, e.self_device_time_total / e.count / 1e3)
+                        for e in rows})
+    total = sum(e.self_device_time_total / min(e.count, iters) for e in rows)
+    return None if not rows else total / 1e3
 
 
-def library_device_ms(fn, iters=50, before=None, op="aten::scaled_dot_product_attention"):
-    """CUPTI device time of one library call ``fn``: the device time of every
-    kernel that the PyTorch operator ``op`` (a name, or a predicate on the
-    names) runs, its children's included, summed over ``iters`` calls (each
-    after ``before()``, which runs outside the operator) and divided by
-    ``iters``."""
+def library_device_ms(fn, iters=50, before=None, records=None):
+    """CUPTI device time of one library call ``fn``: every kernel the call
+    runs (``before()``, the reading flush run before each call, left out by
+    its kernel's name, ``FLUSH_KERNEL``), counted as :func:`device_ms`
+    counts them, a kernel's time a record once a call where CUPTI lost
+    records; ``records`` as there."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             if before is not None:
                 before()
             fn()
         torch.cuda.synchronize()
-    match = op if callable(op) else (lambda key: key == op)
-    total = sum(e.device_time_total for e in prof.key_averages() if match(e.key))
-    return total / iters / 1e3 if total else None
+    rows = [e for e in device_rows(prof) if e.count and FLUSH_KERNEL not in e.key]
+    if records is not None:
+        records.update({e.key[:90]: (e.count / iters, e.self_device_time_total / e.count / 1e3)
+                        for e in rows})
+    total = sum(e.self_device_time_total / min(e.count, iters) for e in rows)
+    return total / 1e3 if total else None
 
 
 def bound_ms(n_bytes, n_flops, dtype):
@@ -1460,7 +1474,7 @@ def train_qwen(label, dev, main_path, ckpt_dir):
     held = torch.cuda.memory_allocated()     # what earlier paths still hold
     model = Model(cfg, ShardingConfig(remat="none"), device=dev)
     opt = adamw(cosine_schedule(3e-3, warmup=10, total=H_STEPS), grad_clip=1.0)
-    tr = Trainer(model, opt, model.shard, ckpt_dir=ckpt_dir, ckpt_every=H_CKPT_EVERY)
+    tr = Trainer(model, opt, ckpt_dir=ckpt_dir, ckpt_every=H_CKPT_EVERY)
     params, state, start = tr.restore_or_init(torch.Generator(device=dev).manual_seed(SEED))
     check(start == 0, f"{label}: a checkpoint was there before training")
     pipe = ShardedPipeline(synthetic_lm_stream(cfg.vocab_size, H_BATCH, H_SEQ, seed=SEED),
@@ -1493,7 +1507,7 @@ def train_qwen(label, dev, main_path, ckpt_dir):
 
     # ---- a fresh trainer restores the last checkpoint bit for bit
     model2 = Model(cfg, ShardingConfig(remat="none"), device=dev)
-    tr2 = Trainer(model2, opt, model2.shard, ckpt_dir=ckpt_dir, ckpt_every=H_CKPT_EVERY)
+    tr2 = Trainer(model2, opt, ckpt_dir=ckpt_dir, ckpt_every=H_CKPT_EVERY)
     t0 = time.perf_counter()
     p2, s2, start2 = tr2.restore_or_init(torch.Generator(device=dev).manual_seed(SEED + 1))
     restore_s = time.perf_counter() - t0
@@ -1506,14 +1520,20 @@ def train_qwen(label, dev, main_path, ckpt_dir):
     del model2, tr2, p2, s2, back, live
     torch.cuda.empty_cache()
 
-    # ---- step time in turns: remat none, block, block, none
+    # ---- step time in turns: remat none, block, block, none.  The model's
+    # shard is the step's configuration; under remat each block's forward,
+    # its flash call included, runs again in the backward
     run = {"params": params, "state": state}
+    fwd_k, bwd_k = flash_mod.flash_attention_cuda, flash_mod.flash_attention_backward_cuda
 
-    def leg(remat):
-        step = make_train_step(model, opt, ShardingConfig(remat=remat))
+    def leg(remat, steps=H_TURN_STEPS):
+        model.shard = dataclasses.replace(model.shard, remat=remat)
+        step = make_train_step(model, opt)
+        f0, b0 = fwd_k.launches, bwd_k.launches
+        r0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(H_TURN_STEPS):
+        for _ in range(steps):
             batch = next(pipe)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1521,21 +1541,37 @@ def train_qwen(label, dev, main_path, ckpt_dir):
             check(np.isfinite(float(m["loss"])), f"{label}: remat {remat}: loss not finite")
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        return times, torch.cuda.max_memory_allocated() - held
+        per_step = cfg.n_layers * (2 if remat == "block" else 1)
+        fwd, bwd = fwd_k.launches - f0, bwd_k.launches - b0
+        check(fwd == steps * per_step and bwd == steps * cfg.n_layers,
+              f"{label}: remat {remat}: {fwd} forward and {bwd} backward flash launches in "
+              f"{steps} steps, expected {per_step} and {cfg.n_layers} a step")
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - r0
+        return times, torch.cuda.max_memory_allocated() - held, retries
 
+    # each mode's first step apart (the first under remat pays a one-off
+    # cost), then the turns
+    first = {}
+    for remat in ("none", "block"):
+        (t,), _, retries = leg(remat, steps=1)
+        first[remat] = dict(seconds=t, alloc_retries=retries)
     turns = {"none": [], "block": []}
     peaks = {}
     for remat in ("none", "block", "block", "none"):
-        times, pk = leg(remat)
+        times, pk, _ = leg(remat)
         turns[remat] += times
         peaks[remat] = max(peaks.get(remat, 0), pk)
     for remat, times in turns.items():
         print(f"[{label}] remat={remat}: {1e3 * np.mean(times):.1f} ms a step (host clock, "
-              f"{len(times)} steps in two turns: {[round(1e3 * t, 1) for t in times]}), peak "
-              f"memory {peaks[remat] / 2**30:.2f} GiB")
+              f"{len(times)} steps in two turns: {[round(1e3 * t, 1) for t in times]}; the "
+              f"mode's first step {1e3 * first[remat]['seconds']:.1f} ms, allocator retries "
+              f"{first[remat]['alloc_retries']}), peak memory {peaks[remat] / 2**30:.2f} GiB, "
+              f"flash forward launches {cfg.n_layers * (2 if remat == 'block' else 1)} a step "
+              f"(checked)")
 
     # ---- one traced step
-    step = make_train_step(model, opt, ShardingConfig(remat="none"))
+    model.shard = dataclasses.replace(model.shard, remat="none")
+    step = make_train_step(model, opt)
     batch = next(pipe)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1559,8 +1595,9 @@ def train_qwen(label, dev, main_path, ckpt_dir):
         print(f"[{label}]   {ms:.3f} ms: {name}")
     out = dict(params=model.param_count(), losses=losses, grad_norms=norms,
                step_s=step_s.tolist(), fit_s=fit_s, peak_bytes=peak, restore_s=restore_s,
-               remat_turns_s=turns, remat_peak_bytes=peaks,
-               traced_step=dict(wall_ms=wall_ms, device_ms=dev_ms, backward_ms=bwd_ms, top=top),
+               remat_turns_s=turns, remat_first_step=first, remat_peak_bytes=peaks,
+               traced_step=dict(wall_ms=wall_ms, device_ms=dev_ms, backward_ms=bwd_ms,
+                                backward_calls=cfg.n_layers, top=top),
                launches=dict(counts))
     return out, bwd_calls[cfg.head_dim]
 
@@ -1590,7 +1627,7 @@ def train_parity(label, dev, main_path, plain_kernels):
         opt = adamw(3e-3, grad_clip=1.0)
         params = trainable(model)
         grads = torch.autograd.grad(model.loss(batches[0]), list(params.values()))
-        step, st = make_train_step(model, opt, model.shard), opt.init(list(params.values()))
+        step, st = make_train_step(model, opt), opt.init(list(params.values()))
         losses = []
         for b in batches[:steps]:
             params, st, m = step(params, st, b)
@@ -3096,11 +3133,15 @@ def main() -> int:
         shape=dict(q=list(eq.shape), k=list(ek.shape), lengths=elen.tolist(),
                    dtype=str(eq.dtype))))
     # the backward kernel at h1's and h3's first call; the library call is
-    # SDPA's backward on the same tensors (its gradients' autograd call)
+    # SDPA's backward on the same tensors (its gradients' autograd call);
+    # ``traced_ms`` is the kernel's time a call in h1's traced training step
     bwd_lib = {}
-    for name, ((bq, bk, bv, bdo), bkw), h_counts in (
-            ("flash_attention_bwd", h1_call, results["train"]["launches"]),
-            ("flash_attention_bwd_d32", h3_call, results["tiny_pool"]["launches"])):
+    h1_trace = results["train"]["traced_step"]
+    h1_traced_ms = (None if h1_trace["device_ms"] is None
+                    else h1_trace["backward_ms"] / h1_trace["backward_calls"])
+    for name, ((bq, bk, bv, bdo), bkw), h_counts, traced in (
+            ("flash_attention_bwd", h1_call, results["train"]["launches"], h1_traced_ms),
+            ("flash_attention_bwd_d32", h3_call, results["tiny_pool"]["launches"], None)):
         bkw = {"causal": bkw.get("causal", True), "window": bkw.get("window")}
         b_out, b_want = bwd_kernel(bq, bk, bv, bdo, **bkw), bwd_plain(bq, bk, bv, bdo, **bkw)
         b_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(b_out, b_want))
@@ -3131,6 +3172,7 @@ def main() -> int:
             plain_ms=timed_ms(lambda bq=bq, bk=bk, bv=bv, bdo=bdo, bkw=bkw: bwd_plain(
                 bq, bk, bv, bdo, **bkw), 5, flush),
             bound_ms=b_bound, bound_by=b_by, library_ms=timed_ms(lib_bwd, 20, flush),
+            traced_ms=traced,
             shape=dict(q=list(bq.shape), k=list(bk.shape), window=bkw["window"],
                        dtype=str(bq.dtype))))
     # CUPTI device time a call, read after every event timing of the run (a
@@ -3152,7 +3194,8 @@ def main() -> int:
                                      BWD_KERNELS, 20),
              "flash_attention_bwd_d32": (lambda: bwd_kernel(*h3_call[0], **h3_call[1]),
                                          BWD_KERNELS, 50)}
-    # the library calls the same way: every kernel SDPA runs, by CUPTI
+    # the library calls the same way, by CUPTI (SDPA's backward: its
+    # gradients' autograd call)
     library = {"flash_attention": (lambda: sdpa(qt, kt, vt, is_causal=True), 50),
                "flash_attention_d128": (lambda: sdpa(hqt, hkt, hvt, is_causal=True), 50),
                "decode_attention": (lambda: sdpa(sq, sk, sv, attn_mask=smask), 50),
@@ -3160,17 +3203,19 @@ def main() -> int:
                "decode_attention_d256": (lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50)}
     for e in entries:
         fn, frag, iters = cupti[e["name"]]
-        e["cupti_ms"] = device_ms(fn, frag, iters, before=flush.max)
+        records = {}
+        e["cupti_ms"] = device_ms(fn, frag, iters, before=flush.max, records=records)
+        e["cupti_records"] = records
+        e["cupti_records_a_call"] = min((n for n, _ in records.values()), default=0.0)
         e["library_cupti_ms"] = None
-        if e["name"] in library:
-            fn, iters = library[e["name"]]
-            e["library_cupti_ms"] = library_device_ms(fn, iters, before=flush.max)
-        elif e["name"] in bwd_lib:
-            # the aten operator of SDPA's backward that runs its kernels
-            e["library_cupti_ms"] = library_device_ms(
-                bwd_lib[e["name"]], 20, before=flush.max,
-                op=lambda key: key.startswith("aten::_scaled_dot_product")
-                and key.endswith("_backward"))
+        lib_fn, lib_iters = library.get(e["name"], (bwd_lib.get(e["name"]), 20))
+        if lib_fn is not None:
+            lib_records = {}
+            e["library_cupti_ms"] = library_device_ms(lib_fn, lib_iters, before=flush.max,
+                                                      records=lib_records)
+            e["library_cupti_records"] = lib_records
+            e["library_cupti_records_a_call"] = min(
+                (n for n, _ in lib_records.values()), default=0.0)
     wkv6_extra["decode"]["cupti_ms"] = device_ms(lambda: wkv6_kernel(*wda), "wkv6_", 50,
                                                  before=flush.max)
     rglru_extra["decode"]["cupti_ms"] = device_ms(lambda: rglru_kernel(*gda), "rglru_", 50,
@@ -3181,7 +3226,11 @@ def main() -> int:
               f"library {e['library_ms']} (CUPTI {e['library_cupti_ms']}), max|err| "
               f"{e['max_abs_err']:.3g}"
               + (f" (row-relative {e['row_rel_err']:.3g}, max|plain| {e['out_max']:.3g})"
-                 if "row_rel_err" in e else "") + f", {e['launches']} launches")
+                 if "row_rel_err" in e else "") + f", {e['launches']} launches"
+              + f"; CUPTI records {e['cupti_records']}"
+              + (f"; library CUPTI records {e['library_cupti_records']}"
+                 if "library_cupti_records" in e else "")
+              + (f"; traced {e['traced_ms']} ms a call" if "traced_ms" in e else ""))
     for name, wd in (("wkv6", wkv6_extra["decode"]), ("rglru", rglru_extra["decode"])):
         print(f"[main-path] {name} decode step {wd['shape']}: {wd['ms']:.4f} ms, CUPTI "
               f"{wd['cupti_ms']} ms (bound {wd['bound_ms']:.4f} ms by {wd['bound_by']}), plain "
@@ -3394,13 +3443,17 @@ def main() -> int:
     (out_dir / "chip_smoke_results.json").write_text(json.dumps(results, indent=1))
     # |kernel − plain| ≤ atol + rtol·|plain| is the check each entry passed, with
     # |plain| taken element by element, or (scale "row") as the max of the
-    # output row (the last axis) the element lies in
+    # output row (the last axis) the element lies in; ``cupti_records_a_call``
+    # is the fewest CUPTI records a call of the call's kernels (below 1: records
+    # lost, ``cupti_ms`` counts a record a call), and the backward's entries
+    # carry their time a call in h1's traced step beside it
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "atol", "rtol",
-            "scale", "ms", "cupti_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_cupti_ms")
+            "scale", "ms", "cupti_ms", "cupti_records_a_call", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_cupti_ms", "library_cupti_records_a_call",
+            "traced_ms")
     for e in entries:
         e.setdefault("scale", "element")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys if k in e} for e in entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -48,7 +48,7 @@ def main(argv=None):
     cfg = get_arch(args.arch).reduced()
     model = Model(cfg, ShardingConfig(remat="none", microbatches=args.microbatches), device=dev)
     opt = adamw(cosine_schedule(args.lr, warmup=10, total=args.steps), grad_clip=1.0)
-    trainer = Trainer(model, opt, model.shard, ckpt_dir=args.ckpt or None)
+    trainer = Trainer(model, opt, ckpt_dir=args.ckpt or None)
     params, opt_state, start = trainer.restore_or_init(
         torch.Generator(device=dev).manual_seed(0))
     print(f"{cfg.name}: {model.param_count() / 1e6:.2f}M params, start step {start}")

@@ -105,13 +105,12 @@ def train_engines(rng, fmt: BatchPromptFormatter, steps: int,
     engines = {}
     for name in names:
         cfg = get_arch(name)
-        shard = ShardingConfig(remat="none")
-        model = Model(cfg, shard, device=dev).init(
+        model = Model(cfg, ShardingConfig(remat="none"), device=dev).init(
             torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()) % 2**31))
         opt = adamw(3e-3, grad_clip=1.0)
         params = trainable(model)
         state = opt.init(list(params.values()))
-        step = make_train_step(model, opt, shard)
+        step = make_train_step(model, opt)
         t0 = time.time()
         losses = []
         if verbose:

@@ -21,7 +21,6 @@ import torch
 from torch import nn
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.config import ShardingConfig
 from repro_torch.models.transformer import Model
 from repro_torch.training.optimizer import Optimizer, OptimizerState
 
@@ -40,24 +39,26 @@ def _on_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
-def make_train_step(model: Model, opt: Optimizer, shard_cfg: ShardingConfig):
+def make_train_step(model: Model, opt: Optimizer):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, ``params`` as :func:`trainable` gives them, updated in place.
 
-    ``shard_cfg.microbatches`` > 1 splits the batch on its leading axis and
-    sums the gradients in ``shard_cfg.acc_dtype`` (one microbatch's
-    activations alive at a time), then divides and casts them to float32,
-    as JAX's scan does.  ``metrics``: ``loss`` and ``grad_norm`` (the global
-    norm of the gradients before clipping), float32 tensors on the device.
+    ``model.shard`` is the step's one configuration (JAX's step takes a
+    ``shard_cfg`` beside the model), read when the step runs: its
+    ``remat`` in ``Model.forward``, and here its ``microbatches``
+    (> 1 splits the batch on its leading axis and sums the gradients in
+    ``acc_dtype``, one microbatch's activations alive at a time, then
+    divides and casts them to float32, as JAX's scan does).  ``metrics``:
+    ``loss`` and ``grad_norm`` (the global norm of the gradients before
+    clipping), float32 tensors on the device.
     """
-    n_micro = shard_cfg.microbatches
-    acc_dt = torch.bfloat16 if shard_cfg.acc_dtype == "bfloat16" else torch.float32
-
     def value_and_grad(leaves, batch):
         loss = model.loss(batch)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(params: dict, opt_state: OptimizerState, batch: dict):
+        n_micro = model.shard.microbatches
+        acc_dt = torch.bfloat16 if model.shard.acc_dtype == "bfloat16" else torch.float32
         leaves = list(params.values())
         batch = _on_device(batch, model.device)
         if n_micro > 1:
@@ -100,17 +101,17 @@ def train_state(params: dict, opt_state: OptimizerState) -> dict:
 
 @dataclass
 class Trainer:
-    """Host-side loop: batches in, checkpoints out, resume on restart."""
+    """Host-side loop: batches in, checkpoints out, resume on restart.  The
+    model's ``shard`` configures the step (:func:`make_train_step`)."""
 
     model: Model
     opt: Optimizer
-    shard_cfg: ShardingConfig
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
     keep: int = 3
 
     def __post_init__(self):
-        self._step_fn = make_train_step(self.model, self.opt, self.shard_cfg)
+        self._step_fn = make_train_step(self.model, self.opt)
         self._mgr = CheckpointManager(self.ckpt_dir, self.keep) if self.ckpt_dir else None
 
     def init_state(self, generator: torch.Generator):
@@ -138,10 +139,11 @@ class Trainer:
         """batches: iterable of batch dicts.  Returns (params, opt_state,
         history); a history entry (step, loss, grad_norm, seconds since the
         start) every ``log_every`` steps and at the first, the only steps
-        that wait for the device."""
+        that wait for the device.  A checkpoint every ``ckpt_every`` steps
+        and after the last, unless that step was just saved or no step ran."""
         history = []
         t0 = time.time()
-        step = start_step
+        step = saved = start_step
         for batch in batches:
             params, opt_state, metrics = self._step_fn(params, opt_state, batch)
             step += 1
@@ -151,6 +153,7 @@ class Trainer:
                                 "time": time.time() - t0})
             if self._mgr and step % self.ckpt_every == 0:
                 self._mgr.save(train_state(params, opt_state), step)
-        if self._mgr:
+                saved = step
+        if self._mgr and step != saved:
             self._mgr.save(train_state(params, opt_state), step)
         return params, opt_state, history

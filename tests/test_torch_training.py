@@ -117,6 +117,39 @@ def test_remat_block_gives_the_same_gradients():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_train_step_takes_remat_from_the_model():
+    """The step reads ``model.shard`` when it runs: under ``remat="block"``
+    every block's forward, its flash call included, runs again in the
+    backward, so a step builds twice the ``FlashAttention`` nodes; the
+    updated parameters are those of ``"none"``."""
+    from repro_torch.kernels import flash_attention as flash_mod
+
+    _, _, model = _pair("tiny-s", seed=4)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _batch(model.cfg.vocab_size, seed=5)
+    apply, nodes, out = flash_mod.FlashAttention.apply, [], {}
+
+    def counted(*args):
+        nodes[-1] += 1
+        return apply(*args)
+
+    flash_mod.FlashAttention.apply = counted
+    try:
+        for remat in ("none", "block"):
+            model.load_state_dict(init)
+            model.shard = dataclasses.replace(model.shard, remat=remat)
+            opt = adamw(1e-3)
+            params = trainable(model)
+            nodes.append(0)
+            make_train_step(model, opt)(params, opt.init(list(params.values())), batch)
+            out[remat] = {k: v.detach().clone() for k, v in params.items()}
+    finally:
+        del flash_mod.FlashAttention.apply
+    assert nodes == [model.cfg.n_layers, 2 * model.cfg.n_layers]
+    for k in out["none"]:
+        torch.testing.assert_close(out["block"][k], out["none"][k], rtol=0, atol=0)
+
+
 def test_padded_vocab_masks_under_autograd():
     """``_logits`` writes -1e30 into the padded vocab columns in place; under
     autograd their logits stay -1e30 and their gradient is zero."""
@@ -158,7 +191,8 @@ def test_grad_accumulation_matches_full_batch():
         model.load_state_dict(init)
         opt = adamw(1e-3)
         params = trainable(model)
-        step = make_train_step(model, opt, ShardingConfig(microbatches=micro, remat="none"))
+        model.shard = dataclasses.replace(model.shard, microbatches=micro)
+        step = make_train_step(model, opt)
         _, _, metrics = step(params, opt.init(list(params.values())), batch)
         out.append((float(metrics["loss"]), {k: v.clone() for k, v in params.items()}))
     (l1, p1), (l4, p4) = out
@@ -181,7 +215,7 @@ def test_trainer_fit_follows_jax_losses():
                           ({k: jnp.asarray(v) for k, v in b.items()} for b in batches),
                           log_every=1)
     init = {k: v.clone() for k, v in model.state_dict().items()}
-    tr = Trainer(model, adamw(3e-3, grad_clip=1.0), ShardingConfig(remat="none"))
+    tr = Trainer(model, adamw(3e-3, grad_clip=1.0))
     params, state = tr.init_state(torch.Generator().manual_seed(0))
     model.load_state_dict(init)
     _, _, hist = tr.fit(params, state, batches, log_every=1)
@@ -195,14 +229,14 @@ def test_trainer_resumes_bit_equal(tmp_path):
     cfg = get_arch("tiny-s")
     opt = adamw(3e-3)
     tr = Trainer(Model(cfg, ShardingConfig(remat="none"), device="cpu"), opt,
-                 ShardingConfig(remat="none"), ckpt_dir=str(tmp_path / "ck"), ckpt_every=5)
+                 ckpt_dir=str(tmp_path / "ck"), ckpt_every=5)
     params, state, start = tr.restore_or_init(torch.Generator().manual_seed(0))
     assert start == 0
     params, state, hist = tr.fit(params, state, _jax_batches(cfg, 12, seed=1), log_every=5)
     assert hist[-1]["loss"] < hist[0]["loss"]
     saved = {k: v.clone() for k, v in train_state(params, state).items()}
     tr2 = Trainer(Model(cfg, ShardingConfig(remat="none"), device="cpu"), opt,
-                  ShardingConfig(remat="none"), ckpt_dir=str(tmp_path / "ck"))
+                  ckpt_dir=str(tmp_path / "ck"))
     p2, s2, start2 = tr2.restore_or_init(torch.Generator().manual_seed(1))
     assert start2 == 12 and s2.step == 12
     restored = train_state(p2, s2)
@@ -214,6 +248,26 @@ def test_trainer_resumes_bit_equal(tmp_path):
     _, _, h1 = tr.fit(params, state, [b], start_step=12, log_every=1)
     _, _, h2 = tr2.fit(p2, s2, [b], start_step=12, log_every=1)
     assert h1[0]["loss"] == h2[0]["loss"]
+
+
+@pytest.mark.parametrize("n_steps, saved", [(4, [2, 4]), (3, [2, 3]), (0, [])])
+def test_trainer_saves_each_step_once(tmp_path, n_steps, saved):
+    """A checkpoint every ``ckpt_every`` steps and after the last, which is
+    not written again when it was just saved; no step, no checkpoint."""
+    cfg = get_arch("tiny-s")
+    tr = Trainer(Model(cfg, ShardingConfig(remat="none"), device="cpu"), adamw(3e-3),
+                 ckpt_dir=str(tmp_path / "ck"), ckpt_every=2)
+    params, state, _ = tr.restore_or_init(torch.Generator().manual_seed(0))
+    save, steps = tr._mgr.save, []
+
+    def recorded(tree, step):
+        steps.append(step)
+        return save(tree, step)
+
+    tr._mgr.save = recorded
+    tr.fit(params, state, _jax_batches(cfg, n_steps, seed=1), log_every=1)
+    assert steps == saved
+    assert latest_step(str(tmp_path / "ck")) == (saved[-1] if saved else None)
 
 
 def test_checkpoint_atomic_and_keep_n(tmp_path):
