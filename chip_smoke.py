@@ -13,8 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the RG-LRU kernel, the wide-head decode kernel, the paged kernel at
    D=128 or the flash backward's kernels;
    ``cuobjdump -sass`` of the flash library must show HGMMA (Hopper's
-   tensor-core product) in the bf16 kernel at every head width, and the
-   RG-LRU kernel's fp64 instructions (its exp(2a) near 0) are counted.
+   tensor-core product) in the bf16 kernel at every head width, that of
+   the flash backward in both bf16 kernels at every width it is built
+   for, and the RG-LRU kernel's fp64 instructions (its exp(2a) near 0)
+   are counted.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
    at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32), at ragged
    GQA/window shapes (D=32 and 64 with windows, D=16 under MQA), at S=1,
@@ -52,9 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-6 of 0, the fp32 ones also held against the token-by-token oracle, and
    each launched twice (the chain's scratch is left zeroed, so the second
    launch must give the same bits); the flash backward (dq, dk, dv) at
-   D in {32, 64}, G in {1, 2, 4}, S in {1, 37, 128, 512} and with a window
-   shorter than S, bf16 and fp32, each gradient held row by row (fp32 1e-4,
-   bf16 2e-2) and each case launched twice with identical bits.
+   D in {16, 32, 64}, G in {1, 2, 4}, S in {1, 37, 128, 512}, with a
+   window shorter than S, and with B·H·ceil(S/64) below and above the SM
+   count, bf16 and fp32, each gradient held row by row (fp32 1e-4, bf16
+   2e-2) and each case launched twice with identical bits.
 4. Eight main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched, no plain version may see a CUDA tensor, and flash attention
@@ -83,12 +86,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    f. speculative decoding (``SpeculativeEngine``, paged, K = 4 drafts a
       round, every draft and verify dispatch one graph replay) of the
       half-sampled workload in bf16, Qwen1.5-0.5B drafting for itself (the
-      same weights: the accept-all case) and for Qwen1.5-4B (the
-      reject-most case): graphed against eager (streams, counters,
-      launches identical), paged launches = rounds × (K+1) × (draft +
-      target layers), the accepted, bonus and mismatch tokens counted
-      again from the dispatches' outputs adding up to the tokens emitted,
-      and ``decode_span`` bit-equal to K+1 ``decode_step``s (checked);
+      same weights: the accept-all case) and for Qwen1.5-4B at full width
+      cut to 10 of its 40 layers (the reject-most case): graphed against
+      eager (streams, counters, launches identical), paged launches =
+      rounds × (K+1) × (draft + target layers), the accepted, bonus and
+      mismatch tokens counted again from the dispatches' outputs adding
+      up to the tokens emitted, and ``decode_span`` bit-equal to K+1
+      ``decode_step``s (checked);
       against the target alone the streams are printed, unchecked, with the
       target's top-2 logit gap at each first differing token, and tokens/s
       of both timed in turns.  ``SpanProbe`` prints, unchecked, which
@@ -223,6 +227,7 @@ DECODE_WARPS = 8               # warps a block of the decode body (csrc/decode_b
 PAGED_D128 = r"paged_decode_kernelI(f|13__nv_bfloat16)Li128E"   # its D=128 paged instantiations
 FLUSH_KERNEL = "ReduceOp<unsigned char"   # the reading flush's kernel: max of a uint8 buffer
 SPEC_K = 4                     # the speculative paths' depth
+SPEC_4B_LAYERS = 10            # path f's Qwen1.5-4B target: its first 10 of 40 layers (bf16)
 
 
 T_START = time.perf_counter()
@@ -1415,7 +1420,7 @@ H_BUDGETS = (1.5, 4.0)                  # h3: submit budgets, times the initial 
 H_HTTP_QUERIES = (0, 5, 11, 23)         # h4: positions in the test set asked over HTTP
 H_WINDOW_S = 0.05                       # h4: the live server's admission window
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # backward kernel vs plain, row-relative
-BWD_KERNELS = ("lse_delta_kernel", "dkdv_kernel", "dq_kernel")
+BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
 PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
                          r'(,[a-zA-Z0-9_]+="[^"]*")*\})? (-?[0-9.e+-]+|\+Inf|NaN)$')
 
@@ -1890,6 +1895,20 @@ def main() -> int:
     check(sorted(tc_hgmma) == sorted(flash_mod.HEAD_DIMS) and all(tc_hgmma.values()),
           f"flash_tc_kernel lacks HGMMA at some head width: {tc_hgmma}")
     results["flash_tc_hgmma"] = tc_hgmma
+    # the bf16 backward's two tensor-core kernels, at every width it is built for
+    bwd_sass = sass_counts("flash_attention_bwd", lambda op: op.startswith("HGMMA"))
+    bwd_hgmma = {}
+    for f, n in bwd_sass.items():
+        m = re.search(r"(bwd_(?:dq|dkdv)_tc_kernel)ILi(\d+)E", f)
+        if m:
+            bwd_hgmma[f"{m[1]}<{m[2]}>"] = n
+    print(f"[build] flash_attention_bwd SASS: HGMMA instructions in the bf16 kernels "
+          f"{dict(sorted(bwd_hgmma.items()))}; in the fp32 kernels "
+          f"{sum(n for f, n in bwd_sass.items() if '_tc_kernel' not in f)}")
+    want_bwd = {f"{k}<{D}>" for k in BWD_KERNELS if "_tc_" in k for D in flash_mod.HEAD_DIMS_BWD}
+    check(set(bwd_hgmma) == want_bwd and all(bwd_hgmma.values()),
+          f"the bf16 flash backward lacks HGMMA at some head width: {bwd_hgmma}")
+    results["flash_bwd_tc_hgmma"] = bwd_hgmma
     # the RG-LRU kernel's fp64 instructions: its exp(2a) in the band near 0
     fp64 = {("bfloat16" if "bfloat16" in f else "float32"): n
             for f, n in sass_counts("rglru_scan", lambda op: op.startswith(FP64_OPS)).items()
@@ -1967,12 +1986,20 @@ def main() -> int:
                                      Hk=Hk, D=D, dtype=str(dtype), window=window,
                                      row_rel_err=rel, max_abs_err=err, identical=same))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in (torch.bfloat16, torch.float32):
-        for D in (32, 64):
+        for D in flash_mod.HEAD_DIMS_BWD:
             for G in (1, 2, 4):
                 for S in (1, 37, 128, 512):
                     bwd_case(f"G={G}", 2, S, 8, 8 // G, D, dtype)
             bwd_case("window", 2, 300, 8, 2, D, dtype, window=64)
+        # B·H·ceil(S/64) below the SM count (a part of the card idle) and above
+        # it (more than one wave of blocks)
+        for label, B, S, H, Hk, D, window in (("below-sms", 1, 200, 4, 1, 32, 50),
+                                              ("above-sms", 4, 320, 8, 2, 64, None)):
+            check((B * H * -(-S // 64) < sms) == (label == "below-sms"),
+                  f"flash backward {label}: {B * H * -(-S // 64)} blocks on {sms} SMs")
+            bwd_case(label, B, S, H, Hk, D, dtype, window=window)
 
     def paged_inputs(dtype, B=8, ps=16, H=16, Hk=16, D=64, max_len=512):
         """Pools and a table with a shared prefix of up to 8 pages (rows 0-3), a CoW
@@ -2890,8 +2917,12 @@ def main() -> int:
                     span_rounding=rounding, in_serve_span_rounding=in_serve)
 
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    # the Qwen1.5-4B target at full width, its depth cut for the script's time
+    model4f = Model(dataclasses.replace(qcfg, n_layers=SPEC_4B_LAYERS), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED + 3))
     results["speculative_bf16"] = {"self": speculative("spec-self", model, model, probe=True),
-                                   "4b": speculative("spec-4b", model4, model)}
+                                   "4b": speculative("spec-4b", model4f, model)}
+    del model4f
     # ---- path g: RoBatch's control plane over a live pool of the two models
     results["control_plane"], g_recorded = control_plane("robatch-pool", dev, (model, model4),
                                                          main_path)

@@ -10,48 +10,78 @@
 // for q, dO (B, S, H, D) and k, v (B, S, Hk, D), head h on KV head h / G
 // (G = H / Hk), with the forward kernel's masks: key j is visible to query
 // i when j <= i (causal) and j > i - window (sliding window, window > 0).
-// fp32 or bf16 in, fp32 arithmetic throughout, gradients in the input dtype.
+// Gradients in the input dtype.
 //
 // What bounds it on the H100: five products of 2·D FLOPs a visible (query,
 // key) pair (S, dP, dV, dK, dQ) against q, k, v, dO read and dq, dk, dv
 // written once, so at Qwen1.5-0.5B's training shape (8 x 512 tokens, 16
 // heads of 64, causal) the FLOPs over 989 TFLOP/s bf16 (~0.011 ms) and the
-// bytes over 3.35 TB/s (~0.015 ms) are close.  This first design runs on
-// the CUDA cores and is far from either bound; tensor cores (wgmma over
-// TMA tiles) and a fused single pass are the next step.
+// bytes over 3.35 TB/s (~0.015 ms) are close.  The design below runs nine
+// products, not five (S and dP in each of three passes over a tile pair),
+// so its own floor on the tensor cores is ~0.02 ms.
 //
-// The design, three launches and no atomics, so the gradients are the same
+// Both dtypes run two launches and no atomics, so the gradients are the same
 // bits on every launch:
-//  1. lse_delta_kernel, one block per (Q tile of 64 rows, head, batch row):
-//     recomputes each row's log-sum-exp over its visible keys (online max
-//     and sum in fp32, as the forward does) and δ_i = dO_i · O_i, with O
-//     the fp32 output, as Σ_j P_ij (dO_i · v_j) in the same online pass.
-//     The forward kernels are left as they are (the serving paths call
-//     them and keep their times), and the saved bf16 output is not read.
-//  2. dkdv_kernel, one block per (KV tile of 64 keys, KV head, batch row):
-//     K and V stay in shared memory while the block walks the G query heads
-//     of its group and, for each, the Q tiles that see the tile.  For each
-//     pair of tiles it rebuilds P = exp(S·scale − LSE), dP = dO·Vᵀ and
-//     dS = P ∘ (dP − δ), then adds Pᵀ·dO into dV and dSᵀ·Q into dK in
-//     registers.  The group's sum over G happens in the block.
-//  3. dq_kernel, one block per (Q tile, head, batch row): Q, dO, LSE and δ
-//     stay in shared memory while the block walks the visible KV tiles and
-//     adds dS·K into dQ in registers.
-// Every tile is widened to fp32 in shared memory, rows padded by one float
-// so that a warp's reads down a column fall on distinct banks.  A block's
-// 256 threads form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16a and
-// columns tx + 16b (a, b < 4) of a 64 x 64 score tile, and rows ty + 16a
-// and columns tx + 16c (c < D/16) of a 64 x D gradient tile; a row's max
-// and sum in the pre-pass reduce over its 16 threads with shuffles.  Tiles
-// no row of a block sees are skipped; keys and rows past S are zero in
-// shared memory and masked.
+//  A. a dq kernel, one block per (Q tile, head, batch row).  Pass 1 walks
+//     the visible KV tiles and keeps each row's online max, sum and
+//     δ_i = Σ_j P_ij dP_ij (= dO_i · O_i with O the fp32 output, summed
+//     over the keys online like the log-sum-exp, so the rounding of a bf16
+//     output, up to ~6% of a row's gradient through δ, never enters), then
+//     writes the rows' LSE and δ to the (B, H, S) fp32 scratch.  Pass 2
+//     walks the same tiles again: P = exp(S·scale − LSE), dP = dO·Vᵀ,
+//     dS = P ∘ (dP − δ), dQ += dS·K.  Q and dO are loaded once for both.
+//  B. a dkdv kernel, one block per (KV tile, KV head, batch row): K and V
+//     stay while the block walks the G query heads of the group and, for
+//     each, the Q tiles that see the tile, with their LSE and δ; it
+//     rebuilds Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ and adds Pᵀ·dO into dV and dSᵀ·Q
+//     into dK, the group's sum over G inside the block.
+// Tiles no row of a block sees are skipped; only tiles that cross the
+// diagonal, the window's edge or the end of S are masked.  Blocks of A are
+// issued last Q tile first, those of B first KV tile first: under the
+// causal mask they have the most tiles to walk.
+//
+// bf16: bwd_dq_tc_kernel and bwd_dkdv_tc_kernel, one warpgroup a block, on
+// the tensor cores with the pieces of hopper.cuh that the forward's
+// flash_tc_kernel uses:
+//  * Tiles of 64 rows (queries or keys) x 64 columns arrive by TMA through
+//    4-d tensor maps over (D, heads, S, B), 128-byte rows with the 128-byte
+//    swizzle; TMA's zero fill pads D = 16 and 32 to the 64-wide atom column
+//    and the rows past S.  A's Q and dO, and B's K and V, arrive once; A's
+//    K/V tiles and B's Q/dO tiles go through rings of two stages, a stage
+//    refilled with the tile two ahead once every warp has read it.
+//  * S, dP (A) and Sᵀ, dPᵀ (B): wgmma m64n64k16 with both operands K-major
+//    from shared memory, D/16 steps.  dQ += dS·K (A), dV += Pᵀ·dO and
+//    dK += dSᵀ·Q (B): wgmma m64n64k16 with A from registers and B read
+//    MN-major (the transpose bit) from the same swizzled tiles, the
+//    reduction over keys (A) or query rows (B) in 16-wide steps, 2048 bytes
+//    apart.  The accumulator's 16-column chunk i, packed to bf16 pairs, is
+//    the A fragment of the i-th step, as P is in the forward.
+//  * P and dS are rounded to bf16 for the products; LSE, δ and the row
+//    sums stay fp32 (P unrounded in δ).  Exponents in the log2 domain: the
+//    scratch holds LSE·log2(e).
+//  * In B's Sᵀ accumulator, a thread holds keys 16w + t/4 (+ 8) and query
+//    columns 8c + 2(t%4) + {0, 1}: it reads those 16 queries' LSE and δ
+//    from the scratch before waiting on the tiles (rows past S read as
+//    LSE = +inf, δ = 0, so their P and dS are 0).
+//  * dQ, dK and dV accumulators (32 floats a thread each) stay in registers
+//    until the end.  Each product group is committed and waited on before
+//    its result is read; several blocks an SM overlap one another's
+//    products with their exponentials and copies.
+// fp32: bwd_dq_kernel and bwd_dkdv_kernel on the CUDA cores, because the
+// fp32 gate (1e-4 row-relative) needs full-fp32 products.  Tiles are
+// widened in shared memory, rows padded by one float; a block's 4·BT
+// threads form a (BT/4) x 16 grid; thread (ty, tx) owns rows ty + BT/4·a
+// (a < 4) and columns tx + 16b (b < BT/16) of a BT x BT score tile, and
+// columns tx + 16c (c < D/16) of a gradient tile; a row's max and sum
+// reduce over its 16 threads with shuffles.  The next tile is fetched into
+// registers in 16-byte pieces while the current one is used.  BT = 64: on
+// the H100 it beat 32 on the tiny pool's training shapes taken together and
+// at 1,024 blocks, though 32 won at 144-160 blocks
+// (benchmarks/torch_flash_bwd_tiles.py).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-constexpr int BT = 64;         // rows of a Q tile and keys of a KV tile
-constexpr int THREADS = 256;   // a 16 x 16 grid of threads
-constexpr int PS = BT + 1;     // row pitch of a 64 x 64 tile in shared memory
 
 struct Shape {
   int S, H, Hk, G, causal, window;
@@ -62,51 +92,454 @@ __device__ __forceinline__ bool visible(int i, int j, const Shape& s) {
   return i < s.S && j < s.S && (!s.causal || j <= i) && (s.window <= 0 || j > i - s.window);
 }
 
-// First key (inclusive) and last key (exclusive) any row of the Q tile at q0 sees.
+// First key (inclusive) and last key (exclusive) any row of the Q tile of
+// bt rows at q0 sees.
 __device__ __forceinline__ int key_lo(int q0, const Shape& s) {
   return s.window > 0 ? max(0, q0 - s.window + 1) : 0;
 }
-__device__ __forceinline__ int key_hi(int q0, const Shape& s) {
-  return s.causal ? min(s.S, q0 + BT) : s.S;
+__device__ __forceinline__ int key_hi(int q0, int bt, const Shape& s) {
+  return s.causal ? min(s.S, q0 + bt) : s.S;
 }
-// First and last (exclusive) query rows that see any key of the KV tile at k0.
+// First and last (exclusive) query rows that see any key of the KV tile of
+// bt keys at k0.
 __device__ __forceinline__ int query_lo(int k0, const Shape& s) { return s.causal ? k0 : 0; }
-__device__ __forceinline__ int query_hi(int k0, const Shape& s) {
-  return s.window > 0 ? min(s.S, k0 + BT - 1 + s.window) : s.S;
+__device__ __forceinline__ int query_hi(int k0, int bt, const Shape& s) {
+  return s.window > 0 ? min(s.S, k0 + bt - 1 + s.window) : s.S;
+}
+// Whether some (query, key) pair of the tiles at q0 and k0 (bt each) is
+// hidden: the tile crosses the diagonal, the window's edge or the end of S.
+__device__ __forceinline__ bool edge_tile(int q0, int k0, int bt, const Shape& s) {
+  return q0 + bt > s.S || k0 + bt > s.S || (s.causal && k0 + bt - 1 > q0) ||
+         (s.window > 0 && k0 <= q0 + bt - 1 - s.window);
 }
 
-// Rows row0 .. row0 + 63 of head `head` of a (B, S, n_heads, D) tensor into
-// dst[64][D + 1] as fp32, rows past S as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int b, int row0,
-                                          int head, int n_heads, int S) {
-  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
-    const int r = i / D, c = i % D, row = row0 + r;
-    float x = 0.f;
-    if (row < S) x = to_float(src[((static_cast<size_t>(b) * S + row) * n_heads + head) * D + c]);
-    dst[r * (D + 1) + c] = x;
+// ---- bf16: tensor cores (wgmma over swizzled TMA tiles) ------------------
+constexpr int TC_T = 64;                 // rows of a Q tile, keys of a KV tile
+constexpr int TC_THREADS = 128;          // one warpgroup
+constexpr int TILE = TC_T * 128;         // bytes of one 64 x 64 bf16 tile (128-byte rows)
+// 1024 bytes to align the first tile; six tiles; three barriers
+constexpr int TC_SMEM = 1024 + 6 * TILE + 8 * 3;
+
+// K-major operand of a 64-row tile at `tile`, 16-wide step kk of the reduction
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 32, 16, 1024);
+}
+// MN-major operand of a tile at `tile`, rows 16·kk .. 16·kk + 15 as the reduction
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, TILE, 1024);
+}
+
+// d = zero, then += A·Bᵀ over D/16 steps, both tiles K-major
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_m64n64k16(d, kmajor(a, kk), kmajor(b, kk));
+}
+// d += A·B: A the 64 x 64 bf16 fragment in f (four 16-wide steps), B a tile read MN-major
+__device__ __forceinline__ void issue_rs(float (&d)[32], const uint32_t (&f)[16], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < TC_T / 16; ++kk) wgmma_rs_m64n64k16(d, f + 4 * kk, mnmajor(b, kk));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// A: dQ of one (Q tile, head, batch row), and the rows' LSE·log2(e) and δ.
+// Accumulator layout (hopper.cuh): thread t of warp w holds rows 16w + t/4
+// (index bit 1 clear) and + 8 (set), columns 8c + 2(t%4) + {0, 1} at
+// indices 4c + {0, 1} (+ 2).
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 __nv_bfloat16* __restrict__ dq, float* __restrict__ lse,
+                 float* __restrict__ delta, Shape s, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t dos = qs + TILE;
+  const uint32_t ks = dos + TILE;          // stage st at ks + st·TILE
+  const uint32_t vs = ks + 2 * TILE;
+  const uint32_t bar_q = vs + 2 * TILE;    // Q and dO
+  const uint32_t bar_kv = bar_q + 8;       // K and V of stage st at bar_kv + 8·st
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nt = (s.S + TC_T - 1) / TC_T;
+  const int q0 = (nt - 1 - static_cast<int>(blockIdx.x)) * TC_T;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const int lo = key_lo(q0, s) / TC_T;
+  const int n = (key_hi(q0, TC_T, s) + TC_T - 1) / TC_T - lo;   // at least 1
+
+  // iteration it of the two passes reads KV tile lo + it % n from stage it % 2
+  auto load_kv = [&](int it) {
+    const int st = it % 2, k0 = (lo + it % n) * TC_T;
+    const uint32_t bar = bar_kv + 8 * st;
+    mbar_expect_tx(bar, 2 * TILE);
+    tma_load_4d(ks + st * TILE, &tk, bar, 0, hk, k0, b);
+    tma_load_4d(vs + st * TILE, &tv, bar, 0, hk, k0, b);
+  };
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    prefetch_tensormap(&tdo);
+    for (int i = 0; i < 3; ++i) mbar_init(bar_q + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * TILE);
+    tma_load_4d(qs, &tq, bar_q, 0, h, q0, b);
+    tma_load_4d(dos, &tdo, bar_q, 0, h, q0, b);
+    load_kv(0);
+    load_kv(1);                            // 2n >= 2 iterations
+  }
+  // stage it % 2 is read by every warp: refill it with the tile two ahead
+  auto release = [&](int it) {
+    __syncthreads();
+    if (tid == 0 && it + 2 < 2 * n) load_kv(it + 2);
+  };
+
+  const int r0 = 16 * warp + lane / 4;
+  const int pos[2] = {q0 + r0, q0 + r0 + 8};
+  float sc[32], dp[32];
+  // S = Q·Kᵀ and dP = dO·Vᵀ of the tiles in stage st
+  auto scores = [&](int st) {
+    zero(sc);
+    zero(dp);
+    wgmma_fence();
+    issue_ss<D>(sc, qs, ks + st * TILE);
+    issue_ss<D>(dp, dos, vs + st * TILE);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+  };
+  auto key_of = [&](int k0, int i) { return k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2; };
+
+  mbar_wait(bar_q, 0);
+  // pass 1: online max, sum and Σ e·dP of this thread's two rows (its
+  // share of them: the quad's four threads are summed at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, ds_sum[2] = {0.f, 0.f};
+  for (int it = 0; it < n; ++it) {
+    mbar_wait(bar_kv + 8 * (it % 2), (it / 2) & 1);
+    scores(it % 2);
+    release(it);
+    const int k0 = (lo + it) * TC_T;
+    const bool edge = edge_tile(q0, k0, TC_T, s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float x = sc[i] * scale_log2;
+      if (edge && !visible(pos[r], key_of(k0, i), s)) x = -INFINITY;
+      sc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;   // a row with no visible key yet
+      const float corr = exp2f(m[r] - mu[r]);     // 0 while m is -inf
+      l[r] *= corr;
+      ds_sum[r] *= corr;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      const float e = exp2f(sc[i] - mu[r]);
+      l[r] += e;
+      ds_sum[r] = fmaf(e, dp[i], ds_sum[r]);
+    }
+  }
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 1);
+    ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 2);
+    lse2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
+    dl[r] = l[r] > 0.f ? ds_sum[r] / l[r] : 0.f;
+    if (lane % 4 == 0 && pos[r] < s.S) {
+      const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + pos[r];
+      lse[row] = lse2[r];
+      delta[row] = dl[r];
+    }
+  }
+
+  // pass 2: dS of each tile, dQ += dS·K
+  float acc[32];
+  zero(acc);
+  uint32_t dsf[16];
+  for (int it = n; it < 2 * n; ++it) {
+    const int st = it % 2;
+    mbar_wait(bar_kv + 8 * st, (it / 2) & 1);
+    scores(st);
+    const int k0 = (lo + it - n) * TC_T;
+    const bool edge = edge_tile(q0, k0, TC_T, s);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      float d2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = !edge || visible(pos[r], key_of(k0, i + e), s);
+        const float p = ok ? exp2f(sc[i + e] * scale_log2 - lse2[r]) : 0.f;
+        d2[e] = p * (dp[i + e] - dl[r]);
+      }
+      dsf[i / 2] = pack_bf16(d2[0], d2[1]);
+    }
+    wgmma_fence();
+    issue_rs(acc, dsf, ks + st * TILE);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(it);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (pos[r] >= s.S) continue;
+    __nv_bfloat16* out = dq + ((static_cast<size_t>(b) * s.S + pos[r]) * s.H + h) * D +
+                         2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * r] * s.scale, acc[4 * c + 2 * r + 1] * s.scale);
   }
 }
 
-// acc[a][b] = Σ_d A[ty + 16a][d] · Bt[tx + 16b][d] over two tiles of pitch D + 1.
+// B: dK and dV of one (KV tile, KV head, batch row), summed over the G
+// heads of the group.  In the Sᵀ accumulator rows are keys and columns
+// queries.
 template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A, const float* Bt,
-                                         int ty, int tx) {
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, Shape s, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ks = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t vs = ks + TILE;
+  const uint32_t qs = vs + TILE;           // stage st at qs + st·TILE
+  const uint32_t dos = qs + 2 * TILE;
+  const uint32_t bar_kv = dos + 2 * TILE;  // K and V
+  const uint32_t bar_s = bar_kv + 8;       // Q and dO of stage st at bar_s + 8·st
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * TC_T, hk = blockIdx.y, b = blockIdx.z;
+  const int qlo = query_lo(k0, s) / TC_T;
+  const int nq = (query_hi(k0, TC_T, s) + TC_T - 1) / TC_T - qlo;   // at least 1
+  const int n = s.G * nq;
+
+  // iteration it reads Q tile qlo + it % nq of head hk·G + it / nq from stage it % 2
+  auto load_q = [&](int it) {
+    const int st = it % 2, q0 = (qlo + it % nq) * TC_T, h = hk * s.G + it / nq;
+    const uint32_t bar = bar_s + 8 * st;
+    mbar_expect_tx(bar, 2 * TILE);
+    tma_load_4d(qs + st * TILE, &tq, bar, 0, h, q0, b);
+    tma_load_4d(dos + st * TILE, &tdo, bar, 0, h, q0, b);
+  };
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    prefetch_tensormap(&tdo);
+    for (int i = 0; i < 3; ++i) mbar_init(bar_kv + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * TILE);
+    tma_load_4d(ks, &tk, bar_kv, 0, hk, k0, b);
+    tma_load_4d(vs, &tv, bar_kv, 0, hk, k0, b);
+    load_q(0);
+    if (n > 1) load_q(1);
+  }
+
+  const int r0 = 16 * warp + lane / 4;
+  const int key[2] = {k0 + r0, k0 + r0 + 8};
+  float dka[32], dva[32], st_[32], dpt[32];
+  zero(dka);
+  zero(dva);
+  uint32_t pf[16], dsf[16];
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % 2, q0 = (qlo + it % nq) * TC_T, h = hk * s.G + it / nq;
+    // LSE·log2(e) and δ of this thread's 16 query columns, 8c + 2(t%4) + e
+    const size_t row0 = (static_cast<size_t>(b) * s.H + h) * s.S;
+    float ls[16], dl[16];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = q0 + 8 * c + 2 * (lane % 4) + e;
+        ls[2 * c + e] = i < s.S ? __ldg(lse + row0 + i) : INFINITY;
+        dl[2 * c + e] = i < s.S ? __ldg(delta + row0 + i) : 0.f;
+      }
+    mbar_wait(bar_s + 8 * st, (it / 2) & 1);
+    zero(st_);
+    zero(dpt);
+    wgmma_fence();
+    issue_ss<D>(st_, ks, qs + st * TILE);
+    issue_ss<D>(dpt, vs, dos + st * TILE);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st_);
+    fence_regs(dpt);
+    const bool edge = edge_tile(q0, k0, TC_T, s);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      float p2[2], d2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * (i / 4) + e;     // this column's LSE and δ
+        const int qi = q0 + 8 * (i / 4) + 2 * (lane % 4) + e;
+        const bool ok = !edge || visible(qi, key[r], s);
+        p2[e] = ok ? exp2f(st_[i + e] * scale_log2 - ls[c]) : 0.f;
+        d2[e] = p2[e] * (dpt[i + e] - dl[c]);
+      }
+      pf[i / 2] = pack_bf16(p2[0], p2[1]);
+      dsf[i / 2] = pack_bf16(d2[0], d2[1]);
+    }
+    wgmma_fence();
+    issue_rs(dva, pf, dos + st * TILE);
+    issue_rs(dka, dsf, qs + st * TILE);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+    __syncthreads();                       // stage st is read by every warp
+    if (tid == 0 && it + 2 < n) load_q(it + 2);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= s.S) continue;
+    const size_t base = ((static_cast<size_t>(b) * s.S + key[r]) * s.Hk + hk) * D +
+                        2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * c) = __floats2bfloat162_rn(
+          dka[4 * c + 2 * r] * s.scale, dka[4 * c + 2 * r + 1] * s.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * c) =
+          __floats2bfloat162_rn(dva[4 * c + 2 * r], dva[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+              void* dv, float* lse, float* delta, int B, int S, int H, int Hk, int causal,
+              int window, cudaStream_t stream) {
+  const Shape s{S, H, Hk, H / Hk, causal, window, static_cast<float>(1.0 / std::sqrt(double(D)))};
+  const float scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(D)));
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_bf16_4d(&tq, q, D, H, S, B, 64, 1, TC_T, 1) ||
+      !encode_bf16_4d(&tk, k, D, Hk, S, B, 64, 1, TC_T, 1) ||
+      !encode_bf16_4d(&tv, v, D, Hk, S, B, 64, 1, TC_T, 1) ||
+      !encode_bf16_4d(&tdo, dout, D, H, S, B, 64, 1, TC_T, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;   // once per width and process
+  if (!smem_set) {
+    cudaError_t err = allow_smem(bwd_dq_tc_kernel<D>, TC_SMEM);
+    if (err == cudaSuccess) err = allow_smem(bwd_dkdv_tc_kernel<D>, TC_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const int nt = (S + TC_T - 1) / TC_T;
+  bwd_dq_tc_kernel<D><<<dim3(nt, H, B), TC_THREADS, TC_SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), lse, delta, s, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dkdv_tc_kernel<D><<<dim3(nt, Hk, B), TC_THREADS, TC_SMEM, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), s, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- fp32: CUDA cores ------------------------------------------------------
+// Rows of an fp32 tile (queries in A, keys in B): 32 or 64, the thread grid
+// below.  benchmarks/torch_flash_bwd_tiles.py times a copy built with 32.
+constexpr int FP_T = 64;
+
+template <int BT>
+struct Grid {
+  static constexpr int THREADS = 4 * BT;   // a (BT/4) x 16 grid of threads
+  static constexpr int TY = BT / 4;        // thread rows
+  static constexpr int CB = BT / 16;       // score columns a thread
+  static constexpr int PS = BT + 1;        // row pitch of a BT x BT tile in shared memory
+};
+
+// One BT x D tile in 16-byte pieces, D/16 a thread: fetched from global
+// memory into registers, then stored widened into shared memory.
+template <int D, int BT>
+struct Pieces {
+  static constexpr int N = D / 16;
+  float4 v[N];
+
+  // rows row0 .. row0 + BT - 1 of head `head` of a (B, S, n_heads, D)
+  // tensor; rows past S as zeros
+  __device__ __forceinline__ void fetch(const float* __restrict__ src, int b, int row0,
+                                        int head, int n_heads, int S) {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int p = threadIdx.x + Grid<BT>::THREADS * u, r = p / (D / 4), c = p % (D / 4);
+      const int row = row0 + r;
+      v[u] = row < S ? *reinterpret_cast<const float4*>(
+                           src + ((static_cast<size_t>(b) * S + row) * n_heads + head) * D + 4 * c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  // into dst[BT][D + 1]
+  __device__ __forceinline__ void store(float* dst) const {
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int p = threadIdx.x + Grid<BT>::THREADS * u, r = p / (D / 4), c = p % (D / 4);
+      float* d = dst + r * (D + 1) + 4 * c;
+      d[0] = v[u].x;
+      d[1] = v[u].y;
+      d[2] = v[u].z;
+      d[3] = v[u].w;
+    }
+  }
+};
+
+// acc[a][b] = Σ_d A[ty + TY·a][d] · Bt[tx + 16b][d] over two tiles of pitch D + 1.
+template <int D, int BT>
+__device__ __forceinline__ void tile_dot(float (&acc)[4][Grid<BT>::CB], const float* A,
+                                         const float* Bt, int ty, int tx) {
+  constexpr int CB = Grid<BT>::CB, TY = Grid<BT>::TY;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int c = 0; c < CB; ++c) acc[a][c] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
+    float av[4], bv[CB];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = A[(ty + 16 * a) * (D + 1) + d];
+    for (int a = 0; a < 4; ++a) av[a] = A[(ty + TY * a) * (D + 1) + d];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = Bt[(tx + 16 * b) * (D + 1) + d];
+    for (int c = 0; c < CB; ++c) bv[c] = Bt[(tx + 16 * c) * (D + 1) + d];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+      for (int c = 0; c < CB; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
   }
 }
 
@@ -122,300 +555,297 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// LSE and δ of the 64 rows of one (Q tile, head, batch row), into (B, H, S)
-// fp32.  δ_i = Σ_j P_ij dP_ij = dO_i · O_i with O the output in fp32: it is
-// summed here over the keys, online like the LSE, so the rounding of a bf16
-// output (up to ~6% of a row's gradient through δ) never enters.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-lse_delta_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, float* __restrict__ lse, float* __restrict__ delta,
-                 Shape s) {
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [64][D + 1] each
-  float* dos = qs + BT * (D + 1);
-  float* ks = dos + BT * (D + 1);
-  float* vs = ks + BT * (D + 1);
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  load_tile<T, D>(qs, q, b, q0, h, s.H, s.S);
-  load_tile<T, D>(dos, dout, b, q0, h, s.H, s.S);
-  float m[4], l[4], acc[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-    acc[a] = 0.f;
-  }
-  const int hi = key_hi(q0, s);
-  for (int k0 = key_lo(q0, s) / BT * BT; k0 < hi; k0 += BT) {
-    __syncthreads();                   // the previous tiles are read; Q, dO are loaded
-    load_tile<T, D>(ks, k, b, k0, hk, s.Hk, s.S);
-    load_tile<T, D>(vs, v, b, k0, hk, s.Hk, s.S);
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    tile_dot<D>(sc, qs, ks, ty, tx);
-    tile_dot<D>(dp, dos, vs, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = q0 + ty + 16 * a;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[a][c] = visible(i, k0 + tx + 16 * c, s) ? sc[a][c] * s.scale : -INFINITY;
-        mx = fmaxf(mx, sc[a][c]);
-      }
-      // every lane of the warp takes the shuffles; a row with no visible
-      // key yet keeps m = -inf and l = acc = 0
-      const float m_new = fmaxf(m[a], row_max(mx));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f, dsum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = expf(sc[a][c] - m_use);
-        sum += e;
-        dsum = fmaf(e, dp[a][c], dsum);
-      }
-      const float corr = m[a] == -INFINITY ? 0.f : expf(m[a] - m_use);
-      l[a] = l[a] * corr + row_sum(sum);
-      acc[a] = acc[a] * corr + row_sum(dsum);
-      m[a] = m_new;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (tx == 0 && i < s.S) {
-      const size_t r = (static_cast<size_t>(b) * s.H + h) * s.S + i;
-      lse[r] = l[a] > 0.f ? m[a] + logf(l[a]) : INFINITY;
-      delta[r] = l[a] > 0.f ? acc[a] / l[a] : 0.f;
-    }
-  }
-}
-
-// P and dS of one (Q tile, KV tile) pair into shared memory: rows are
-// queries, columns keys.  lse_s/dl_s hold the Q tile's LSE and δ.
-template <int D>
+// P (if ps) and dS of one (Q tile, KV tile) pair into shared memory: rows
+// are queries, columns keys.  lse_s/dl_s hold the Q tile's LSE and δ.
+template <int D, int BT>
 __device__ __forceinline__ void probs_and_dscores(float* ps, float* dss, const float* qs,
                                                   const float* ks, const float* dos,
                                                   const float* vs, const float* lse_s,
                                                   const float* dl_s, int q0, int k0, int ty,
                                                   int tx, const Shape& s) {
-  float sc[4][4], dp[4][4];
-  tile_dot<D>(sc, qs, ks, ty, tx);
-  tile_dot<D>(dp, dos, vs, ty, tx);
+  using Gd = Grid<BT>;
+  float sc[4][Gd::CB], dp[4][Gd::CB];
+  tile_dot<D, BT>(sc, qs, ks, ty, tx);
+  tile_dot<D, BT>(dp, dos, vs, ty, tx);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int r = ty + 16 * a;
+    const int r = ty + Gd::TY * a;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < Gd::CB; ++c) {
       const int col = tx + 16 * c;
       const float p = visible(q0 + r, k0 + col, s) ? expf(sc[a][c] * s.scale - lse_s[r]) : 0.f;
-      if (ps != nullptr) ps[r * PS + col] = p;
-      dss[r * PS + col] = p * (dp[a][c] - dl_s[r]);
+      if (ps != nullptr) ps[r * Gd::PS + col] = p;
+      dss[r * Gd::PS + col] = p * (dp[a][c] - dl_s[r]);
     }
   }
 }
 
-__device__ __forceinline__ void load_rows(float* lse_s, float* dl_s, const float* __restrict__ lse,
-                                          const float* __restrict__ delta, int b, int h, int q0,
-                                          const Shape& s) {
-  if (threadIdx.x < BT) {
-    const int i = q0 + threadIdx.x;
-    const size_t r = (static_cast<size_t>(b) * s.H + h) * s.S + i;
-    lse_s[threadIdx.x] = i < s.S ? lse[r] : INFINITY;
-    dl_s[threadIdx.x] = i < s.S ? delta[r] : 0.f;
-  }
-}
-
-// dK and dV of one (KV tile, KV head, batch row), summed over the G heads of the group.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, Shape s) {
+// A: dQ of one (Q tile, head, batch row), after a first pass that computes
+// the rows' LSE and δ into lse_s/dl_s and the (B, H, S) scratch.
+template <int D, int BT>
+__global__ void __launch_bounds__(Grid<BT>::THREADS)
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dq,
+              Shape s) {
+  using Gd = Grid<BT>;
   extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + BT * (D + 1);
-  float* qs = vs + BT * (D + 1);
+  float* qs = smem;                        // [BT][D + 1] each
   float* dos = qs + BT * (D + 1);
-  float* ps = dos + BT * (D + 1);      // [64 queries][PS]
-  float* dss = ps + BT * PS;           // [64 queries][PS]
-  float* lse_s = dss + BT * PS;
+  float* ks = dos + BT * (D + 1);
+  float* vs = ks + BT * (D + 1);
+  float* dss = vs + BT * (D + 1);          // [BT queries][PS]
+  float* lse_s = dss + BT * Gd::PS;
   float* dl_s = lse_s + BT;
-  const int k0 = blockIdx.x * BT, hk = blockIdx.y, b = blockIdx.z;
+  const int nt = (s.S + BT - 1) / BT;
+  const int q0 = (nt - 1 - static_cast<int>(blockIdx.x)) * BT;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   constexpr int NC = D / 16;
-  load_tile<T, D>(ks, k, b, k0, hk, s.Hk, s.S);
-  load_tile<T, D>(vs, v, b, k0, hk, s.Hk, s.S);
-  float dk_acc[4][NC], dv_acc[4][NC];
+  const int lo = key_lo(q0, s) / BT;
+  const int n = (key_hi(q0, BT, s) + BT - 1) / BT - lo;   // at least 1
+  {
+    Pieces<D, BT> qr, dor;
+    qr.fetch(q, b, q0, h, s.H, s.S);
+    dor.fetch(dout, b, q0, h, s.H, s.S);
+    qr.store(qs);
+    dor.store(dos);
+  }
+  Pieces<D, BT> kr, vr;
+  kr.fetch(k, b, lo * BT, hk, s.Hk, s.S);
+  vr.fetch(v, b, lo * BT, hk, s.Hk, s.S);
+  float m[4], l[4], acc[4], dq_acc[4][NC];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
+    acc[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
-  const int lo = query_lo(k0, s) / BT * BT, hi = query_hi(k0, s);
-  for (int g = 0; g < s.G; ++g) {
-    const int h = hk * s.G + g;
-    for (int q0 = lo; q0 < hi; q0 += BT) {
-      __syncthreads();                 // the previous pair's tiles are read
-      load_tile<T, D>(qs, q, b, q0, h, s.H, s.S);
-      load_tile<T, D>(dos, dout, b, q0, h, s.H, s.S);
-      load_rows(lse_s, dl_s, lse, delta, b, h, q0, s);
-      __syncthreads();
-      probs_and_dscores<D>(ps, dss, qs, ks, dos, vs, lse_s, dl_s, q0, k0, ty, tx, s);
-      __syncthreads();
-      // dV[j][d] += Σ_i P[i][j] dO[i][d];  dK[j][d] += Σ_i dS[i][j] Q[i][d]
-#pragma unroll 4
-      for (int i = 0; i < BT; ++i) {
-        float pa[4], sa[4], od[NC], qd[NC];
+    for (int c = 0; c < NC; ++c) dq_acc[a][c] = 0.f;
+  }
+  // iterations 0 .. n-1: pass 1 (LSE and δ); n .. 2n-1: pass 2 (dQ)
+  for (int it = 0; it < 2 * n; ++it) {
+    const int k0 = (lo + it % n) * BT;
+    __syncthreads();                       // the previous tiles are read
+    kr.store(ks);
+    vr.store(vs);
+    __syncthreads();                       // this tile (and Q, dO, LSE, δ) in place
+    if (it + 1 < 2 * n) {                  // the next tile, in flight while this one is used
+      const int next = (lo + (it + 1) % n) * BT;
+      kr.fetch(k, b, next, hk, s.Hk, s.S);
+      vr.fetch(v, b, next, hk, s.Hk, s.S);
+    }
+    if (it < n) {
+      float sc[4][Gd::CB], dp[4][Gd::CB];
+      tile_dot<D, BT>(sc, qs, ks, ty, tx);
+      tile_dot<D, BT>(dp, dos, vs, ty, tx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = q0 + ty + Gd::TY * a;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < Gd::CB; ++c) {
+          sc[a][c] = visible(i, k0 + tx + 16 * c, s) ? sc[a][c] * s.scale : -INFINITY;
+          mx = fmaxf(mx, sc[a][c]);
+        }
+        // every lane of the warp takes the shuffles; a row with no visible
+        // key yet keeps m = -inf and l = acc = 0
+        const float m_new = fmaxf(m[a], row_max(mx));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        float sum = 0.f, dsum = 0.f;
+#pragma unroll
+        for (int c = 0; c < Gd::CB; ++c) {
+          const float e = expf(sc[a][c] - m_use);
+          sum += e;
+          dsum = fmaf(e, dp[a][c], dsum);
+        }
+        const float corr = m[a] == -INFINITY ? 0.f : expf(m[a] - m_use);
+        l[a] = l[a] * corr + row_sum(sum);
+        acc[a] = acc[a] * corr + row_sum(dsum);
+        m[a] = m_new;
+      }
+      if (it == n - 1) {                   // read by pass 2 after the next barriers
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
-          pa[a] = ps[i * PS + ty + 16 * a];
-          sa[a] = dss[i * PS + ty + 16 * a];
+          const int r = ty + Gd::TY * a, i = q0 + r;
+          const float lse_r = l[a] > 0.f ? m[a] + logf(l[a]) : INFINITY;
+          const float dl_r = l[a] > 0.f ? acc[a] / l[a] : 0.f;
+          if (tx == 0) {
+            lse_s[r] = lse_r;
+            dl_s[r] = dl_r;
+            if (i < s.S) {
+              const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + i;
+              lse[row] = lse_r;
+              delta[row] = dl_r;
+            }
+          }
         }
+      }
+    } else {
+      probs_and_dscores<D, BT>(nullptr, dss, qs, ks, dos, vs, lse_s, dl_s, q0, k0, ty, tx, s);
+      __syncthreads();
+      // dQ[i][d] += Σ_j dS[i][j] K[j][d]
+#pragma unroll 4
+      for (int j = 0; j < BT; ++j) {
+        float sa[4], kd[NC];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          od[c] = dos[i * (D + 1) + tx + 16 * c];
-          qd[c] = qs[i * (D + 1) + tx + 16 * c];
-        }
+        for (int a = 0; a < 4; ++a) sa[a] = dss[(ty + Gd::TY * a) * Gd::PS + j];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) kd[c] = ks[j * (D + 1) + tx + 16 * c];
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            dv_acc[a][c] = fmaf(pa[a], od[c], dv_acc[a][c]);
-            dk_acc[a][c] = fmaf(sa[a], qd[c], dk_acc[a][c]);
-          }
+          for (int c = 0; c < NC; ++c) dq_acc[a][c] = fmaf(sa[a], kd[c], dq_acc[a][c]);
       }
     }
   }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty + 16 * a;
-    if (j >= s.S) continue;
-    const size_t base = ((static_cast<size_t>(b) * s.S + j) * s.Hk + hk) * D;
+    const int i = q0 + ty + Gd::TY * a;
+    if (i >= s.S) continue;
+    const size_t base = ((static_cast<size_t>(b) * s.S + i) * s.H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[base + tx + 16 * c] = from_float<T>(dk_acc[a][c] * s.scale);
-      dv[base + tx + 16 * c] = from_float<T>(dv_acc[a][c]);
-    }
+    for (int c = 0; c < NC; ++c) dq[base + tx + 16 * c] = dq_acc[a][c] * s.scale;
   }
 }
 
-// dQ of one (Q tile, head, batch row).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, Shape s) {
+// B: dK and dV of one (KV tile, KV head, batch row), summed over the G heads of the group.
+template <int D, int BT>
+__global__ void __launch_bounds__(Grid<BT>::THREADS)
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, Shape s) {
+  using Gd = Grid<BT>;
   extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + BT * (D + 1);
-  float* ks = dos + BT * (D + 1);
+  float* ks = smem;
   float* vs = ks + BT * (D + 1);
-  float* dss = vs + BT * (D + 1);      // [64 queries][PS]
-  float* lse_s = dss + BT * PS;
+  float* qs = vs + BT * (D + 1);
+  float* dos = qs + BT * (D + 1);
+  float* ps = dos + BT * (D + 1);          // [BT queries][PS]
+  float* dss = ps + BT * Gd::PS;           // [BT queries][PS]
+  float* lse_s = dss + BT * Gd::PS;
   float* dl_s = lse_s + BT;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const int k0 = blockIdx.x * BT, hk = blockIdx.y, b = blockIdx.z;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   constexpr int NC = D / 16;
-  load_tile<T, D>(qs, q, b, q0, h, s.H, s.S);
-  load_tile<T, D>(dos, dout, b, q0, h, s.H, s.S);
-  load_rows(lse_s, dl_s, lse, delta, b, h, q0, s);
-  float dq_acc[4][NC];
+  const int qlo = query_lo(k0, s) / BT;
+  const int nq = (query_hi(k0, BT, s) + BT - 1) / BT - qlo;   // at least 1
+  const int n = s.G * nq;
+  {
+    Pieces<D, BT> kr, vr;
+    kr.fetch(k, b, k0, hk, s.Hk, s.S);
+    vr.fetch(v, b, k0, hk, s.Hk, s.S);
+    kr.store(ks);
+    vr.store(vs);
+  }
+  // iteration it: Q tile qlo + it % nq of head hk·G + it / nq, with its rows' LSE and δ
+  Pieces<D, BT> qr, dor;
+  float lse_r = 0.f, dl_r = 0.f;
+  auto fetch = [&](int it) {
+    const int q0 = (qlo + it % nq) * BT, h = hk * s.G + it / nq;
+    qr.fetch(q, b, q0, h, s.H, s.S);
+    dor.fetch(dout, b, q0, h, s.H, s.S);
+    if (threadIdx.x < BT) {
+      const int i = q0 + threadIdx.x;
+      const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + i;
+      lse_r = i < s.S ? lse[row] : INFINITY;
+      dl_r = i < s.S ? delta[row] : 0.f;
+    }
+  };
+  fetch(0);
+  float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq_acc[a][c] = 0.f;
-  const int hi = key_hi(q0, s);
-  for (int k0 = key_lo(q0, s) / BT * BT; k0 < hi; k0 += BT) {
-    __syncthreads();                   // the previous tile is read; Q, dO are loaded
-    load_tile<T, D>(ks, k, b, k0, hk, s.Hk, s.S);
-    load_tile<T, D>(vs, v, b, k0, hk, s.Hk, s.S);
+    for (int c = 0; c < NC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    const int q0 = (qlo + it % nq) * BT;
+    __syncthreads();                       // the previous pair's tiles are read
+    qr.store(qs);
+    dor.store(dos);
+    if (threadIdx.x < BT) {
+      lse_s[threadIdx.x] = lse_r;
+      dl_s[threadIdx.x] = dl_r;
+    }
     __syncthreads();
-    probs_and_dscores<D>(nullptr, dss, qs, ks, dos, vs, lse_s, dl_s, q0, k0, ty, tx, s);
+    if (it + 1 < n) fetch(it + 1);         // in flight while this pair is used
+    probs_and_dscores<D, BT>(ps, dss, qs, ks, dos, vs, lse_s, dl_s, q0, k0, ty, tx, s);
     __syncthreads();
-    // dQ[i][d] += Σ_j dS[i][j] K[j][d]
+    // dV[j][d] += Σ_i P[i][j] dO[i][d];  dK[j][d] += Σ_i dS[i][j] Q[i][d]
 #pragma unroll 4
-    for (int j = 0; j < BT; ++j) {
-      float sa[4], kd[NC];
+    for (int i = 0; i < BT; ++i) {
+      float pa[4], sa[4], od[NC], qd[NC];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = dss[(ty + 16 * a) * PS + j];
+      for (int a = 0; a < 4; ++a) {
+        pa[a] = ps[i * Gd::PS + ty + Gd::TY * a];
+        sa[a] = dss[i * Gd::PS + ty + Gd::TY * a];
+      }
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kd[c] = ks[j * (D + 1) + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) {
+        od[c] = dos[i * (D + 1) + tx + 16 * c];
+        qd[c] = qs[i * (D + 1) + tx + 16 * c];
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) dq_acc[a][c] = fmaf(sa[a], kd[c], dq_acc[a][c]);
+        for (int c = 0; c < NC; ++c) {
+          dv_acc[a][c] = fmaf(pa[a], od[c], dv_acc[a][c]);
+          dk_acc[a][c] = fmaf(sa[a], qd[c], dk_acc[a][c]);
+        }
     }
   }
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= s.S) continue;
-    const size_t base = ((static_cast<size_t>(b) * s.S + i) * s.H + h) * D;
+    const int j = k0 + ty + Gd::TY * a;
+    if (j >= s.S) continue;
+    const size_t base = ((static_cast<size_t>(b) * s.S + j) * s.Hk + hk) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[base + tx + 16 * c] = from_float<T>(dq_acc[a][c] * s.scale);
+    for (int c = 0; c < NC; ++c) {
+      dk[base + tx + 16 * c] = dk_acc[a][c] * s.scale;
+      dv[base + tx + 16 * c] = dv_acc[a][c];
+    }
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-           void* dv, float* lse, float* delta, int B, int S, int H, int Hk, int causal, int window,
-           cudaStream_t stream) {
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int Hk,
+                int causal, int window, cudaStream_t stream) {
+  constexpr int BT = FP_T;
   const Shape s{S, H, Hk, H / Hk, causal, window, static_cast<float>(1.0 / std::sqrt(double(D)))};
   const int nt = (S + BT - 1) / BT;
   const size_t tile = BT * (D + 1) * sizeof(float);
-  const size_t sm_lse = 4 * tile;
-  const size_t sm_dkdv = 4 * tile + (2 * BT * PS + 2 * BT) * sizeof(float);
-  const size_t sm_dq = 4 * tile + (BT * PS + 2 * BT) * sizeof(float);
-  cudaError_t err = allow_smem(lse_delta_kernel<T, D>, sm_lse);
-  if (err == cudaSuccess) err = allow_smem(dkdv_kernel<T, D>, sm_dkdv);
-  if (err == cudaSuccess) err = allow_smem(dq_kernel<T, D>, sm_dq);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  lse_delta_kernel<T, D><<<dim3(nt, H, B), THREADS, sm_lse, stream>>>(qt, kt, vt, dot, lse,
-                                                                      delta, s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<T, D><<<dim3(nt, Hk, B), THREADS, sm_dkdv, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<T, D><<<dim3(nt, H, B), THREADS, sm_dq, stream>>>(qt, kt, vt, dot, lse, delta,
-                                                               static_cast<T*>(dq), s);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_dtype(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                 void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int Hk, int D,
-                 int causal, int window, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, Hk, causal,
-                                  window, stream);
-    case 32: return launch<T, 32>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, Hk, causal,
-                                  window, stream);
-    case 64: return launch<T, 64>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, Hk, causal,
-                                  window, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const size_t score = BT * Grid<BT>::PS * sizeof(float);
+  const size_t sm_dq = 4 * tile + score + 2 * BT * sizeof(float);
+  const size_t sm_dkdv = 4 * tile + 2 * score + 2 * BT * sizeof(float);
+  static bool smem_set = false;   // once per width and process
+  if (!smem_set) {
+    cudaError_t err = allow_smem(bwd_dq_kernel<D, BT>, sm_dq);
+    if (err == cudaSuccess) err = allow_smem(bwd_dkdv_kernel<D, BT>, sm_dkdv);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
   }
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* df = static_cast<const float*>(dout);
+  bwd_dq_kernel<D, BT><<<dim3(nt, H, B), Grid<BT>::THREADS, sm_dq, stream>>>(
+      qf, kf, vf, df, lse, delta, static_cast<float*>(dq), s);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dkdv_kernel<D, BT><<<dim3(nt, Hk, B), Grid<BT>::THREADS, sm_dkdv, stream>>>(
+      qf, kf, vf, df, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, Hk, D), all contiguous and
-// of one dtype (0 float32, 1 bfloat16); lse, delta: (B, H, S) float32
-// scratch.  window <= 0 means no window.  Three launches on `stream`;
-// returns cudaGetLastError() after them (0 on success).
+// q, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, Hk, D), all contiguous,
+// 16-byte aligned (TMA's tiles and the fp32 kernels' 16-byte pieces) and of
+// one dtype (0 float32, 1 bfloat16), D in {16, 32, 64}; lse, delta:
+// (B, H, S) float32 scratch.  window <= 0 means no window.  Two launches on
+// `stream`; returns cudaGetLastError() after them (0 on success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* dout, void* dq, void* dk, void* dv,
                                          void* lse, void* delta, int B, int S, int H, int Hk,
@@ -425,11 +855,27 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* d = static_cast<float*>(delta);
-  if (dtype == kFloat32)
-    return launch_dtype<float>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, D, causal, window,
-                               st);
-  if (dtype == kBFloat16)
-    return launch_dtype<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, D, causal,
-                                       window, st);
+  if (dtype == kFloat32) {
+    switch (D) {
+      case 16: return launch_fp32<16>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
+                                      st);
+      case 32: return launch_fp32<32>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
+                                      st);
+      case 64: return launch_fp32<64>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
+                                      st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dtype == kBFloat16) {
+    switch (D) {
+      case 16: return launch_tc<16>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
+                                    st);
+      case 32: return launch_tc<32>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
+                                    st);
+      case 64: return launch_tc<64>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
+                                    st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,12 +12,15 @@ is the same function in plain PyTorch, tiled like the JAX package's
 against on the card.
 
 Training adds the backward: ``flash_attention_backward_cuda`` launches
-``csrc/flash_attention_bwd.cu`` (three kernels: the rows' log-sum-exp and
-δ, then dK/dV a KV tile, then dQ a Q tile; no atomics, so its gradients are
-the same bits on every launch), ``flash_attention_backward_plain`` is the
-same three steps tiled in plain PyTorch, and :class:`FlashAttention` joins
-the forward and the backward for autograd, each picked by the tensors'
-device.
+``csrc/flash_attention_bwd.cu``, two kernels a call and no atomics, so its
+gradients are the same bits on every launch: a dq kernel a Q tile (a first
+pass computes the rows' log-sum-exp and δ, a second dQ) and a dkdv kernel a
+KV tile.  bf16 runs ``bwd_dq_tc_kernel`` and ``bwd_dkdv_tc_kernel`` on the
+tensor cores (``wgmma`` over TMA tiles, P and dS rounded to bf16 before
+their products), fp32 ``bwd_dq_kernel`` and ``bwd_dkdv_kernel`` on the CUDA
+cores.  ``flash_attention_backward_plain`` is the same arithmetic tiled in
+plain PyTorch, and :class:`FlashAttention` joins the forward and the
+backward for autograd, each picked by the tensors' device.
 """
 from __future__ import annotations
 
@@ -176,15 +179,18 @@ def flash_attention_backward_plain(q, k, v, d_out, *, causal: bool = True,
     """Gradients (dq, dk, dv) of :func:`flash_attention_plain` at (q, k, v)
     given the output's gradient ``d_out``.
 
-    The backward kernel's three steps, tiled, in fp32: (1) each row's
+    The backward kernels' arithmetic, tiled, in fp32: (1) each row's
     log-sum-exp over its visible keys and δ = dO·O, O the fp32 output,
     summed as Σ_j P_ij (dO_i·v_j) in the same online pass over the KV tiles
     (a bf16 output's rounding would put errors of several percent of a row's
-    gradient into δ); (2) for each KV tile, over the Q tiles that see it,
-    P = exp(S·scale − LSE), dP = dO·Vᵀ, dS = P∘(dP − δ), dV += Pᵀ·dO and
-    dK += dSᵀ·Q·scale, the G query heads of a KV head summed; (3) for each
-    Q tile, over its visible KV tiles, dQ += dS·K·scale.  Gradients in the
-    inputs' dtypes.  Shapes and masks as :func:`flash_attention_plain`.
+    gradient into δ): the dq kernel's first pass; (2) for each KV tile, over
+    the Q tiles that see it, P = exp(S·scale − LSE), dP = dO·Vᵀ,
+    dS = P∘(dP − δ), dV += Pᵀ·dO and dK += dSᵀ·Q·scale, the G query heads
+    of a KV head summed: the dkdv kernel; (3) for each Q tile, over its
+    visible KV tiles, dQ += dS·K·scale: the dq kernel's second pass.  The
+    bf16 kernels also round P and dS to bf16 before their products.
+    Gradients in the inputs' dtypes.  Shapes and masks as
+    :func:`flash_attention_plain`.
     """
     B, Sq, H, D = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
@@ -281,10 +287,16 @@ def _lib_bwd() -> ctypes.CDLL:
 def flash_attention_backward_cuda(q, k, v, d_out, *, causal: bool = True,
                                   window: Optional[int] = None):
     """Launch the CUDA flash-attention backward.  q, d_out: (B, S, H, D);
-    k/v: (B, S, Hk, D), all contiguous CUDA tensors of one dtype (float32 or
-    bfloat16), D in ``HEAD_DIMS_BWD``.  Returns (dq, dk, dv) in that dtype.
-    Raises on anything else, and counts each call (its three kernels) in
-    ``flash_attention_backward_cuda.launches``."""
+    k/v: (B, S, Hk, D), all contiguous and 16-byte aligned CUDA tensors of one
+    dtype (float32 or bfloat16), D in ``HEAD_DIMS_BWD``.  Returns (dq, dk, dv) in that dtype.
+    Raises on anything else, and counts each call in
+    ``flash_attention_backward_cuda.launches``.
+
+    Two launches on the current stream, the second reading the (B, H, S)
+    fp32 log-sum-exp and δ the first writes: bf16 runs the tensor-core
+    kernels (one warpgroup a 64-row tile; S, dP, dQ, dV and dK through
+    ``wgmma`` from 128-byte-swizzled TMA tiles, D = 16 and 32 padded to 64
+    by TMA's zero fill), fp32 the CUDA-core kernels (tiles of 64 rows)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("d_out", d_out)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_backward_cuda: {name} is on {t.device}, "
@@ -298,6 +310,9 @@ def flash_attention_backward_cuda(q, k, v, d_out, *, causal: bool = True,
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"flash_attention_backward_cuda: {name} must be a contiguous "
                              f"4-d tensor")
+        if t.data_ptr() % 16 != 0:
+            raise ValueError(f"flash_attention_backward_cuda: {name} is not 16-byte aligned "
+                             f"(the kernels read it in 16-byte pieces)")
     B, S, H, D = q.shape
     if (k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != D
             or d_out.shape != q.shape):
