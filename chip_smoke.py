@@ -22,12 +22,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    GQA/window shapes (D=32 and 64 with windows, D=16 under MQA), at S=1,
    at head widths 128 and 256 (MQA and GQA, G=3 that does not divide the
    block, ragged S, a window shorter than S), and at RecurrentGemma-9B's
-   prefill shape (B=4, S=3072, H=16 on Hk=1, D=256, window 2048), every
+   prefill shape (B=4, S=3072, H=16 on Hk=1, D=256, window 2048) and at
+   Qwen3-30B-A3B's (B=8, S=256, H=32 on Hk=4, D=128), every
    case in bf16 (the tensor-core kernel) and most in fp32 (the CUDA-core
    kernels) too; paged decode at B=8, page 16 with shared pages,
    a forked page, sentinel columns and one all-sentinel (retired) row, at
    G=1 and under GQA (G in {2, 4, 8}) and MQA (G=16), and at D=128
-   (Qwen1.5-4B's 20 heads at G=1, and G in {2, 8});
+   (Qwen1.5-4B's 20 heads at G=1, G in {2, 8}, and Qwen3-30B-A3B's 32
+   heads on 4);
    contiguous decode at B=8, H=Hk=16, D=64 with ragged lengths (0 and Smax
    included) on a horizon view of a longer cache, a GQA case, and G=16 at
    head widths 128 and 256 (a 2,048-slot ring among them); both D <= 64
@@ -58,7 +60,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    window shorter than S, and with B·H·ceil(S/64) below and above the SM
    count, bf16 and fp32, each gradient held row by row (fp32 1e-4, bf16
    2e-2) and each case launched twice with identical bits.
-4. Eight main paths, each driven with every launch count set to 0 just
+4. Ten main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched, no plain version may see a CUDA tensor, and flash attention
    builds autograd nodes (``FlashAttention``) on the training paths only.  Each path runs as
@@ -146,7 +148,24 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``Gateway.serve``'s in-process bodies, a stream equal to its unary
       twin, ``/metrics`` parsed with its request counters equal to the
       requests sent, and a clean ``stop()``.
-   Graphed against eager, each path a-e must give identical streams and
+   i. paged serving of full-width Qwen3-30B-A3B in bf16 (48 layers, 32
+      heads on 4 KV heads of 128, QK-norm, 128 experts top-8 of width 768,
+      30.53 B parameters by the model's own count, 61.1 GB), random
+      weights drawn on the card, as path e (path a's workload; the flash
+      and paged kernels at D=128, G=8), with turns of two serves a leg
+      and no eager dispatch trace but the MoE split's below (an eager
+      serve takes ~20-30 s here); launches exactly prefills x 48
+      flash and dispatches x 8 x 48 paged, the final caches bit-equal
+      graphed against eager; the (token, expert) pairs layer 0 of the
+      first prefill drops (printed), a graphed step against the bound of
+      reading every weight but the embedding, and one eager dispatch
+      traced with the MoE layers and their expert products in
+      ``record_function`` ranges (their share of the device time).
+   i2. full-width Qwen1.5-MoE-A2.7B in bf16 (24 layers, 60 experts top-4
+      and a gated shared expert, QKV bias, 28.6 GB): 8 requests prefilled
+      and 32 greedy steps (4 dispatches) through the graphs and again
+      eagerly: identical tokens, final caches and launches.
+   Graphed against eager, each path a-e and i must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
    difference printed.  Serving paths time tokens/s of both in turns
@@ -185,7 +204,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. Path e in fp32 (prefill logits within 1e-3 of the plain versions',
    identical greedy streams), and path f in fp32: both pairs' streams of
    the half-sampled workload identical to the target alone's, and the
-   random span's ``SpanProbe`` report in fp32.  Then the
+   random span's ``SpanProbe`` report in fp32.  Then path i in fp32 at
+   full width, cut to its first 4 of 48 layers (prefill logits within
+   1e-3 of the plain versions', identical greedy streams), and the
    recurrent paths' parity of phase 5.
 
 The line before the last is a JSON object with one entry per kernel (time,
@@ -228,6 +249,8 @@ PAGED_D128 = r"paged_decode_kernelI(f|13__nv_bfloat16)Li128E"   # its D=128 page
 FLUSH_KERNEL = "ReduceOp<unsigned char"   # the reading flush's kernel: max of a uint8 buffer
 SPEC_K = 4                     # the speculative paths' depth
 SPEC_4B_LAYERS = 10            # path f's Qwen1.5-4B target: its first 10 of 40 layers (bf16)
+MOE_FP32_LAYERS = 4            # path i's fp32 parity: Qwen3-30B-A3B's first 4 of 48 layers
+PATH_B_LAYERS = 8              # path b's Qwen1.5-0.5B: its first 8 of 24 layers
 
 
 T_START = time.perf_counter()
@@ -905,6 +928,95 @@ class DispatchClock:
             torch.cuda.synchronize()
         self.times.append(time.perf_counter() - t0)
         return out
+
+
+@contextlib.contextmanager
+def first_drops(moe_mod):
+    """Wrap ``moe_mod.dispatch_gather``: at its first call (on a serving
+    path, layer 0 of the first prefill, never captured), count the (token,
+    expert) pairs it drops, from the module's own ``pair_ranks``, into the
+    dict yielded.  Later calls (every decode step's among them, captured or
+    not) pass straight through."""
+    inner = moe_mod.dispatch_gather
+    seen = {}
+
+    def wrapper(layer, xt, top_p, top_i, C):
+        if not seen:
+            _, ranks = moe_mod.pair_ranks(top_i)
+            seen.update(tokens=int(xt.shape[0]), pairs=int(ranks.numel()), capacity=int(C),
+                        experts=layer.cfg.moe.n_experts, dropped=int((ranks >= C).sum()))
+        return inner(layer, xt, top_p, top_i, C)
+
+    moe_mod.dispatch_gather = wrapper
+    try:
+        yield seen
+    finally:
+        moe_mod.dispatch_gather = inner
+
+
+def moe_split(label, engine, moe_mod, requests, trace_at=4):
+    """Serve ``requests`` on ``engine`` eagerly (its graphs' ``run`` set to
+    call the body) and trace dispatch ``trace_at`` with torch.profiler, CPU
+    and CUDA, each MoE layer's forward and its expert products in
+    ``record_function`` ranges: the device time of the dispatch's kernels,
+    of those launched inside the MoE layers, and of those inside the expert
+    products (a CPU range's device time sums its kernels and its
+    children's), each a step, and the kernels that take most."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fwd, ffn = moe_mod.MoE.forward, moe_mod.MoE.expert_ffn
+
+    def fwd_ranged(self, *args, **kwargs):
+        with record_function("moe_layer"):
+            return fwd(self, *args, **kwargs)
+
+    def ffn_ranged(self, x):
+        with record_function("moe_experts"):
+            return ffn(self, x)
+
+    n, traced = [0], {}
+
+    def run(key, body):
+        n[0] += 1
+        if n[0] - 1 != trace_at:
+            return body()
+        moe_mod.MoE.forward, moe_mod.MoE.expert_ffn = fwd_ranged, ffn_ranged
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = body()
+                torch.cuda.synchronize()
+        finally:
+            moe_mod.MoE.forward, moe_mod.MoE.expert_ffn = fwd, ffn
+        traced["prof"] = prof
+        return out
+
+    engine._graphs.run = run
+    engine.serve(requests)
+    K = engine.decode_block
+    avgs = traced["prof"].key_averages()
+    rows = [e for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    total = device_total_ms(rows)
+
+    def range_ms(name):
+        return sum(getattr(e, "device_time_total", 0) for e in avgs
+                   if e.key == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+
+    moe_ms, experts_ms = range_ms("moe_layer"), range_ms("moe_experts")
+    top = top_device(rows, per=K, n=12)
+    out = dict(device_ms_per_step=None if total is None else total / K,
+               moe_ms_per_step=moe_ms / K, experts_ms_per_step=experts_ms / K,
+               moe_share=None if not total else moe_ms / total,
+               experts_share=None if not total else experts_ms / total, top=top)
+    print(f"[{label}] eager dispatch {trace_at} traced (CPU and CUDA): device "
+          + ("not measured" if total is None else
+             f"{total / K:.3f} ms a step; MoE layers {moe_ms / K:.3f} ms "
+             f"({100 * moe_ms / total:.1f}%), of it the expert products {experts_ms / K:.3f} "
+             f"ms ({100 * experts_ms / total:.1f}% of the step)"))
+    for name, ms in top:
+        print(f"[{label}]   {ms:.4f} ms a step: {name}")
+    return out
 
 
 def step_turns(dec_e, dec_g, blocks=2):
@@ -1962,6 +2074,8 @@ def main() -> int:
         flash_case("mha-window-d128", 1, 130, 4, 4, 128, dtype, window=100)
         flash_case("rgemma-prefill-d256", 4, 3072, 16, 1, 256, dtype, window=2048)
     flash_case("gqa3-window-d256", 1, 250, 12, 4, 256, torch.bfloat16, window=64)
+    for dtype in (torch.bfloat16, torch.float32):      # Qwen3-30B-A3B's prefill: 32 heads on 4
+        flash_case("qwen3-moe-prefill-d128-g8", 8, 256, 32, 4, 128, dtype)
 
     def bwd_case(label, B, S, H, Hk, D, dtype, window=None):
         """The backward kernel, launched twice (the same bits required: it
@@ -2064,6 +2178,8 @@ def main() -> int:
             paged_case(f"shared-fork-sentinel-d128-g{G}",
                        paged_inputs(dtype, H=20 if G == 1 else 16, Hk=20 if G == 1 else 16 // G,
                                     D=128))
+    for dtype in (torch.bfloat16, torch.float32):      # Qwen3-30B-A3B's decode: 32 heads on 4
+        paged_case("shared-fork-sentinel-d128-qwen3-g8", paged_inputs(dtype, H=32, Hk=4, D=128))
 
     def decode_case(label, B, S, H, Hk, D, dtype, max_len):
         """Ragged lengths with an empty row (zeros) and a full one, on a
@@ -2518,11 +2634,14 @@ def main() -> int:
                   f"{'is' if drop_same else 'is not'} bit-equal too")
         return diff
 
-    def serve(label, model, paged, record, extras=True, eager_trace_count=True):
+    def serve(label, model, paged, record, extras=True, eager_trace_count=True,
+              turns=("eager", "graphed", "graphed", "eager", "eager", "graphed"),
+              eager_trace=True):
         """The serving path through the graphs (the main path), then the
         same workload through the eager body on a fresh engine (inputs
         recorded there): streams, counters, occupancy, launches and the
-        final cache compared; tokens/s of both in turns; a trace of each.
+        final cache compared; tokens/s of both in ``turns``; a trace of
+        each (of the graphed leg only without ``eager_trace``).
         ``extras``: also the bf16 (K, slots) report and the key-switching
         leg.  ``eager_trace_count``: check the decode kernels counted by
         name in the eager dispatch's trace (else print it only)."""
@@ -2557,11 +2676,11 @@ def main() -> int:
         check(telemetry[0] == telemetry[1], f"{label}: engine counters differ: {telemetry}")
         check(counts == eager_counts, f"{label}: launches {counts} graphed, {eager_counts} eager")
         diff = caches_equal(label, engine, eager_engine)
-        # tokens/s in turns: eager, graphed, graphed, eager, eager, graphed,
-        # fresh requests each time on the two warm engines
+        # tokens/s in turns (eager, graphed, graphed, eager, eager, graphed by
+        # default), fresh requests each time on the two warm engines
         tps = {"eager": [], "graphed": []}
         secs = {"eager": [], "graphed": []}
-        for leg in ("eager", "graphed", "graphed", "eager", "eager", "graphed"):
+        for leg in turns:
             eng = eager_engine if leg == "eager" else engine
             rs = serving_requests()
             t = serve_once(eng, rs)
@@ -2578,7 +2697,7 @@ def main() -> int:
         # is admission and the host's work between dispatches)
         traces = {}
         frag = "paged_decode_kernel" if paged else "::decode_kernel"
-        for leg, eng in (("graphed", engine), ("eager", eager_engine)):
+        for leg, eng in (("graphed", engine), ("eager", eager_engine))[:2 if eager_trace else 1]:
             clock = DispatchClock(eng, trace_at=4)
             for fn in kernel.values():
                 fn.launches = 0
@@ -2634,8 +2753,14 @@ def main() -> int:
     check(occ["prefix_shares"] > 0 and occ["cow_forks"] > 0,
           "prefix sharing or copy-on-write never engaged")
     stamp("paged serving")
-    _, contig_counts, _, decode_call = serve("contiguous", model, False, "decode_attention")
-    del model
+    # path b serves the same model cut to its first PATH_B_LAYERS of 24
+    # layers (the same weights), for the script's time
+    model_b = Model(dataclasses.replace(cfg, n_layers=PATH_B_LAYERS), device=dev)
+    model_b.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("blocks.")
+                             or int(k.split(".")[1]) < PATH_B_LAYERS})
+    _, contig_counts, _, decode_call = serve("contiguous", model_b, False, "decode_attention")
+    del model, model_b
     torch.cuda.empty_cache()
 
     stamp("contiguous serving")
@@ -2944,6 +3069,111 @@ def main() -> int:
     del h_gw
     torch.cuda.empty_cache()
     stamp("tiny pool trained, fit, submit and served over HTTP")
+
+    # ---- path i: paged serving of full-width Qwen3-30B-A3B (mixture of
+    # experts, QK-norm, GQA 32/4: the flash and paged kernels at D=128, G=8)
+    from repro_torch.models import moe as moe_mod
+
+    mcfg = get_arch("qwen3-moe-30b-a3b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    mmodel = Model(mcfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 4))
+    torch.cuda.synchronize()
+    m_params = mmodel.param_count()
+    m_init_s = time.perf_counter() - t0
+    print(f"[moe-30b] {mcfg.name}: {m_params / 1e9:.3f} B parameters ({m_params:,}) in "
+          f"{str(mmodel.dtype)[6:]}, init {m_init_s:.1f}s; {held_before:.2f} GiB held before it, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after")
+    # the model's own count is its tree's: the config's keeps the reference's
+    # undercount of the QK-norm scales (2 x head_dim a layer)
+    check(m_params == mcfg.param_count() + mcfg.n_layers * 2 * mcfg.head_dim,
+          f"moe-30b: {m_params} parameters, config {mcfg.param_count()}")
+    with first_drops(moe_mod) as drops:
+        # turns of two serves a leg, and no eager dispatch trace here (an eager
+        # step's eager operators take ~5x its device time: moe_split below
+        # traces an eager dispatch with the MoE layers marked)
+        _, moe_counts, moe_flash_call, moe_paged_call = serve(
+            "moe-30b", mmodel, True, "paged_attention", extras=False, eager_trace_count=False,
+            turns=("eager", "graphed", "graphed", "eager"), eager_trace=False)
+    r_i = results["moe-30b"]
+    want_i = {"paged_attention": r_i["decode_dispatches"] * 8 * mcfg.n_layers,
+              "flash_attention": r_i["prefills"] * mcfg.n_layers}
+    check({n: moe_counts[n] for n in want_i} == want_i,
+          f"moe-30b: launches {moe_counts}, expected {want_i}")
+    check(not r_i["final_cache_diff"], "moe-30b: final caches differ graphed against eager")
+    check(tuple(moe_paged_call[0][0].shape) == (8, 1, 32, 128)
+          and moe_paged_call[0][1].shape[2:] == (4, 128),
+          f"moe-30b: the recorded paged call is not D=128, G=8: "
+          f"{[tuple(a.shape) for a in moe_paged_call[0][:2]]}")
+    print(f"[moe-30b] layer 0 of the first prefill, not checked: {drops['dropped']} of "
+          f"{drops['pairs']} (token, expert) pairs dropped ({drops['tokens']} tokens, top-"
+          f"{mcfg.moe.top_k} of {drops['experts']} experts, capacity {drops['capacity']})")
+    # a decode step reads every weight but the embedding: all 128 experts,
+    # exact dispatch
+    step_bytes = (m_params - mmodel.embed.numel()) * mmodel.embed.element_size()
+    step_bound = 1e3 * step_bytes / HBM_BYTES_PER_S
+    step_ms = r_i["traces"]["graphed"]["dispatch_ms"] / 8
+    print(f"[moe-30b] graphed step {step_ms:.3f} ms (a clocked dispatch over K = 8) against a "
+          f"bound of {step_bound:.3f} ms ({step_bytes / 1e9:.2f} GB of weights at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {step_ms / step_bound:.2f}x")
+    split_eng, split_reqs = serving_engine(mmodel, dev), serving_requests()[:8]
+    for r in split_reqs:
+        r.max_new = 17                          # the prefill's token, then 2 dispatches of 8
+    split = moe_split("moe-30b", split_eng, moe_mod, split_reqs, trace_at=1)
+    del split_eng
+    m_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[moe-30b] peak memory {m_peak:.2f} GiB")
+    r_i.update(params=m_params, config_param_count=mcfg.param_count(), init_s=m_init_s,
+               held_before_gib=held_before, peak_gib=m_peak, first_prefill_layer0=dict(drops),
+               step_ms=step_ms, step_bound_ms=step_bound, step_bytes=step_bytes,
+               eager_split=split)
+    del mmodel
+    torch.cuda.empty_cache()
+    stamp("paged serving of qwen3-moe-30b-a3b")
+
+    # ---- path i2: full-width Qwen1.5-MoE-A2.7B (shared expert, QKV bias, 60
+    # experts top-4): one prefill of 8 requests and 32 greedy steps
+    m2cfg = get_arch("qwen2-moe-a2.7b")
+    t0 = time.perf_counter()
+    m2model = Model(m2cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 5))
+    torch.cuda.synchronize()
+    print(f"[moe-a2.7b] {m2cfg.name}: {m2model.param_count() / 1e9:.3f} B parameters in "
+          f"{str(m2model.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
+
+    def moe_leg(leg):
+        eng = serving_engine(m2model, dev)
+        if leg == "eager":
+            eng._graphs.run = eager_run
+        reqs = serving_requests()[:8]
+        for r in reqs:
+            r.max_new = 33                      # the prefill's token, then 4 dispatches of 8
+        with main_path("moe-a2.7b" + ("-eager" if leg == "eager" else ""),
+                       ("flash_attention", "paged_attention")) as c:
+            secs = serve_once(eng, reqs)
+        return eng, [r.out_tokens for r in reqs], c, secs
+
+    (g_eng, g_streams, g_c, g_s), (e_eng, e_streams, e_c, e_s) = (moe_leg("graphed"),
+                                                                  moe_leg("eager"))
+    want_i2 = {"paged_attention": g_eng.n_decode_calls * 8 * m2cfg.n_layers,
+               "flash_attention": g_eng.n_prefill_calls * m2cfg.n_layers}
+    print(f"[moe-a2.7b] graphed vs eager: tokens {'identical' if g_streams == e_streams else 'DIFFER'}"
+          f" ({sum(map(len, g_streams))} tokens), {g_eng.n_prefill_calls} prefill, "
+          f"{g_eng.n_decode_calls} dispatches ({len(g_eng._graphs.graphs)} graphs, "
+          f"{g_eng._graphs.n_replays} replays); {g_s:.2f}s graphed, {e_s:.2f}s eager")
+    check(g_streams == e_streams, "moe-a2.7b: graphed tokens differ from the eager body's")
+    check(g_eng.n_decode_calls == 4 and all(len(t) == 33 for t in g_streams),
+          f"moe-a2.7b: {g_eng.n_decode_calls} dispatches, lengths {[len(t) for t in g_streams]}")
+    check({n: g_c[n] for n in want_i2} == want_i2 and g_c == e_c,
+          f"moe-a2.7b: launches {g_c} graphed, {e_c} eager, expected {want_i2}")
+    i2_diff = caches_equal("moe-a2.7b", g_eng, e_eng)
+    check(not i2_diff, "moe-a2.7b: final caches differ graphed against eager")
+    results["moe-a2.7b"] = dict(params=m2model.param_count(), launches=dict(g_c),
+                                seconds=g_s, eager_seconds=e_s, dispatches=g_eng.n_decode_calls)
+    del g_eng, e_eng, m2model
+    torch.cuda.empty_cache()
+    stamp("qwen2-moe-a2.7b prefill and 32 steps")
     # the kernels on the inputs the main paths gave them
     entries = []
     (fq, fk, fv), fkw = flash_call
@@ -3032,6 +3262,52 @@ def main() -> int:
         bound_ms=h_bound, bound_by=h_by,
         library_ms=timed_ms(lambda: sdpa(hqt, hkt, hvt, is_causal=True), 50, flush),
         shape=dict(q=list(hq.shape), k=list(hk.shape), dtype=str(hq.dtype))))
+    # flash and paged at D=128, G=8: Qwen3-30B-A3B's prefill and decode on path i
+    (iq, ik, iv), ikw = moe_flash_call
+    ikw = {"causal": ikw.get("causal", True), "window": ikw.get("window")}
+    i_out, i_want = flash_kernel(iq, ik, iv, **ikw), flash_plain(iq, ik, iv, **ikw)
+    i_err = (i_out.float() - i_want.float()).abs().max().item()
+    i_rel = row_rel_err(i_out, i_want)
+    check(i_err <= TOL[iq.dtype] and i_rel <= TOL[iq.dtype], f"flash d128 g8 on main-path "
+          f"inputs: max abs err {i_err:.3g}, row-relative {i_rel:.3g} > {TOL[iq.dtype]}")
+    iG = iq.shape[2] // ik.shape[2]
+    iqt = iq.transpose(1, 2).contiguous()
+    ikt, ivt = (x.repeat_interleave(iG, dim=2).transpose(1, 2).contiguous() for x in (ik, iv))
+    i_bound, i_by = bound_ms(*flash_work(iq, ik, ikw["window"]), iq.dtype)
+    entries.append(dict(
+        name="flash_attention_d128_g8", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:124",
+        launches=moe_counts["flash_attention"], max_abs_err=i_err, atol=TOL[iq.dtype],
+        rtol=0.0, row_rel_err=i_rel, out_max=i_want.float().abs().max().item(),
+        ms=timed_ms(lambda: flash_kernel(iq, ik, iv, **ikw), 50, flush),
+        plain_ms=timed_ms(lambda: flash_plain(iq, ik, iv, **ikw), 10, flush),
+        bound_ms=i_bound, bound_by=i_by,
+        library_ms=timed_ms(lambda: sdpa(iqt, ikt, ivt, is_causal=True), 50, flush),
+        shape=dict(q=list(iq.shape), k=list(ik.shape), dtype=str(iq.dtype))))
+    del i_out, i_want
+    pargs8, _ = moe_paged_call
+    p8_out, p8_want = paged_kernel(*pargs8), paged_plain(*pargs8)
+    p8_err = (p8_out.float() - p8_want.float()).abs().max().item()
+    p8_rel = row_rel_err(p8_out, p8_want)
+    check(p8_err <= TOL[pargs8[0].dtype] and p8_rel <= TOL[pargs8[0].dtype],
+          f"paged D=128 G=8 on main-path inputs: max abs err {p8_err:.3g}, row-relative "
+          f"{p8_rel:.3g}")
+    p8_bound, p8_by = bound_ms(*paged_work(pargs8[0], pargs8[1], pargs8[3], pargs8[4]),
+                               pargs8[0].dtype)
+    entries.append(dict(
+        name="paged_attention_d128_g8", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:116",
+        launches=moe_counts["paged_attention"], max_abs_err=p8_err,
+        atol=TOL[pargs8[0].dtype], rtol=0.0, row_rel_err=p8_rel,
+        out_max=p8_want.float().abs().max().item(),
+        ms=timed_ms(lambda: paged_kernel(*pargs8), 50, flush),
+        plain_ms=timed_ms(lambda: paged_plain(*pargs8), 10, flush),
+        bound_ms=p8_bound, bound_by=p8_by, library_ms=None,
+        shape=dict(q=list(pargs8[0].shape), pool=list(pargs8[1].shape),
+                   table=list(pargs8[3].shape), lengths=pargs8[4].tolist(),
+                   dtype=str(pargs8[0].dtype))))
     (dq, dk, dv, dlen), _ = decode_call
     dk, dv = horizon_view(dk, SERVE_MAX_LEN), horizon_view(dv, SERVE_MAX_LEN)
     d_out, d_want = decode_kernel(dq, dk, dv, dlen), decode_plain(dq, dk, dv, dlen)
@@ -3216,6 +3492,9 @@ def main() -> int:
              "paged_attention": (lambda: paged_kernel(*pargs), "paged_decode_kernel", 50),
              "paged_attention_d128": (lambda: paged_kernel(*pargs4), "paged_decode_kernel", 50),
              "flash_attention_d128": (lambda: flash_kernel(hq, hk, hv, **hkw), "flash_", 50),
+             "flash_attention_d128_g8": (lambda: flash_kernel(iq, ik, iv, **ikw), "flash_", 50),
+             "paged_attention_d128_g8": (lambda: paged_kernel(*pargs8), "paged_decode_kernel",
+                                         50),
              "decode_attention": (lambda: decode_kernel(dq, dk, dv, dlen), "decode_", 50),
              "wkv6": (lambda: wkv6_kernel(*wpa), "wkv6_", 50),
              "rglru_scan": (lambda: rglru_kernel(*gpa), "rglru_", 50),
@@ -3229,6 +3508,7 @@ def main() -> int:
     # gradients' autograd call)
     library = {"flash_attention": (lambda: sdpa(qt, kt, vt, is_causal=True), 50),
                "flash_attention_d128": (lambda: sdpa(hqt, hkt, hvt, is_causal=True), 50),
+               "flash_attention_d128_g8": (lambda: sdpa(iqt, ikt, ivt, is_causal=True), 50),
                "decode_attention": (lambda: sdpa(sq, sk, sv, attn_mask=smask), 50),
                "flash_attention_d256": (lambda: sdpa(gqt, gkt, gvt, attn_mask=win_mask), 10),
                "decode_attention_d256": (lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50)}
@@ -3447,6 +3727,12 @@ def main() -> int:
     del model32, model4_32
     torch.cuda.empty_cache()
     stamp("fp32 qwen1.5-4b parity and speculative decoding")
+    moe32 = Model(dataclasses.replace(mcfg, n_layers=MOE_FP32_LAYERS, dtype="float32"),
+                  device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 4))
+    parity("moe-30b-4l", serve_fp32(True, moe32))
+    del moe32
+    torch.cuda.empty_cache()
+    stamp(f"fp32 qwen3-moe-30b-a3b parity ({MOE_FP32_LAYERS} layers)")
     rmodel32 = Model(dataclasses.replace(rcfg, dtype="float32"), device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
 

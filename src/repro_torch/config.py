@@ -4,9 +4,10 @@ A copy of the JAX package's ``config.py`` (no import of it): ``ModelConfig``
 and the architecture registry are unchanged, so a config built here and one
 built there describe the same model field for field.  Architecture modules
 under ``repro_torch.configs`` register the configs served so far
-(``qwen1.5-0.5b``, ``rwkv6-3b``, ``recurrentgemma-9b`` and the tiny pool);
-the other published configs are not ported yet and ``get_arch`` names them
-as unknown.
+(``qwen1.5-0.5b``, ``qwen1.5-4b``, ``rwkv6-3b``, ``recurrentgemma-9b``, the
+mixture-of-experts ``qwen2-moe-a2.7b`` and ``qwen3-moe-30b-a3b``, and the
+tiny pool); the other published configs are not ported yet and
+``get_arch`` names them as unknown.
 """
 from __future__ import annotations
 
@@ -209,9 +210,11 @@ class ModelConfig:
 class ShardingConfig:
     """The fields of the JAX package's ``ShardingConfig`` that the port
     reads, with its defaults: the plain flash version's tile sizes and its
-    causal block skip (serving), and the training loop's remat, gradient
-    accumulation and accumulation dtype.  The mesh, ZeRO and FSDP knobs
-    belong to a later slice."""
+    causal block skip (serving), the mixture-of-experts dispatch, and the
+    training loop's remat, gradient accumulation and accumulation dtype.
+    The mesh, ZeRO and FSDP knobs belong to a later slice, and so does the
+    expert-parallel dispatch ``"ep"``, which needs the mesh: a model built
+    with it raises ``NotImplementedError``."""
 
     remat: str = "block"                # none | block: recompute each block in backward
     microbatches: int = 1               # gradient accumulation steps
@@ -219,6 +222,7 @@ class ShardingConfig:
     attn_q_block: int = 512             # flash-attention tile sizes
     attn_kv_block: int = 1024
     causal_skip: bool = True            # skip fully-masked KV blocks
+    moe_dispatch: str = "gather"        # gather (capacity-based) | dense (one-hot einsum)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +234,8 @@ _REGISTRY: dict[str, ModelConfig] = {}
 # The published configs ported so far; the rest of the JAX package's zoo
 # arrives with the model families that serve it.
 ARCH_IDS = [
+    "qwen3-moe-30b-a3b",
+    "qwen2-moe-a2.7b",
     "recurrentgemma-9b",
     "rwkv6-3b",
     "qwen1.5-0.5b",

@@ -17,7 +17,9 @@ def resolve_device(device="cuda") -> torch.device:
 
     On the card this also turns TF32 off for matrix products and cuDNN: the
     port is held against the JAX package at float32 tolerances, and TF32
-    keeps only about three decimal digits.
+    keeps only about three decimal digits.  ``"meta"`` (shapes without
+    storage) is accepted too, to build a model only to count its
+    parameters.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -29,6 +31,6 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
     return dev

@@ -3,12 +3,18 @@
 Brings up one continuous-batching engine (paged, or with ``--contiguous``
 the contiguous KV layout) for an architecture and serves a batched-prompt
 workload, as the JAX package's ``serve engine``
-does, with the same flags and the same rule that a config of more than 5e7
-parameters is served at its ``reduced()`` size::
+does, with the same flags.  ``--reduced`` serves a config's ``reduced()``
+size; on the CPU, as in the JAX launcher, so is every config of more than
+5e7 parameters, while on the card the published width is served unless
+``--reduced`` is given (full-width Qwen3-30B-A3B is 61.1 GB in bf16 and fits
+one 80 GB card)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-m --requests 12
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-s --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve engine --contiguous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --arch qwen3-moe-30b-a3b \
+        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --arch qwen3-moe-30b-a3b
 
 Weights are random, drawn by ``Model.init`` from a seeded generator.  The
 run is on the card unless ``--device cpu`` is given; there each fused
@@ -69,7 +75,8 @@ def engine_main(argv):
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page in the paged layout")
     ap.add_argument("--reduced", action="store_true",
-                    help="serve the reduced (smoke) config of a big arch")
+                    help="serve the reduced (smoke) config of a big arch (on the CPU every "
+                         "config above 5e7 parameters is reduced)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -96,7 +103,7 @@ def engine_main(argv):
     from repro_torch.serving.generation import GenerationConfig
 
     cfg = get_arch(args.arch)
-    if args.reduced or cfg.param_count() > 5e7:
+    if args.reduced or (torch.device(args.device).type == "cpu" and cfg.param_count() > 5e7):
         cfg = cfg.reduced()
     if cfg.vocab_size < 259 or cfg.enc_dec or cfg.frontend:
         raise SystemExit(f"{cfg.name}: byte-tokenizer text serving needs a plain "

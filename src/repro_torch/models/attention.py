@@ -1,6 +1,7 @@
-"""Attention block of the port: GQA with RoPE and optional QKV bias, the
-full-sequence (prefill) path with an optional sliding window, the
-single-token decode path over a paged, a contiguous or a ring KV cache.
+"""Attention block of the port: GQA with RoPE, optional QKV bias and
+optional QK-norm, the full-sequence (prefill) path with an optional sliding
+window, the single-token decode path over a paged, a contiguous or a ring
+KV cache.
 
 Counterpart of the JAX package's ``models/attention.py`` (``attention_full``
 and the paged, contiguous and ring branches of ``attention_decode``; its
@@ -10,7 +11,9 @@ and the paged, contiguous and ring branches of ``attention_decode``; its
 ``ops.decode_attention``; on the card all of them are the hand-written CUDA
 kernels.  A sliding-window layer keeps a ring
 buffer of its last ``S_buf`` keys: keys are RoPE-rotated at write time, so
-the order of the ring's slots does not matter.
+the order of the ring's slots does not matter.  With ``cfg.qk_norm``
+(Qwen3) q and k are RMS-normalised over head_dim before RoPE, in every path
+(JAX's ``_qk_normalize``).
 """
 from __future__ import annotations
 
@@ -19,30 +22,51 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Dense, apply_rope
+from repro_torch.models.layers import Dense, apply_rope, empty_param
 
 
 class Attention(nn.Module):
-    """q/k/v/o projections; q, k and v carry a bias when ``cfg.qkv_bias``."""
+    """q/k/v/o projections; q, k and v carry a bias when ``cfg.qkv_bias``;
+    with ``cfg.qk_norm`` the RMSNorm scales ``q_norm`` and ``k_norm`` of
+    shape (head_dim,), as the JAX tree names them."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device):
         super().__init__()
-        if cfg.qk_norm:
-            raise NotImplementedError("qk_norm is not ported yet")
         d, hd = cfg.d_model, cfg.head_dim
         H, Hk = cfg.n_heads, cfg.n_kv_heads
+        self.eps = cfg.norm_eps
         self.q = Dense(d, H * hd, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.k = Dense(d, Hk * hd, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.v = Dense(d, Hk * hd, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.o = Dense(H * hd, d, bias=False, dtype=dtype, device=device)
+        self.q_norm = empty_param((hd,), dtype, device) if cfg.qk_norm else None
+        self.k_norm = empty_param((hd,), dtype, device) if cfg.qk_norm else None
 
     def init(self, generator: torch.Generator) -> None:
         for lin in (self.q, self.k, self.v, self.o):
             lin.init(generator)
+        if self.q_norm is not None:
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
 
 
 def _heads(x, n: int, hd: int):
     return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _rms(x, scale, eps: float):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _qk_normalize(p: Attention, q, k):
+    """QK-norm (JAX's ``_qk_normalize``): q and k RMS-normalised over
+    head_dim in fp32 with their scales, cast back; unchanged without
+    ``qk_norm``."""
+    if p.q_norm is None:
+        return q, k
+    return _rms(q, p.q_norm, p.eps), _rms(k, p.k_norm, p.eps)
 
 
 def attention_full(p: Attention, cfg: ModelConfig, x, rope, *, window=None,
@@ -53,8 +77,8 @@ def attention_full(p: Attention, cfg: ModelConfig, x, rope, *, window=None,
     (out, (k, v)) — the rotated K/V so prefill can fill the cache."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_rope(_heads(p.q(x), H, hd), rope)
-    k = apply_rope(_heads(p.k(x), Hk, hd), rope)
+    q, k = _qk_normalize(p, _heads(p.q(x), H, hd), _heads(p.k(x), Hk, hd))
+    q, k = apply_rope(q, rope), apply_rope(k, rope)
     v = _heads(p.v(x), Hk, hd)
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               q_block=shard.attn_q_block, kv_block=shard.attn_kv_block,
@@ -99,8 +123,9 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, t
         raise ValueError("paged KV cache supports global attention only, not a sliding window")
     B = x.shape[0]
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_rope(_heads(p.q(x), H, hd), rope)
-    k_new = apply_rope(_heads(p.k(x), Hk, hd), rope)[:, 0].to(k_cache.dtype)
+    q, k_new = _qk_normalize(p, _heads(p.q(x), H, hd), _heads(p.k(x), Hk, hd))
+    q = apply_rope(q, rope)
+    k_new = apply_rope(k_new, rope)[:, 0].to(k_cache.dtype)
     v_new = _heads(p.v(x), Hk, hd)[:, 0].to(v_cache.dtype)
     pos64 = pos.long()
     rows = torch.arange(B, device=x.device)

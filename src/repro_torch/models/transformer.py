@@ -11,10 +11,18 @@ the weight bridge (``repro_torch.models.bridge``) unstacks the JAX leaves.
 Caches keep the JAX layout with the layers stacked on axis 0.
 
 Supported: global-attention dense stacks with RMSNorm, SwiGLU, RoPE and
-optional QKV bias; RWKV6 stacks (family ``ssm``) with LayerNorm; and the
-RG-LRU hybrid (family ``hybrid``, RecurrentGemma): RG-LRU blocks mixed with
-sliding-window (or global) attention blocks, RMSNorm, GeGLU and RoPE.  Other
-families raise ``NotImplementedError`` at construction.
+optional QKV bias and QK-norm; the same stacks with mixture-of-experts MLPs
+(family ``moe``: Qwen1.5-MoE, Qwen3-MoE; ``models/moe.py``); RWKV6 stacks
+(family ``ssm``) with LayerNorm; and the RG-LRU hybrid (family ``hybrid``,
+RecurrentGemma): RG-LRU blocks mixed with sliding-window (or global)
+attention blocks, RMSNorm, GeGLU and RoPE.  Other families raise
+``NotImplementedError`` at construction.
+
+A mixture-of-experts stack dispatches its tokens with capacity in
+``forward`` and ``prefill`` (JAX's ``apply_moe``) and with ``exact=True``
+(capacity = the token count, no drops) in every decode step (JAX's
+``moe_exact``).  Capacity counts every (token, slot) pair of the call,
+padding included, so a prefilled row's logits depend on its batch.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from repro_torch.models.layers import (
     rope_tables,
 )
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
@@ -46,13 +55,15 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
     kinds = set(cfg.layer_kinds())
-    if cfg.family == "dense" and cfg.moe is None:
+    if (cfg.family == "dense" and cfg.moe is None) or (cfg.family == "moe" and cfg.moe):
         if kinds != {"attn"}:
             unsupported.append(f"blocks {sorted(kinds)}")
         if cfg.norm != "rmsnorm":
             unsupported.append(f"norm {cfg.norm!r}")
         if cfg.rope_type not in ("rope", "none"):
             unsupported.append(f"rope_type {cfg.rope_type!r}")
+        if cfg.activation not in (("swiglu", "geglu") if cfg.family == "dense" else ("swiglu",)):
+            unsupported.append(f"activation {cfg.activation!r}")
     elif cfg.family == "ssm":
         if kinds != {"rwkv"}:
             unsupported.append(f"blocks {sorted(kinds)}")
@@ -89,19 +100,32 @@ def _check_supported(cfg: ModelConfig) -> None:
 class Block(nn.Module):
     """Pre-norm decoder block: ``x + attn(n1(x))``, then ``x + mlp(n2(x))``.
     ``window`` is the sliding window of a ``local`` block, None for global
-    attention."""
+    attention.  ``mlp`` is an :class:`MoE` when ``cfg.moe`` is set, using
+    the ``moe_dispatch`` of ``shard``."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device, window=None):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, window=None,
+                 shard: Optional[ShardingConfig] = None):
         super().__init__()
         self.window = window
         self.n1 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.n2 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        if cfg.moe:
+            self.mlp = MoE(cfg, dtype=dtype, device=device,
+                           dispatch=(shard or ShardingConfig()).moe_dispatch)
+        else:
+            self.mlp = MLP(cfg, dtype=dtype, device=device)
 
     def init(self, generator: torch.Generator) -> None:
         for m in (self.n1, self.attn, self.n2, self.mlp):
             m.init(generator)
+
+    def ffn(self, x, exact: bool = False):
+        """``mlp(n2(x))`` and its auxiliary loss (None for a dense MLP);
+        ``exact``: an MoE dispatches without capacity drops."""
+        if isinstance(self.mlp, MoE):
+            return self.mlp(self.n2(x), exact=exact)
+        return self.mlp(self.n2(x)), None
 
 
 class RWKVBlock(nn.Module):
@@ -152,13 +176,13 @@ class RGLRUBlock(nn.Module):
         return x + self.mlp(self.n2(x)), (conv, h)
 
 
-def _make_block(cfg: ModelConfig, kind: str, *, dtype, device) -> nn.Module:
+def _make_block(cfg: ModelConfig, kind: str, *, dtype, device, shard) -> nn.Module:
     if kind == "rwkv":
         return RWKVBlock(cfg, dtype=dtype, device=device)
     if kind == "rglru":
         return RGLRUBlock(cfg, dtype=dtype, device=device)
     return Block(cfg, dtype=dtype, device=device,
-                 window=cfg.window if kind == "local" else None)
+                 window=cfg.window if kind == "local" else None, shard=shard)
 
 
 class Model(nn.Module):
@@ -188,8 +212,8 @@ class Model(nn.Module):
         self.recurrent = cfg.family == "ssm"
         self.hybrid = cfg.family == "hybrid"
         kinds = cfg.layer_kinds()
-        self.blocks = nn.ModuleList(_make_block(cfg, kind, dtype=self.dtype, device=dev)
-                                    for kind in kinds)
+        self.blocks = nn.ModuleList(_make_block(cfg, kind, dtype=self.dtype, device=dev,
+                                                shard=self.shard) for kind in kinds)
         # a sliding-window stack keeps its K/V in a ring of min(window, max_len)
         self.kv_window = cfg.window if "local" in kinds else None
         # each layer's place in its cache stack: attention layers index the
@@ -248,15 +272,19 @@ class Model(nn.Module):
 
     # ---------------- full-sequence forward (training) ----------------
     def _dense_block(self, blk, x, rope):
+        """One attention block over the full sequence: (x, aux), aux the
+        MoE's load-balance loss or None."""
         a, _ = attention_full(blk.attn, self.cfg, blk.n1(x), rope, window=blk.window,
                               shard=self.shard)
         x = x + a
-        return x + blk.mlp(blk.n2(x))
+        h, aux = blk.ffn(x)
+        return x + h, aux
 
     def forward(self, tokens, positions=None):
         """tokens: (B, S) int; positions: (B, S) int or None (0 .. S−1).
         Returns ``(logits (B, S, V) float32, aux)``, aux the auxiliary loss
-        (0 for the families ported so far), as JAX's ``Model.forward``.
+        summed over the layers (the MoE's load-balance loss, with capacity
+        dispatch; 0 for the other families), as JAX's ``Model.forward``.
 
         With ``shard.remat == "block"`` and grad enabled, each block runs
         under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed
@@ -272,12 +300,15 @@ class Model(nn.Module):
         pos = positions if positions is not None else self._positions(B, S)
         rope = self._rope(pos.to(self.device))
         remat = self.shard.remat == "block" and torch.is_grad_enabled()
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
             if remat:
-                x = checkpoint(self._dense_block, blk, x, rope, use_reentrant=False)
+                x, aux = checkpoint(self._dense_block, blk, x, rope, use_reentrant=False)
             else:
-                x = self._dense_block(blk, x, rope)
-        return self._logits(x), torch.zeros((), dtype=torch.float32, device=self.device)
+                x, aux = self._dense_block(blk, x, rope)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return self._logits(x), aux_total
 
     def loss(self, batch: dict):
         """batch: {"tokens" (B, S), "labels" (B, S), optional "positions"}.
@@ -401,7 +432,7 @@ class Model(nn.Module):
             a, (k, v) = attention_full(blk.attn, self.cfg, blk.n1(x), rope, window=blk.window,
                                        shard=self.shard)
             x = x + a
-            x = x + blk.mlp(blk.n2(x))
+            x = x + blk.ffn(x)[0]
             ks.append(k)
             vs.append(v)
         if lengths is not None:
@@ -477,7 +508,7 @@ class Model(nn.Module):
                 continue
             x = x + attention_decode(blk.attn, self.cfg, blk.n1(x), cache["k"][j],
                                      cache["v"][j], pos, table, rope, window=blk.window)
-            x = x + blk.mlp(blk.n2(x))
+            x = x + blk.ffn(x, exact=True)[0]
         cache["len"] += 1
         return self._logits(x)
 

@@ -306,12 +306,12 @@ def test_rwkv_cache_layout_and_paged_refusal():
 
 
 def test_unported_families_raise():
-    """qk_norm, mixture-of-experts MLPs, encoder-decoder stacks and a dense
-    stack with LayerNorm are not ported yet.  (Local-attention and RG-LRU
-    blocks are: the hybrid family.)"""
-    from repro_torch.config import MoEConfig
-
-    for change in (dict(qk_norm=True), dict(family="moe", moe=MoEConfig(4, 2, 32)),
+    """M-RoPE (the VLM's rotary), a relu² MLP (Nemotron), encoder-decoder
+    stacks and a dense stack with LayerNorm are not ported yet.
+    (Local-attention and RG-LRU blocks are: the hybrid family; so are
+    QK-norm and mixture-of-experts MLPs, ``tests/test_torch_moe.py``.)"""
+    for change in (dict(rope_type="mrope", mrope_sections=(4, 2, 2)),
+                   dict(activation="relu2"),
                    dict(enc_dec=True, n_encoder_layers=2, family="audio"),
                    dict(norm="layernorm")):
         with pytest.raises(NotImplementedError):
