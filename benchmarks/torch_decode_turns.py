@@ -32,11 +32,14 @@ the contiguous inputs (the contiguous kernel's ``library_ms``) and a no-op
 (one-element add), the floor that an event-timed launch cannot go below.
 Every round then reads each kernel's CUPTI device time a call from a
 torch.profiler trace (summed over the kernels a call runs; it leaves out any
-wait for the host) after the reading flush.  Once per version it also reads
-CUPTI with the L2 warm and after each flush, and the host time of one
-wrapper call.  Every number is a CUDA-event, CUPTI or host clock mean in
-milliseconds; rounds go to ``chiprun_out/decode_turns.json`` with the card's
-name and power limit from nvidia-smi.  Needs a CUDA device.
+wait for the host) after the reading flush, as ``chip_smoke.device_ms``
+reads it: where the profiler lost records, a kernel's time a record counts
+once a call, and the records a call it kept stand beside each reading.
+Once per version it also reads CUPTI with the L2 warm and after each
+flush, and the host time of one wrapper call.  Every number is a CUDA-event,
+CUPTI or host clock mean in milliseconds; rounds go to
+``chiprun_out/decode_turns.json`` with the card's name and power limit from
+nvidia-smi.  Needs a CUDA device.
 """
 import argparse
 import ctypes
@@ -128,24 +131,16 @@ def load_wrappers(tree: Path):
     return mods
 
 
-def device_ms(fn, kernel_substr, iters=50, before=None):
-    """CUPTI device time of one call of ``fn``: the self device time of every
-    kernel whose name holds ``kernel_substr``, summed over ``iters`` calls
-    (each after ``before()``, an L2 flush, when it is given) and divided by
-    ``iters``, so a call that runs several kernels counts them all."""
-    from torch.profiler import ProfilerActivity, profile
+def cupti_ms(fn, kernel_substr, before=None):
+    """``chip_smoke.device_ms``'s reading of one call of ``fn`` (a kernel's
+    time a record once a call where torch.profiler lost CUPTI records), and
+    beside it the records a call it kept: the fewest among the call's
+    kernels, below 1 where records were lost."""
+    from chip_smoke import device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel_substr in e.key]
-    total = sum(e.self_device_time_total for e in rows)
-    return None if not rows else total / iters / 1e3
+    records = {}
+    ms = device_ms(fn, kernel_substr, before=before, records=records)
+    return ms, min((n for n, _ in records.values()), default=0.0)
 
 
 def host_ms(fn, iters=200):
@@ -289,16 +284,18 @@ def main() -> int:
         for name, fn in calls(version).items():
             err = max_err(name, fn())
             kname = kernel_names[name]
-            diag[f"{version} {name}"] = dict(
-                max_abs_err=err, device_ms=device_ms(fn, kname),
-                device_ms_write=device_ms(fn, kname, before=flush.zero_),
-                device_ms_read=device_ms(fn, kname, before=flush.max), host_ms=host_ms(fn))
+            diag[f"{version} {name}"] = dict(max_abs_err=err, host_ms=host_ms(fn))
+            for key, before in (("device_ms", None), ("device_ms_write", flush.zero_),
+                                ("device_ms_read", flush.max)):
+                ms, kept = cupti_ms(fn, kname, before=before)
+                diag[f"{version} {name}"].update({key: ms, f"{key}_records_a_call": kept})
             print(f"[diag] {version} {name}: {diag[f'{version} {name}']}")
     noop = lambda: noop_x.add_(1)  # noqa: E731
-    diag["noop"] = dict(device_ms=device_ms(noop, "_add"),
-                        device_ms_write=device_ms(noop, "_add", before=flush.zero_),
-                        device_ms_read=device_ms(noop, "_add", before=flush.max),
-                        host_ms=host_ms(noop))
+    diag["noop"] = dict(host_ms=host_ms(noop))
+    for key, before in (("device_ms", None), ("device_ms_write", flush.zero_),
+                        ("device_ms_read", flush.max)):
+        ms, kept = cupti_ms(noop, "_add", before=before)
+        diag["noop"].update({key: ms, f"{key}_records_a_call": kept})
     print(f"[diag] noop: {diag['noop']}")
 
     timers = {"write": lambda fn: timed_ms(fn, 50, flush),
@@ -317,8 +314,8 @@ def main() -> int:
         for version in order:
             use(version)
             for name, fn in calls(version).items():
-                row[f"cupti {version} {name}"] = device_ms(fn, kernel_names[name],
-                                                           before=flush.max)
+                row[f"cupti {version} {name}"], row[f"cupti records a call {version} {name}"] = \
+                    cupti_ms(fn, kernel_names[name], before=flush.max)
         rounds.append(row)
         print(f"[round {r}] " + ", ".join(f"{key} {val:.4f}" for key, val in row.items()
                                           if isinstance(val, float)))
@@ -326,8 +323,9 @@ def main() -> int:
                if isinstance(rounds[0][key], float)}
     print(f"[summary] {smi}")
     for key, vals in summary.items():
+        unit = "" if "records" in key else " ms"
         print(f"[summary] {key}: min {min(vals):.4f} median {float(np.median(vals)):.4f} "
-              f"max {max(vals):.4f} ms")
+              f"max {max(vals):.4f}{unit}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "decode_turns.json").write_text(json.dumps(

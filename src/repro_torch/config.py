@@ -5,9 +5,10 @@ and the architecture registry are unchanged, so a config built here and one
 built there describe the same model field for field.  Architecture modules
 under ``repro_torch.configs`` register the configs served so far
 (``qwen1.5-0.5b``, ``qwen1.5-4b``, ``rwkv6-3b``, ``recurrentgemma-9b``, the
-mixture-of-experts ``qwen2-moe-a2.7b`` and ``qwen3-moe-30b-a3b``, and the
-tiny pool); the other published configs are not ported yet and
-``get_arch`` names them as unknown.
+mixture-of-experts ``qwen2-moe-a2.7b`` and ``qwen3-moe-30b-a3b``, the
+LayerNorm dense ``stablelm-1.6b`` and ``nemotron-4-340b``, and the tiny
+pool); the other published configs are not ported yet and ``get_arch``
+names them as unknown.
 """
 from __future__ import annotations
 
@@ -239,6 +240,8 @@ ARCH_IDS = [
     "recurrentgemma-9b",
     "rwkv6-3b",
     "qwen1.5-0.5b",
+    "stablelm-1.6b",
+    "nemotron-4-340b",
 ]
 
 _MODULE_FOR_ARCH = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

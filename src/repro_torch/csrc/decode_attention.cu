@@ -28,7 +28,7 @@
 //  * Scores by xor-shuffle within a row's lanes, the online softmax per row
 //    group, P·V in the lanes that hold V; the warps merge once at the end.
 //
-// Wide heads (D = 128, 256) take a second design, decode_wide_kernel below
+// Wide heads (D = 128, 192, 256) take a second design, decode_wide_kernel below
 // ("flash-decoding" in one launch), entered through
 // repro_decode_attention_split.  The design above runs one block per (row,
 // KV head, slice of at most 8 query heads): at RecurrentGemma-9B's decode
@@ -59,7 +59,9 @@
 //    takes a quarter of the columns of P·V.  wgmma is not the tool here:
 //    its 64-row tile would leave 75% of its rows empty at G = 16.  fp32:
 //    the same ring and merge, products exact in fp32 on CUDA cores (TF32
-//    loses the fp32 checks).
+//    loses the fp32 checks).  At D = 192 (Nemotron-4-340B, 12 query heads a
+//    KV head in one slice) a warp's quarter is 48 columns: three k16 steps
+//    of S and six n8 tiles of P·V; the merge's column slices are 24 wide.
 //  * The merge, in the same launch, in two levels of at most 8 partials.
 //    Each block leaves its partial (m, l, acc) in fp32 in its own shared
 //    memory; after a cluster barrier, block r of each cluster of 8 pieces
@@ -112,7 +114,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
 template <typename T, int D>
 int launch_g(const void* q, const void* k, const void* v, const int* lengths, void* o, int B,
              int Hk, int G, int S, long long bs, long long ss, cudaStream_t stream) {
-  switch (decode_body::heads_per_block(G)) {
+  switch (decode_body::heads_per_block(G, D)) {
     case 1:
       return launch<T, D, 1>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
     case 2:
@@ -120,7 +122,8 @@ int launch_g(const void* q, const void* k, const void* v, const int* lengths, vo
     case 4:
       return launch<T, D, 4>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
     default:
-      return launch<T, D, decode_body::GMAX>(q, k, v, lengths, o, B, Hk, G, S, bs, ss, stream);
+      return launch<T, D, decode_body::gmax(D)>(q, k, v, lengths, o, B, Hk, G, S, bs, ss,
+                                                stream);
   }
 }
 
@@ -139,7 +142,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* lengths, vo
   }
 }
 
-// ---- wide heads: D = 128, 256, split over the sequence ------------------
+// ---- wide heads: D = 128, 192, 256, split over the sequence -------------
 constexpr int WNT = 128;        // threads a block: 4 warps
 constexpr int WNW = WNT / 32;
 constexpr int WTILE = 16;       // positions a tile: one k16 step of P·V
@@ -306,9 +309,15 @@ decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   float mr[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, lr[2] = {0.f, 0.f};   // bf16: rows gr, gr + 8
 
   // P·V accumulators: bf16, this warp's quarter of the columns as n8 tiles
-  // (rows gr and gr + 8); fp32, 4 columns of heads hq, hq + HST, ...
+  // (rows gr and gr + 8); fp32, HPT items of (head, 4 columns), item j the
+  // (tid + j · WNT)-th of the WG · D / 4 items in (head, column) order: at
+  // D = 128 and 256 a thread's items share their columns, at D = 192 they
+  // do not (48 column groups do not divide the 128 threads)
   constexpr int NT8 = D / WNW / 8;
-  constexpr int HST = WNT / (D / 4), HPT = WG / HST;
+  constexpr int D4 = D / 4, HPT = WG * D4 / WNT;
+  static_assert(kTC || WG * D4 % WNT == 0, "the fp32 items must share out evenly");
+  auto item_head = [&](int j) { return (tid + j * WNT) / D4; };
+  auto item_col = [&](int j) { return ((tid + j * WNT) % D4) * 4; };
   float acc[kTC ? NT8 : HPT][4];
 #pragma unroll
   for (int j = 0; j < (kTC ? NT8 : HPT); ++j)
@@ -458,18 +467,21 @@ decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         }
       }
       __syncthreads();
-      const int c4 = (tid % (D / 4)) * 4, hq = tid / (D / 4);
 #pragma unroll
       for (int j = 0; j < HPT; ++j) {
-        const float c = sm.c[hq + j * HST];
+        const float c = sm.c[item_head(j)];
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= c;
       }
       for (int p = 0; p < WTILE; ++p) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + p * KS + c4);
+        const T* vrow = vs + p * KS;
+        const float4 v0 = *reinterpret_cast<const float4*>(vrow + item_col(0));
 #pragma unroll
         for (int j = 0; j < HPT; ++j) {
-          const float pp = sm.sp[0][hq + j * HST][p];
+          const float4 vv = WNT % D4 == 0
+                                ? v0
+                                : *reinterpret_cast<const float4*>(vrow + item_col(j));
+          const float pp = sm.sp[0][item_head(j)][p];
           acc[j][0] += pp * vv.x;
           acc[j][1] += pp * vv.y;
           acc[j][2] += pp * vv.z;
@@ -499,10 +511,9 @@ decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       sm.l[gr + 8] = lr[1];
     }
   } else {
-    const int c4 = (tid % (D / 4)) * 4, hq = tid / (D / 4);
 #pragma unroll
     for (int j = 0; j < HPT; ++j)
-      *reinterpret_cast<float4*>(pacc + (hq + j * HST) * D + c4) =
+      *reinterpret_cast<float4*>(pacc + item_head(j) * D + item_col(j)) =
           make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
   }
 
@@ -614,6 +625,8 @@ int launch_wide_d(const void* q, const void* k, const void* v, const int* length
   switch (D) {
     case 128:
       return launch_wide<T, 128>(q, k, v, lengths, o, scratch, B, Hk, G, S, bs, ss, stream);
+    case 192:
+      return launch_wide<T, 192>(q, k, v, lengths, o, scratch, B, Hk, G, S, bs, ss, stream);
     case 256:
       return launch_wide<T, 256>(q, k, v, lengths, o, scratch, B, Hk, G, S, bs, ss, stream);
     default:
@@ -623,7 +636,7 @@ int launch_wide_d(const void* q, const void* k, const void* v, const int* length
 
 }  // namespace
 
-// Wide heads (D = 128 or 256).  Arguments as repro_decode_attention, plus
+// Wide heads (D = 128, 192 or 256).  Arguments as repro_decode_attention, plus
 // the fp32 scratch of decode_wide_kernel for n_pieces = wide_pieces(S)
 // pieces (the wrapper's wide_pieces mirrors it; any other count is
 // refused), its counters zero before the first launch (every launch leaves

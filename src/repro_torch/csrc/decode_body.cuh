@@ -1,5 +1,5 @@
 // The body of one-token decode attention, shared by the paged kernel
-// (paged_attention.cu, D in {16, 32, 64, 128}) and the contiguous one
+// (paged_attention.cu, D in {16, 32, 64, 128, 192}) and the contiguous one
 // (decode_attention.cu, D <= 64).  The two differ only in where the K/V row
 // of a sequence position lies, which an address policy says: strides for a
 // contiguous or horizon-view cache (ContiguousRows), a page-table lookup for
@@ -14,6 +14,11 @@
 //    and 2 rows in bf16, the whole warp and 1 row in fp32).  A lane holds
 //    VEC columns whatever D is, so its registers do not grow with D: a wider
 //    row takes more lanes, fewer rows a load, and one more shuffle step.
+//    A row whose D / VEC vectors do not tile a warp (D = 192: 24 in bf16,
+//    48 in fp32) takes the whole warp instead, CPL = D / 32 = 6 columns a
+//    lane, loaded with the widest accesses their offset allows (three 4-byte
+//    loads in bf16, three 8-byte loads in fp32); the warp still reads the
+//    row as one contiguous 384 or 768 bytes.
 //  * A warp walks its range in sub-tiles of NL loads per lane.  Every K and
 //    V load of a sub-tile is issued before any is used, so one memory
 //    latency covers NL · RPL positions; the vectors stay in registers and are
@@ -39,6 +44,8 @@
 // time is mostly made of at serving shapes.
 #pragma once
 
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace decode_body {
@@ -47,9 +54,18 @@ constexpr int NW = 8;          // warps per block, each one range of positions
 constexpr int NT = NW * 32;    // threads per block
 constexpr int GMAX = 8;        // query heads a block handles at most
 
-// Query heads a block takes for a group of G: the smallest of 1, 2, 4 and
-// GMAX that holds G (capped at GMAX, so G > 8 runs several blocks a KV head).
-inline int heads_per_block(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : GMAX; }
+// The most query heads a block takes at width D: GMAX, or 4 above D = 128,
+// where the warps' merge room (NW · GB · D floats) of eight heads would
+// fill the 48 KB of static shared memory (Nemotron-4-340B's G = 12 at
+// D = 192 then runs as 3 blocks a KV head).
+constexpr int gmax(int D) { return D > 128 ? 4 : GMAX; }
+
+// Query heads a block takes for a group of G at width D: the smallest of 1,
+// 2, 4 and gmax(D) that holds G (capped at gmax(D), so a larger G runs
+// several blocks a KV head).
+inline int heads_per_block(int G, int D) {
+  return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : gmax(D);
+}
 
 // Address policies: the element offset of position pos's K/V row from the
 // (batch row, KV head) base pointer, or -1 where the position is not read.
@@ -74,12 +90,59 @@ struct PagedRows {
 template <typename T, int D, int GB>
 struct Tiling {
   static constexpr int VEC = Vec<T>::N;          // elements per 16-byte load
-  static constexpr int LPR = D / VEC;            // lanes a K/V row
+  // lanes a K/V row: D / VEC where those vectors tile a warp, else all 32
+  static constexpr bool kTiles = D % VEC == 0 && D / VEC <= 32 && 32 % (D / VEC) == 0;
+  static constexpr int LPR = kTiles ? D / VEC : 32;
+  static constexpr int CPL = D / LPR;            // columns a lane: VEC, or 6 at D = 192
   static constexpr int RPL = 32 / LPR;           // rows a warp load instruction
   static constexpr int NL = GB <= 2 ? 8 : 4;     // K (and V) loads in flight a lane
   static constexpr int SUB = NL * RPL;           // positions a warp sub-tile
-  static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "a row must tile a warp");
+  static_assert(D % LPR == 0 && CPL * sizeof(T) % 4 == 0, "a row must tile a warp");
+  static_assert(GB <= gmax(D), "the merge room of GB heads must fit the shared memory");
 };
+
+// A lane's CPL columns of one row as raw words, read with the widest loads
+// their 16-, 8- or 4-byte alignment allows (one 16-byte load where CPL is
+// VEC), and widened to fp32 where they are used.
+template <int W> struct WordOf;
+template <> struct WordOf<16> { using type = uint4; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<4> { using type = uint32_t; };
+
+template <typename T, int CPL>
+struct Chunk {
+  static constexpr int BYTES = CPL * (int)sizeof(T);
+  static constexpr int W = BYTES % 16 == 0 ? 16 : BYTES % 8 == 0 ? 8 : 4;   // bytes a load
+  using Word = typename WordOf<W>::type;
+  Word w[BYTES / W];
+};
+
+template <typename T, int CPL>
+__device__ __forceinline__ Chunk<T, CPL> load_chunk(const T* p) {
+  using C = Chunk<T, CPL>;
+  C c;
+  const typename C::Word* src = reinterpret_cast<const typename C::Word*>(p);
+#pragma unroll
+  for (int i = 0; i < C::BYTES / C::W; ++i) c.w[i] = src[i];
+  return c;
+}
+
+template <int CPL>
+__device__ __forceinline__ void widen(float* dst, const Chunk<float, CPL>& c) {
+  const float* f = reinterpret_cast<const float*>(c.w);
+#pragma unroll
+  for (int j = 0; j < CPL; ++j) dst[j] = f[j];
+}
+template <int CPL>
+__device__ __forceinline__ void widen(float* dst, const Chunk<__nv_bfloat16, CPL>& c) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(c.w);
+#pragma unroll
+  for (int j = 0; j < CPL / 2; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    dst[2 * j] = f.x;
+    dst[2 * j + 1] = f.y;
+  }
+}
 
 // One query token of GB (ng live) heads against the first n positions of a
 // sequence.  q and o point at the slice's first query head (heads D apart);
@@ -90,44 +153,45 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
                                        const T* __restrict__ vb, const Rows rows, int n, int ng,
                                        float scale, T* __restrict__ o) {
   using Tl = Tiling<T, D, GB>;
-  constexpr int VEC = Tl::VEC, LPR = Tl::LPR, RPL = Tl::RPL, NL = Tl::NL;
+  using C = Chunk<T, Tl::CPL>;
+  constexpr int CPL = Tl::CPL, LPR = Tl::LPR, RPL = Tl::RPL, NL = Tl::NL;
   __shared__ float m_all[NW][GB], l_all[NW][GB];
   __shared__ __align__(16) float acc_all[NW][GB][D];
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int grp = lane / LPR;              // the row this lane takes in each load
-  const int col = (lane % LPR) * VEC;      // its first column
+  const int col = (lane % LPR) * CPL;      // its first column
 
-  float qf[GB][VEC], acc[GB][VEC], m[GB], l[GB];
+  float qf[GB][CPL], acc[GB][CPL], m[GB], l[GB];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     m[g] = REPRO_NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
+    for (int e = 0; e < CPL; ++e) {
       acc[g][e] = 0.f;
       qf[g][e] = 0.f;
     }
-    if (g < ng) store_widened(qf[g], load_vec(q + g * D + col), T());
+    if (g < ng) widen(qf[g], load_chunk<T, CPL>(q + g * D + col));
   }
 
   const int per = (n + NW - 1) / NW;       // positions a warp
   const int lo = min(n, warp * per);
   const int hi = min(n, lo + per);
   for (int base = lo; base < hi; base += Tl::SUB) {
-    uint4 kr[NL], vr[NL];
+    C kr[NL], vr[NL];
     bool live[NL];
 #pragma unroll
     for (int i = 0; i < NL; ++i) {       // every load of the sub-tile, then any use
       const int pos = base + i * RPL + grp;
       const long long off = pos < hi ? rows(pos) : -1;
       live[i] = off >= 0;
-      kr[i] = make_uint4(0u, 0u, 0u, 0u);
-      vr[i] = kr[i];
+      kr[i] = C{};
+      vr[i] = C{};
       if (live[i]) {
-        kr[i] = load_vec(kb + off + col);
-        vr[i] = load_vec(vb + off + col);
+        kr[i] = load_chunk<T, CPL>(kb + off + col);
+        vr[i] = load_chunk<T, CPL>(vb + off + col);
       }
     }
 #pragma unroll
@@ -137,11 +201,11 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         float mx = REPRO_NEG_INF;
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
-          float kf[VEC];
-          store_widened(kf, kr[i], T());
+          float kf[CPL];
+          widen(kf, kr[i]);
           float dot = 0.f;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) dot += qf[g][e] * kf[e];
+          for (int e = 0; e < CPL; ++e) dot += qf[g][e] * kf[e];
 #pragma unroll
           for (int off = LPR / 2; off > 0; off >>= 1)
             dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -153,15 +217,15 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         m[g] = m_new;
         l[g] *= c;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] *= c;
+        for (int e = 0; e < CPL; ++e) acc[g][e] *= c;
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
           const float p = live[i] ? expf(s[i] - m_new) : 0.f;
-          float vf[VEC];
-          store_widened(vf, vr[i], T());
+          float vf[CPL];
+          widen(vf, vr[i]);
           l[g] += p;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] += p * vf[e];
+          for (int e = 0; e < CPL; ++e) acc[g][e] += p * vf[e];
         }
       }
     }
@@ -181,7 +245,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         m[g] = m_new;
         l[g] = l[g] * c + l_o * c_o;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
+        for (int e = 0; e < CPL; ++e)
           acc[g][e] = acc[g][e] * c + __shfl_xor_sync(0xffffffffu, acc[g][e], off) * c_o;
       }
     }
@@ -191,7 +255,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
     for (int g = 0; g < GB; ++g) {
       if (g < ng) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc_all[warp][g][col + e] = acc[g][e];
+        for (int e = 0; e < CPL; ++e) acc_all[warp][g][col + e] = acc[g][e];
         if (lane == 0) {
           m_all[warp][g] = m[g];
           l_all[warp][g] = l[g];

@@ -41,7 +41,9 @@
 //  * S = Q·Kᵀ: wgmma m64n64k16, bf16 in, fp32 out, A (Q) and B (K) both
 //    K-major from shared memory.  O += P·V: wgmma m64nDk16 with A = P in
 //    registers and B = V read MN-major (the transpose bit), N = D (64 for
-//    D < 64).  The O accumulator (D/2 floats a thread) stays in registers.
+//    D < 64; at D = 192, Nemotron-4-340B's width, m64n192k16 over three
+//    atom columns, LBO apart as at 128 and 256).  The O accumulator (D/2
+//    floats a thread, 96 at D = 192) stays in registers.
 //  * A warpgroup works in sections: S of the first tile; then P·V of tile
 //    j - 1 and S of tile j in one commit group, followed by the softmax of
 //    tile j; then P·V of the last tile.  With two warpgroups the sections
@@ -87,7 +89,12 @@
 //     rows past S compute on zero q and are not stored.  A tile range that
 //     is empty leaves l = 0 and stores zeros.
 //  6. G not dividing the block: GH = 1, a block of 64·WGS positions of one
-//     head (phase 3's G = 3 case at D = 256).
+//     head (phase 3's G = 3 case at D = 256, and Nemotron-4-340B's G = 12
+//     at D = 192, where each of a KV head's 12 blocks reads its K/V tiles).
+//  7. D = 192: three atom columns a row (NA = 3); the S steps walk them as
+//     kk / 4 and kk % 4 as at the power-of-two widths, and one warpgroup
+//     takes a block (~124 KB of shared memory: Q and two stages of K and V
+//     at 24 KB each).
 // What is left out, and would come next: clusters of two blocks with TMA
 // multicast of K/V (under MQA at D = 256 every block of a batch row reads
 // the same tiles from L2, ~64 KB a tile for 128 rows, and two stages of
@@ -97,7 +104,8 @@
 // overlap its own softmax with its products; persistent blocks.
 //
 // fp32: the CUDA-core kernels below, flash_fwd_kernel (D <= 64) and
-// flash_wide_kernel (D = 128, 256), unchanged.  They serve only the fp32
+// flash_wide_kernel (D = 128, 192, 256; at 192 a thread's 12 columns are
+// three 16-byte chunks, ~106 KB of shared memory).  They serve only the fp32
 // parity legs and fp32 checks, held at 2e-5 and 1e-3, which neither TF32
 // (10 mantissa bits) nor bf16 tensor-core inputs could meet.
 //  * flash_fwd_kernel: one block per (query tile of BQ rows, head, batch
@@ -257,7 +265,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// ---- wide heads: D = 128, 256 ------------------------------------------
+// ---- wide heads: D = 128, 192, 256 -------------------------------------
 constexpr int WNT = 256;          // threads per block, a 16 x 16 grid
 constexpr int WTX = 16;           // threads sharing a row
 constexpr int WM = 64;            // (position, head) rows per block
@@ -272,8 +280,11 @@ constexpr size_t wide_smem_bytes() {
          sizeof(float) * WM * WBK;
 }
 
+// Two blocks an SM (128 registers a thread) at D = 128 and 256; one at
+// D = 192, whose 48 accumulators and three 16-byte chunks a thread spilled
+// 8 bytes under the 128-register cap on the card.
 template <typename T, int D>
-__global__ void __launch_bounds__(WNT)
+__global__ void __launch_bounds__(WNT, D == 192 ? 1 : 2)
 flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ o, int S, int H, int Hk, int GH, int causal, int window,
                   float scale) {
@@ -497,6 +508,7 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
   if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, b);
   else if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, b);
+  else if constexpr (N == 192) wgmma_rs_m64n192k16(d, a, b);
   else wgmma_rs_m64n256k16(d, a, b);
 }
 
@@ -783,6 +795,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int
     case 32: return launch<float, 32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 64: return launch<float, 64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 128: return launch_wide<float, 128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 192: return launch_wide<float, 192>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 256: return launch_wide<float, 256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -796,6 +809,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
     case 32: return launch_tc<32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 64: return launch_tc<64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 128: return launch_tc<128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 192: return launch_tc<192>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     case 256: return launch_tc<256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -30,7 +30,9 @@
 //  * The pool is indexed in its (P, ps, Hk, D) layout; no transposed copy of
 //    the pool is made (the TPU wrapper's transpose is a full pool copy).
 //  * All query heads of a slice share each K/V row a warp loads, so GQA reads
-//    the cache once per slice.
+//    the cache once per slice.  A slice holds up to 8 query heads, 4 at
+//    D = 192 (Nemotron-4-340B's 12 heads a KV head run as 3 slices), where
+//    a row is a whole warp's 32 lanes of 6 columns (decode_body.cuh).
 #include "decode_body.cuh"
 
 namespace {
@@ -63,7 +65,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
            const int* lengths, void* o, int B, int n_cols, int n_pool, int ps, int Hk, int G,
            cudaStream_t stream) {
   // the table row is dynamic shared memory beside the body's static merge
-  // room (NW·GB·(D + 2) floats, 33 KB at D = 128, GB = 8); past 48 KB in all
+  // room (NW·GB·(D + 2) floats, 33 KB at D = 128, GB = 8, 25 KB at D = 192,
+  // GB = 4); past 48 KB in all
   // the launch must opt in
   const size_t smem = sizeof(int) * (size_t)n_cols;
   const size_t smem_static = sizeof(float) * decode_body::NW * GB * (D + 2);
@@ -85,7 +88,7 @@ template <typename T, int D>
 int launch_g(const void* q, const void* k_pool, const void* v_pool, const int* table,
              const int* lengths, void* o, int B, int n_cols, int n_pool, int ps, int Hk, int G,
              cudaStream_t stream) {
-  switch (decode_body::heads_per_block(G)) {
+  switch (decode_body::heads_per_block(G, D)) {
     case 1:
       return launch<T, D, 1>(q, k_pool, v_pool, table, lengths, o, B, n_cols, n_pool, ps, Hk, G,
                              stream);
@@ -96,8 +99,8 @@ int launch_g(const void* q, const void* k_pool, const void* v_pool, const int* t
       return launch<T, D, 4>(q, k_pool, v_pool, table, lengths, o, B, n_cols, n_pool, ps, Hk, G,
                              stream);
     default:
-      return launch<T, D, decode_body::GMAX>(q, k_pool, v_pool, table, lengths, o, B, n_cols,
-                                             n_pool, ps, Hk, G, stream);
+      return launch<T, D, decode_body::gmax(D)>(q, k_pool, v_pool, table, lengths, o, B,
+                                                n_cols, n_pool, ps, Hk, G, stream);
   }
 }
 
@@ -117,6 +120,9 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool, const int* t
                              stream);
     case 128:
       return launch_g<T, 128>(q, k_pool, v_pool, table, lengths, o, B, n_cols, n_pool, ps, Hk,
+                              G, stream);
+    case 192:
+      return launch_g<T, 192>(q, k_pool, v_pool, table, lengths, o, B, n_cols, n_pool, ps, Hk,
                               G, stream);
     default:
       return (int)cudaErrorInvalidValue;

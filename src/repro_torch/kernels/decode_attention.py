@@ -6,7 +6,7 @@ the JAX package's ``decode_attention_pallas``: one query token per row
 against a ``(B, Smax, Hk, D)`` cache, keys ``< lengths[b]`` visible.  The
 kernel takes the cache's batch and sequence strides, so a horizon slice
 ``cache[:, :horizon]`` of a longer buffer is read in place, never copied.
-At head widths 128 and 256 the kernel splits the sequence into pieces of
+At head widths 128, 192 and 256 the kernel splits the sequence into pieces of
 at least two 16-position tiles, one block each, multiplies on the tensor
 cores in bf16, and merges the pieces' partial softmaxes in the same launch
 ("flash-decoding"): the blocks of each cluster of 8 pieces merge their
@@ -29,8 +29,8 @@ from repro_torch.kernels import build, launches
 
 __all__ = ["decode_attention_cuda", "decode_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's compiled head widths
-SPLIT_DIMS = (128, 256)                   # widths that split the sequence over blocks
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's compiled head widths
+SPLIT_DIMS = (128, 192, 256)              # widths that split the sequence over blocks
 # the wide-head kernel's tiling (csrc/decode_attention.cu): positions a tile,
 # pieces a row at most, pieces a cluster (a first-level merge), query heads a slice
 WIDE_TILE, WIDE_MAX_PIECES, WIDE_GROUP, WIDE_HEADS = 16, 64, 8, 16

@@ -37,7 +37,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_plain", "HEAD_DIMS",
            "flash_attention_backward_cuda", "flash_attention_backward_plain",
            "HEAD_DIMS_BWD", "FlashAttention"]
 
-HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's compiled head widths
 HEAD_DIMS_BWD = (16, 32, 64)              # the backward kernel's
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -19,7 +19,7 @@ from repro_torch.kernels.decode_attention import decode_attention_plain
 
 __all__ = ["paged_attention_cuda", "paged_attention_plain", "HEAD_DIMS"]
 
-HEAD_DIMS = (16, 32, 64, 128)             # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128, 192)        # the kernel's compiled head widths
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

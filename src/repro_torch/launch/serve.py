@@ -7,7 +7,9 @@ does, with the same flags.  ``--reduced`` serves a config's ``reduced()``
 size; on the CPU, as in the JAX launcher, so is every config of more than
 5e7 parameters, while on the card the published width is served unless
 ``--reduced`` is given (full-width Qwen3-30B-A3B is 61.1 GB in bf16 and fits
-one 80 GB card)::
+one 80 GB card).  On the card a config whose weights exceed the card's free
+memory is refused before any weight is allocated (full-width
+Nemotron-4-340B is 682 GB in bf16): serve its ``--reduced`` size instead::
 
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-m --requests 12
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch tiny-s --device cpu
@@ -15,6 +17,9 @@ one 80 GB card)::
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch qwen3-moe-30b-a3b \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve engine --arch qwen3-moe-30b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --arch stablelm-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve engine --arch nemotron-4-340b \
+        --reduced
 
 Weights are random, drawn by ``Model.init`` from a seeded generator.  The
 run is on the card unless ``--device cpu`` is given; there each fused
@@ -57,6 +62,28 @@ an ephemeral port, printed on the ``listening on`` line::
 import argparse
 import sys
 import time
+
+
+def check_fits(cfg, device) -> None:
+    """On a card, refuse (``SystemExit``, naming ``--reduced``) a config
+    whose weights alone exceed the card's free memory, before any of them is
+    allocated: the model's own parameter count (built on ``meta``) times its
+    dtype's size, against ``torch.cuda.mem_get_info``.  A CPU device is
+    not checked."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return
+    meta = Model(cfg, device="meta")
+    n_bytes = meta.param_count() * meta.dtype.itemsize
+    free, _ = torch.cuda.mem_get_info(dev)
+    if n_bytes > free:
+        raise SystemExit(f"{cfg.name}: its {n_bytes / 1e9:.1f} GB of {cfg.dtype} weights exceed "
+                         f"the card's {free / 1e9:.1f} GB of free memory; serve it with "
+                         f"--reduced")
 
 
 def engine_main(argv):
@@ -108,6 +135,7 @@ def engine_main(argv):
     if cfg.vocab_size < 259 or cfg.enc_dec or cfg.frontend:
         raise SystemExit(f"{cfg.name}: byte-tokenizer text serving needs a plain "
                          f"decoder with vocab ≥ 259 (use tiny-s/m/l or --reduced dense archs)")
+    check_fits(cfg, args.device)
     model = Model(cfg, device=args.device)
     model.init(torch.Generator(device=model.device).manual_seed(0))
     if args.draft_member:

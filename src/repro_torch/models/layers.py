@@ -22,11 +22,14 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
 def init_normal_(p: torch.Tensor, generator: torch.Generator, scale: float = 1.0) -> None:
     """The JAX ``Builder``'s "normal" init: N(0, 1) · scale / sqrt(fan_in),
     fan_in = shape[-2] for matrices (shape[-1] for vectors), drawn in fp32
-    and cast to the parameter's dtype."""
+    and cast to the parameter's dtype.  One fp32 draw is the only temporary
+    (scaled in place, cast by the copy): Nemotron-4-340B's 256,000 × 18,432
+    output head is 18.9 GB of it, beside its 46.5 GB of bf16 weights on an
+    80 GB card."""
     fan_in = p.shape[-2] if p.dim() >= 2 else p.shape[-1]
     z = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    p.copy_((z * (scale / np.sqrt(fan_in))).to(device=p.device, dtype=p.dtype))
+    p.copy_(z.mul_(scale / np.sqrt(fan_in)))
 
 
 @torch.no_grad()

@@ -4,7 +4,8 @@ expert, and the capacity-based dispatch in two forms.
 Counterpart of the JAX package's ``models/moe.py`` (``init_moe``,
 ``apply_moe``, ``_pair_ranks``, ``_dispatch_gather``, ``_dispatch_dense``).
 The parameter names mirror its tree — ``router`` (d, E), ``gate``/``up``
-(E, d, f), ``down`` (E, f, d), and with a shared expert ``shared.gate``,
+(E, d, f) (``up`` alone for the ungated GELU and squared-ReLU experts),
+``down`` (E, f, d), and with a shared expert ``shared.gate``,
 ``shared.up``, ``shared.down`` (``Dense``) and ``shared.gate_proj`` (d, 1)
 — so the weight bridge maps ``blocks/b<s>/mlp/...`` with no special case.
 
@@ -34,12 +35,10 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Dense, empty_param, init_normal_
-from repro_torch.models.mlp import gelu
+from repro_torch.models.mlp import GATED, UNGATED
 
 __all__ = ["MoE", "pair_ranks", "top_k_stable", "dispatch_gather", "dispatch_dense",
            "capacity"]
-
-_GATED = {"swiglu": F.silu, "geglu": gelu}
 
 
 class SharedExpert(nn.Module):
@@ -79,13 +78,15 @@ class MoE(nn.Module):
                 "dp_size = 1, which is the 'gather' dispatch")
         if dispatch not in ("gather", "dense"):
             raise ValueError(f"unknown moe_dispatch {dispatch!r}")
-        if cfg.activation not in _GATED:
+        if cfg.activation not in GATED and cfg.activation not in UNGATED:
             raise NotImplementedError(f"expert activation {cfg.activation!r} is not ported yet")
         self.cfg, self.dispatch, self.chunk_tokens = cfg, dispatch, chunk_tokens
         d, E, f = cfg.d_model, m.n_experts, m.d_expert
         self.router = empty_param((d, E), dtype, device)
-        self.act = _GATED[cfg.activation]
-        self.gate = empty_param((E, d, f), dtype, device)
+        self.act = GATED.get(cfg.activation) or UNGATED[cfg.activation]
+        # ungated experts (GELU, squared ReLU) hold up and down only, as JAX's tree
+        self.gate = (empty_param((E, d, f), dtype, device) if cfg.activation in GATED
+                     else None)
         self.up = empty_param((E, d, f), dtype, device)
         self.down = empty_param((E, f, d), dtype, device)
         self.shared = (SharedExpert(d, m.d_shared, dtype=dtype, device=device)
@@ -95,12 +96,16 @@ class MoE(nn.Module):
         """The ``Builder``'s normal init, std 1/sqrt(fan_in) with fan_in the
         second-to-last dim (d for the router, gate and up; f for down)."""
         for p in (self.router, self.gate, self.up, self.down):
-            init_normal_(p, generator)
+            if p is not None:
+                init_normal_(p, generator)
         if self.shared is not None:
             self.shared.init(generator)
 
     def expert_ffn(self, x):
-        """x: (E, C, d) -> (E, C, d), every expert's gated MLP on its C rows."""
+        """x: (E, C, d) -> (E, C, d), every expert's MLP on its C rows: gated
+        ``act(x·gate) · (x·up)``, or ungated ``act(x·up)``, then ``·down``."""
+        if self.gate is None:
+            return torch.bmm(self.act(torch.bmm(x, self.up)), self.down)
         return torch.bmm(self.act(torch.bmm(x, self.gate)) * torch.bmm(x, self.up), self.down)
 
     def forward(self, x, exact: bool = False):

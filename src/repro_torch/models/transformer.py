@@ -10,9 +10,11 @@ scans over them, the port keeps an ``nn.ModuleList`` of blocks and loops;
 the weight bridge (``repro_torch.models.bridge``) unstacks the JAX leaves.
 Caches keep the JAX layout with the layers stacked on axis 0.
 
-Supported: global-attention dense stacks with RMSNorm, SwiGLU, RoPE and
-optional QKV bias and QK-norm; the same stacks with mixture-of-experts MLPs
-(family ``moe``: Qwen1.5-MoE, Qwen3-MoE; ``models/moe.py``); RWKV6 stacks
+Supported: global-attention dense stacks with RMSNorm or LayerNorm, a gated
+(SwiGLU, GeGLU) or ungated (GELU, squared ReLU) MLP, full or partial RoPE
+(``rotary_pct``: StableLM-2 rotates a quarter of each head, Nemotron-4 half)
+and optional QKV bias and QK-norm; the same stacks with mixture-of-experts
+MLPs (family ``moe``: Qwen1.5-MoE, Qwen3-MoE; ``models/moe.py``); RWKV6 stacks
 (family ``ssm``) with LayerNorm; and the RG-LRU hybrid (family ``hybrid``,
 RecurrentGemma): RG-LRU blocks mixed with sliding-window (or global)
 attention blocks, RMSNorm, GeGLU and RoPE.  Other families raise
@@ -58,11 +60,11 @@ def _check_supported(cfg: ModelConfig) -> None:
     if (cfg.family == "dense" and cfg.moe is None) or (cfg.family == "moe" and cfg.moe):
         if kinds != {"attn"}:
             unsupported.append(f"blocks {sorted(kinds)}")
-        if cfg.norm != "rmsnorm":
+        if cfg.norm not in ("rmsnorm", "layernorm"):
             unsupported.append(f"norm {cfg.norm!r}")
         if cfg.rope_type not in ("rope", "none"):
             unsupported.append(f"rope_type {cfg.rope_type!r}")
-        if cfg.activation not in (("swiglu", "geglu") if cfg.family == "dense" else ("swiglu",)):
+        if cfg.activation not in ("swiglu", "geglu", "gelu", "relu2"):
             unsupported.append(f"activation {cfg.activation!r}")
     elif cfg.family == "ssm":
         if kinds != {"rwkv"}:

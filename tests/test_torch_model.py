@@ -306,13 +306,12 @@ def test_rwkv_cache_layout_and_paged_refusal():
 
 
 def test_unported_families_raise():
-    """M-RoPE (the VLM's rotary), a relu² MLP (Nemotron), encoder-decoder
-    stacks and a dense stack with LayerNorm are not ported yet.
-    (Local-attention and RG-LRU blocks are: the hybrid family; so are
-    QK-norm and mixture-of-experts MLPs, ``tests/test_torch_moe.py``.)"""
+    """M-RoPE (the VLM's rotary) and encoder-decoder stacks are not ported
+    yet.  (Local-attention and RG-LRU blocks are: the hybrid family; so are
+    QK-norm and mixture-of-experts MLPs, ``tests/test_torch_moe.py``, and
+    LayerNorm dense stacks with squared-ReLU or GELU MLPs,
+    ``tests/test_torch_dense_layernorm.py``.)"""
     for change in (dict(rope_type="mrope", mrope_sections=(4, 2, 2)),
-                   dict(activation="relu2"),
-                   dict(enc_dec=True, n_encoder_layers=2, family="audio"),
-                   dict(norm="layernorm")):
+                   dict(enc_dec=True, n_encoder_layers=2, family="audio")):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(get_arch("tiny-s"), **change), device="cpu")
