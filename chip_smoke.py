@@ -64,8 +64,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    D in {16, 32, 64}, G in {1, 2, 4}, S in {1, 37, 128, 512}, with a
    window shorter than S, and with B·H·ceil(S/64) below and above the SM
    count, bf16 and fp32, each gradient held row by row (fp32 1e-4, bf16
-   2e-2) and each case launched twice with identical bits.
-4. Twelve main paths, each driven with every launch count set to 0 just
+   2e-2) and each case launched twice with identical bits; flash without
+   the causal mask at Sq = Skv in {1, 37, 1,536} (an encoder) and at Sq in
+   {1, 37, 64} against Skv in {37, 1,536}, causal (the ends aligned) and
+   not (a cross-attention), at D in {64, 128} and G in {1, 8}, bf16 and
+   fp32, each launched twice for identical bits; decode over a cross
+   cache of 1,536 frames at lengths 1, 1,535 and 1,536, launched twice.
+4. Fourteen main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
    launched, no plain version may see a CUDA tensor, and flash attention
    builds autograd nodes (``FlashAttention``) on the training paths only.  Each path runs as
@@ -187,6 +192,27 @@ Phases, in order; any failure raises and the script exits non-zero:
       against its bound (37.07 GB) with one dispatch traced, and a
       contiguous leg of 16 steps (the decode kernel at D=192) graphed
       against eager, its streams printed beside the paged ones.
+   l. SeamlessM4T-large-v2 at full width and depth (24 encoder and 24
+      decoder layers, d_model 1,024, 16 heads of 64, LayerNorm, GELU,
+      vocab 256,206 padded to 256,224; 1.632 B parameters, 3.26 GB): 8
+      requests of 1,536 stub frame embeddings and a 40-64-token prompt
+      right-padded to 64, ``Model.prefill(enc_inputs=, lengths=)`` then 32
+      greedy steps through ``RecurrentDecoder`` (the cross K/V in its flat
+      cache), graphed against eager (tokens, launches, final caches bit for
+      bit); every prefill exactly 24 encoder (not causal, 1,536 x 1,536),
+      24 self (causal, 64 x 64) and 24 cross (64 x 1,536) flash calls,
+      every step 24 self and 24 cross decode calls; a graphed step clocked
+      in turns against its bound (the decoder's weights, the head and the
+      cross K/V) and one replay traced.
+   m. Qwen2-VL-72B's first 8 of 80 layers at full width (d_model 8,192, 64
+      heads on 8 KV heads of 128, M-RoPE sections (16, 24, 24), QKV bias;
+      9.51 B parameters, 19.0 GB): ``Model.forward`` of 8 stub sequences
+      of patch and text embeddings (16 text, a 16 x 16 image grid, 32 text)
+      with their M-RoPE ids (one flash launch a layer, the first held
+      against its plain version), then 8 text requests served paged (32
+      steps) and contiguous (16 steps), graphed against eager (tokens,
+      launches, caches), and a graphed paged step clocked against its bound
+      (every weight but the embedding) with one dispatch traced.
    Graphed against eager, each path a-e, i and j must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
@@ -233,11 +259,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-3 of the plain versions', identical greedy streams), path j in fp32
    at full width and path k in fp32 on its first layer at full width
    (51.6 GB), the same way, paged and contiguous, its two layouts' greedy
-   streams identical, and the recurrent paths' parity of phase 5.
+   streams identical; path l in fp32 at full width and depth (prefill
+   logits within 1e-3, identical greedy streams) and path m's forward in
+   fp32 on Qwen2-VL-72B's first layer at full width (logits within 1e-3);
+   and the recurrent paths' parity of phase 5.
 
 The line before the last is a JSON object with one entry per kernel (time,
 CUPTI time, launches, bound, plain and library times, the library's by
-CUPTI too; the D=192 entries from path k's first eager calls), the flash
+CUPTI too; the D=192 entries from path k's first eager calls; the
+encoder's and the cross-attention's flash and the cross decode from path
+l's), the flash
 backward's at h1's and h3's first call, beside the
 backward of SDPA on the same tensors; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -428,14 +459,18 @@ def sass_counts(name, want):
     return counts
 
 
-def flash_work(q, k, window):
+def flash_work(q, k, window, causal=True):
     """Bytes (q, k, v read once, out written once) and FLOPs (4·D per
-    visible causal pair) of one flash call."""
+    visible (query, key) pair: query i at key position i + Skv − Sq sees
+    keys up to it when ``causal``, else all Skv, and with a window only the
+    last ``window``) of one flash call."""
     B, S, H, D = q.shape
-    Hk = k.shape[2]
-    i = np.arange(S)
-    pairs = int(np.minimum(i + 1, window).sum() if window else (i + 1).sum())
-    n_bytes = q.element_size() * (2 * B * S * H * D + 2 * B * S * Hk * D)
+    Skv, Hk = k.shape[1], k.shape[2]
+    pos = np.arange(S) + (Skv - S)
+    hi = np.minimum(pos + 1, Skv) if causal else np.full(S, Skv)
+    lo = np.maximum(pos - window + 1, 0) if window else 0
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    n_bytes = q.element_size() * (2 * B * S * H * D + 2 * B * Skv * Hk * D)
     return n_bytes, 4 * D * pairs * B * H
 
 
@@ -1220,6 +1255,41 @@ def short_leg(label, model, dev, main_path, caches_equal, paged=True, max_new=33
     return g_eng, g_streams, dict(g_c), g_s, e_s
 
 
+def clocked_serve(label, g_eng, model, max_new, streams, dev):
+    """One more graphed serve of ``short_leg``'s requests on its engine,
+    every dispatch clocked and the second traced: a graphed step against
+    the bound of reading every weight but the embedding, and the card's
+    busy share of the traced dispatch.  The tokens must be ``streams``."""
+    clock = DispatchClock(g_eng, trace_at=1)
+    reqs = serving_requests()[:8]
+    for r in reqs:
+        r.max_new = max_new
+    g_eng.serve(reqs)
+    g_eng._graphs.run = clock.inner
+    check([r.out_tokens for r in reqs] == streams,
+          f"{label}: the clocked serve's tokens differ from the first serve's")
+    others = [t for i, t in enumerate(clock.times) if i != 1]
+    disp_ms = 1e3 * float(np.mean(others))
+    dev_ms = device_total_ms(clock.rows)
+    step_bytes = (model.param_count() - model.embed.numel()) * model.embed.element_size()
+    step_bound = 1e3 * step_bytes / HBM_BYTES_PER_S
+    step_ms = disp_ms / 8
+    print(f"[{label}] graphed step {step_ms:.3f} ms (clocked dispatches of K = 8, "
+          f"{[round(1e3 * t, 3) for t in clock.times]} ms) against a bound of "
+          f"{step_bound:.3f} ms ({step_bytes / 1e9:.2f} GB of weights at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {step_ms / step_bound:.2f}x; a traced "
+          f"dispatch's device time "
+          + ("not measured" if dev_ms is None else
+             f"{dev_ms:.3f} ms of {disp_ms:.3f} ({100 * dev_ms / disp_ms:.1f}% busy)"))
+    for name, ms in top_device(clock.rows):
+        print(f"[{label}]   {ms:.4f} ms a dispatch: {name}")
+    check(dev_ms is not None or dev.type != "cuda",
+          f"{label}: the dispatch trace holds no device time")
+    return dict(step_ms=step_ms, step_bound_ms=step_bound, step_bytes=step_bytes,
+                dispatch_ms=disp_ms, device_ms_per_dispatch=dev_ms,
+                busy_share=None if dev_ms is None else dev_ms / disp_ms)
+
+
 # ---- path k: Nemotron-4-340B's first layers at full width -----------------
 def nemotron_path(label, dev, main_path, caches_equal, cfg, seed):
     """Path k: ``cfg`` (Nemotron-4-340B cut to its first layers, full width:
@@ -1260,35 +1330,7 @@ def nemotron_path(label, dev, main_path, caches_equal, cfg, seed):
         out[layout] = dict(launches=g_c, seconds=g_s, eager_seconds=e_s,
                            prefills=g_eng.n_prefill_calls, dispatches=g_eng.n_decode_calls)
         if paged:
-            # one more graphed serve, every dispatch clocked and the second traced
-            clock = DispatchClock(g_eng, trace_at=1)
-            reqs = serving_requests()[:8]
-            for r in reqs:
-                r.max_new = max_new
-            g_eng.serve(reqs)
-            g_eng._graphs.run = clock.inner
-            check([r.out_tokens for r in reqs] == g_streams,
-                  f"{label}: the clocked serve's tokens differ from the first serve's")
-            others = [t for i, t in enumerate(clock.times) if i != 1]
-            disp_ms = 1e3 * float(np.mean(others))
-            dev_ms = device_total_ms(clock.rows)
-            step_bytes = (n_params - model.embed.numel()) * model.embed.element_size()
-            step_bound = 1e3 * step_bytes / HBM_BYTES_PER_S
-            step_ms = disp_ms / 8
-            print(f"[{label}] graphed step {step_ms:.3f} ms (clocked dispatches of K = 8, "
-                  f"{[round(1e3 * t, 3) for t in clock.times]} ms) against a bound of "
-                  f"{step_bound:.3f} ms ({step_bytes / 1e9:.2f} GB of weights at "
-                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {step_ms / step_bound:.2f}x; a traced "
-                  f"dispatch's device time "
-                  + ("not measured" if dev_ms is None else
-                     f"{dev_ms:.3f} ms of {disp_ms:.3f} ({100 * dev_ms / disp_ms:.1f}% busy)"))
-            for name, ms in top_device(clock.rows):
-                print(f"[{label}]   {ms:.4f} ms a dispatch: {name}")
-            check(dev_ms is not None or dev.type != "cuda",
-                  f"{label}: the dispatch trace holds no device time")
-            out.update(step_ms=step_ms, step_bound_ms=step_bound, step_bytes=step_bytes,
-                       dispatch_ms=disp_ms, device_ms_per_dispatch=dev_ms,
-                       busy_share=None if dev_ms is None else dev_ms / disp_ms)
+            out.update(clocked_serve(label, g_eng, model, max_new, g_streams, dev))
         del g_eng
     agree = sum(a[:17] == b for a, b in zip(streams["paged"], streams["contiguous"]))
     print(f"[{label}] not checked (bf16; phase 7 holds the two layouts equal in fp32): the "
@@ -1303,6 +1345,276 @@ def nemotron_path(label, dev, main_path, caches_equal, cfg, seed):
     del model
     torch.cuda.empty_cache()
     return out, {n: calls[0] for n, calls in recorded.items()}, launches
+
+
+def hold_flash(label, q, k, v, kw):
+    """A recorded flash call held against its plain version on the same
+    inputs (max abs and row-relative within the dtype's tolerance)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+
+    kw = {"causal": kw.get("causal", True), "window": kw.get("window")}
+    got = flash_mod.flash_attention_cuda(q, k, v, **kw)
+    want = flash_mod.flash_attention_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    check(err <= TOL[q.dtype] and rel <= TOL[q.dtype],
+          f"{label}: flash on main-path inputs: max abs err {err:.3g}, row-relative {rel:.3g}")
+    return dict(max_abs_err=err, row_rel_err=rel)
+
+
+# ---- path l: SeamlessM4T-large-v2 at full width and depth -------------------
+ENC_PROMPT_LEN = 64              # path l: decoder prompts right-padded to 64 (40-64 valid)
+ENC_MAX_LEN = 128                # path l: the decoder's self-attention cache
+
+
+@contextlib.contextmanager
+def call_kinds(module, name, kind):
+    """Wrap ``module.name``: each call made from Python (eager or under a
+    capture; a replay runs none) adds one to ``counts[kind(*args,
+    **kwargs)]`` and calls through.  The kernels' own counters stay the
+    gate; this splits their calls by the shapes a path gives them."""
+    orig = getattr(module, name)
+    counts = {}
+
+    def wrapper(*args, **kwargs):
+        key = kind(*args, **kwargs)
+        counts[key] = counts.get(key, 0) + 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, orig)
+
+
+def flash_kind(q, k, v, *, causal=True, **_):
+    """A flash call's kind on the encoder-decoder: the encoder's (not
+    causal, Sq = Skv), a decoder's self-attention (causal) or its
+    cross-attention (not causal over the encoder's frames)."""
+    if causal:
+        return "self"
+    return "encoder" if q.shape[1] == k.shape[1] else "cross"
+
+
+def decode_kind(q, k, v, lengths):
+    """A decode call's kind on the encoder-decoder: over the self cache
+    (``ENC_MAX_LEN`` positions) or over the encoder's K/V."""
+    return "self" if k.shape[1] == ENC_MAX_LEN else "cross"
+
+
+def encdec_inputs(cfg, dev, seed, B=8):
+    """Path l's workload: B requests, each 1,536 frame embeddings of the
+    audio stub and a decoder prompt of 40-64 token ids right-padded to 64,
+    all from ``seed``."""
+    from repro_torch.launch import specs
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(40, ENC_PROMPT_LEN + 1, B).astype(np.int32)
+    lengths[0] = ENC_PROMPT_LEN
+    tokens = rng.integers(0, cfg.vocab_size, (B, ENC_PROMPT_LEN)).astype(np.int32)
+    tokens[np.arange(ENC_PROMPT_LEN)[None, :] >= lengths[:, None]] = 0
+    frames = specs.frame_embeddings(cfg, B, seed + 1, device=dev)
+    return (torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev), frames)
+
+
+def encdec_path(label, dev, main_path, cfg, seed):
+    """Path l: ``cfg`` (SeamlessM4T-large-v2 at full width and depth) drawn
+    on ``dev`` from ``seed``.  ``Model.prefill(enc_inputs=, lengths=)`` of
+    ``encdec_inputs``, then 32 greedy steps through ``RecurrentDecoder``
+    (its flat cache holds the cross K/V), graphed (the main path) and again
+    eagerly (the kernels' inputs recorded there): tokens, launches and the
+    final caches identical; every prefill launches exactly 24 encoder, 24
+    self and 24 cross flash calls, every step 24 self and 24 cross decode
+    calls.  A graphed step is clocked in turns against its bound (the
+    decoder's weights, the head and the cross K/V read each step) and one
+    replay traced.  Returns (what it measured, the recorded calls by kind,
+    the launches by kernel)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import Model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params, init_s = model.param_count(), time.perf_counter() - t0
+    print(f"[{label}] {cfg.name}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters ({n_params:,}) in {str(model.dtype)[6:]}, init "
+          f"{init_s:.1f}s; {held_before:.2f} GiB held before it")
+    tokens, lengths, frames = encdec_inputs(cfg, dev, seed)
+    L, n_steps = cfg.n_layers, 32
+    kw = dict(enc_inputs=frames, lengths=lengths, max_len=ENC_MAX_LEN)
+    legs, kinds = {}, {}
+    for leg in ("graphed", "eager"):
+        with contextlib.ExitStack() as stack:
+            counts = stack.enter_context(main_path(label + ("" if leg == "graphed" else "-eager"),
+                                                   ("flash_attention", "decode_attention")))
+            fk = stack.enter_context(call_kinds(ops, "flash_attention", flash_kind))
+            dk = stack.enter_context(call_kinds(ops, "decode_attention", decode_kind))
+            if leg == "eager":
+                fcalls = stack.enter_context(recording(ops, "flash_attention",
+                                                       {0, cfg.n_encoder_layers + 1}))
+                dcalls = stack.enter_context(recording(ops, "decode_attention", {1}))
+            legs[leg] = greedy(model, tokens, n_steps, graphed=leg == "graphed", **kw)
+        kinds[leg] = dict(flash=fk, decode=dk, launches=counts)
+    (logits, streams, prefill_s, decode_s, dec), (_, streams_e, _, decode_e, dec_e) = (
+        legs["graphed"], legs["eager"])
+    want_flash = {"encoder": cfg.n_encoder_layers, "self": L, "cross": L}
+    want_decode = {"self": L * n_steps, "cross": L * n_steps}
+    launches, eager_launches = kinds["graphed"]["launches"], kinds["eager"]["launches"]
+    print(f"[{label}] flash calls by kind {kinds['graphed']['flash']} (graphed leg), decode "
+          f"calls by kind {kinds['eager']['decode']} (eager leg)")
+    check(kinds["graphed"]["flash"] == want_flash == kinds["eager"]["flash"],
+          f"{label}: flash calls by kind {kinds['graphed']['flash']}, expected {want_flash}")
+    check(kinds["eager"]["decode"] == want_decode,
+          f"{label}: decode calls by kind {kinds['eager']['decode']}, expected {want_decode}")
+    check(launches["flash_attention"] == sum(want_flash.values())
+          and launches["decode_attention"] == sum(want_decode.values()),
+          f"{label}: launches {launches}, expected {sum(want_flash.values())} flash and "
+          f"{sum(want_decode.values())} decode")
+    cmp = recurrent_compare(label, streams, streams_e, dec, dec_e, launches, eager_launches)
+    check(not cmp["final_state_diff"], f"{label}: final caches differ graphed against eager")
+    B = tokens.shape[0]
+    check(tuple(logits.shape) == (B, 1, model.vocab_padded)
+          and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          f"{label}: prefill logits {tuple(logits.shape)} not finite")
+    check(bool(((streams >= 0) & (streams < cfg.vocab_size)).all()),
+          f"{label}: a token id out of the vocab")
+    check(tuple(fcalls[0][0][0].shape) == (B, specs.AUDIO_ENC_FRAMES, cfg.n_heads, cfg.head_dim)
+          and tuple(fcalls[cfg.n_encoder_layers + 1][0][1].shape[1:3])
+          == (specs.AUDIO_ENC_FRAMES, cfg.n_kv_heads)
+          and tuple(dcalls[1][0][1].shape[1:3]) == (specs.AUDIO_ENC_FRAMES, cfg.n_kv_heads),
+          f"{label}: the recorded calls are not the encoder's and the cross-attention's")
+    turns = step_turns(dec_e, dec)
+    step_ms = float(np.mean(turns["graphed"]))
+    cache = dec.cache(B)
+    w_bytes = (sum(p.numel() for p in model.blocks.parameters()) + model.lm_head.numel()
+               + sum(p.numel() for p in model.final_norm.parameters())) * model.embed.element_size()
+    kv_bytes = 2 * cache["cross_k"].numel() * cache["cross_k"].element_size()
+    step_bound = 1e3 * (w_bytes + kv_bytes) / HBM_BYTES_PER_S
+    print(f"[{label}] prefill {B}x{ENC_PROMPT_LEN} over {specs.AUDIO_ENC_FRAMES} frames "
+          f"{prefill_s:.3f}s; ms a step in turns: eager {[round(x, 3) for x in turns['eager']]}, "
+          f"graphed {[round(x, 3) for x in turns['graphed']]}; a graphed step against a bound "
+          f"of {step_bound:.3f} ms ({w_bytes / 1e9:.3f} GB of decoder and head weights, "
+          f"{kv_bytes / 1e9:.3f} GB of cross K/V, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): "
+          f"{step_ms / step_bound:.2f}x")
+    replay = trace_replay(label, dec, step_ms, ["::decode_kernel"])
+    n_trace = replay["kernels_in_replay"]["::decode_kernel"]
+    check(dev.type != "cuda" or 1 <= n_trace <= 2 * L * dec.decode_block,
+          f"{label}: {n_trace} decode kernels in a replay's trace, expected 1 to "
+          f"{2 * L * dec.decode_block}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] peak memory {peak:.2f} GiB")
+    out = dict(params=n_params, config_param_count=cfg.param_count(), init_s=init_s,
+               held_before_gib=held_before, prefill_s=prefill_s, decode_s=decode_s,
+               eager_decode_s=decode_e, launches=dict(launches),
+               flash_by_kind=kinds["graphed"]["flash"], decode_by_kind=kinds["eager"]["decode"],
+               step_ms_turns=turns, step_ms=step_ms, step_bound_ms=step_bound,
+               step_weight_bytes=w_bytes, step_cross_kv_bytes=kv_bytes, replay_trace=replay,
+               compare=cmp, peak_gib=peak, prompt_lengths=lengths.tolist())
+    recorded = {"flash_attention_encoder": fcalls[0],
+                "flash_attention_cross": fcalls[cfg.n_encoder_layers + 1],
+                "decode_attention_cross": dcalls[1]}
+    per_kind = {"flash_attention_encoder": want_flash["encoder"],
+                "flash_attention_cross": want_flash["cross"],
+                "decode_attention_cross": want_decode["cross"]}
+    del model, dec, dec_e, cache
+    torch.cuda.empty_cache()
+    return out, recorded, per_kind
+
+
+# ---- path m: Qwen2-VL-72B's first layers at full width ----------------------
+QWEN2VL_LAYERS = 8               # path m: Qwen2-VL-72B's first 8 of 80 layers (bf16)
+VLM_GRID = (16, 16, 16, 32)      # path m: 16 text tokens, a 16 x 16 patch grid, 32 text tokens
+
+
+def vlm_positions(B, dev):
+    """Path m's M-RoPE ids (B, 3, 304): ``VLM_GRID``'s text, image, text by
+    Qwen2-VL's rule, the same for every row."""
+    from repro_torch.launch import specs
+
+    pos = specs.mrope_positions(*VLM_GRID)
+    return pos[None].expand(B, *pos.shape).contiguous().to(dev)
+
+
+def vlm_path(label, dev, main_path, caches_equal, cfg, seed):
+    """Path m: ``cfg`` (Qwen2-VL-72B cut to its first layers, full width:
+    M-RoPE of sections (16, 24, 24), QKV bias, 64 query heads on 8 KV heads
+    of 128) drawn on ``dev`` from ``seed``, every earlier path's model
+    freed first.  (m1) ``Model.forward`` on 8 stub sequences of patch and
+    text embeddings (``VLM_GRID``) with their M-RoPE ids: one flash launch a
+    layer, logits finite, the first layer's flash call held against its
+    plain version, and the logits at text positions printed beside them.
+    (m2) 8 text requests served paged (32 steps) and contiguous (16 steps)
+    through ``short_leg``, graphed against eager (tokens, launches,
+    caches), and one more graphed paged serve clocked with one dispatch
+    traced (``clocked_serve``).  Returns (what it measured, the model's embeddings and
+    positions for phase 7)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import Model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params, init_s = model.param_count(), time.perf_counter() - t0
+    print(f"[{label}] {cfg.name} cut to {cfg.n_layers} layers: {n_params / 1e9:.3f} B parameters "
+          f"({n_params:,}) in {str(model.dtype)[6:]}, init {init_s:.1f}s; {held_before:.2f} GiB "
+          f"held before it")
+    out = dict(params=n_params, layers=cfg.n_layers, init_s=init_s, held_before_gib=held_before)
+    B = 8
+    pos3 = vlm_positions(B, dev)
+    embeds = specs.patch_embeddings(cfg, B, pos3.shape[-1], seed + 1, device=dev)
+    with torch.no_grad():
+        with main_path(f"{label}-forward", ("flash_attention",)) as counts, \
+                recording(ops, "flash_attention", {0}) as fcall:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = model.forward(embeds, positions=pos3)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t
+        check(counts["flash_attention"] == cfg.n_layers,
+              f"{label}: {counts['flash_attention']} flash launches in the forward, expected "
+              f"{cfg.n_layers}")
+        check(tuple(logits.shape) == (B, pos3.shape[-1], model.vocab_padded)
+              and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+              f"{label}: forward logits {tuple(logits.shape)} not finite")
+        text_logits, _ = model.forward(embeds)
+        moved = (text_logits - logits)[..., :cfg.vocab_size].abs().max().item()
+        del text_logits
+    (q, k, v), fkw = fcall[0]
+    check(tuple(q.shape[2:]) == (cfg.n_heads, cfg.head_dim) and k.shape[2] == cfg.n_kv_heads,
+          f"{label}: the recorded flash call is not D=128, G=8: {tuple(q.shape)}, {tuple(k.shape)}")
+    got = hold_flash(label, q, k, v, fkw)
+    print(f"[{label}] forward of {B} x {pos3.shape[-1]} embeddings (text {VLM_GRID[0]}, a "
+          f"{VLM_GRID[1]} x {VLM_GRID[2]} image, text {VLM_GRID[3]}) with M-RoPE ids in "
+          f"{fwd_s:.3f}s; first layer's flash call {got}; not checked: the same embeddings at "
+          f"text positions move the logits by up to {moved:.3g}")
+    out.update(forward_s=fwd_s, forward_launches=dict(counts), first_flash=got,
+               text_position_logit_shift=moved)
+    del logits
+    streams = {}
+    for paged, max_new in ((True, 33), (False, 17)):
+        layout = "paged" if paged else "contiguous"
+        g_eng, g_streams, g_c, g_s, e_s = short_leg(f"{label}-{layout}", model, dev, main_path,
+                                                    caches_equal, paged, max_new)
+        streams[layout] = g_streams
+        out[layout] = dict(launches=g_c, seconds=g_s, eager_seconds=e_s,
+                           prefills=g_eng.n_prefill_calls, dispatches=g_eng.n_decode_calls)
+        if paged:
+            out.update(clocked_serve(f"{label}-{layout}", g_eng, model, max_new, g_streams, dev))
+        del g_eng
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] peak memory {out['peak_gib']:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return out, embeds, pos3
 
 
 # ---- path g: RoBatch's control plane over a live pool -------------------
@@ -2221,12 +2533,17 @@ def main() -> int:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def flash_case(label, B, S, H, Hk, D, dtype, window=None):
-        q, k, v = randn(B, S, H, D, dtype=dtype), randn(B, S, Hk, D, dtype=dtype), \
-            randn(B, S, Hk, D, dtype=dtype)
-        got = flash_kernel(q, k, v, window=window)
-        want = flash_plain(q, k, v, window=window)
-        check(bool(torch.equal(got, flash_kernel(q, k, v, window=window))),
+    def flash_case(label, B, S, H, Hk, D, dtype, window=None, Skv=None, causal=True,
+                   timed=True):
+        """q (B, S, H, D) against k/v (B, Skv, Hk, D) (Skv = S by default),
+        the sequence ends aligned; launched twice for identical bits."""
+        Skv = S if Skv is None else Skv
+        q, k, v = randn(B, S, H, D, dtype=dtype), randn(B, Skv, Hk, D, dtype=dtype), \
+            randn(B, Skv, Hk, D, dtype=dtype)
+        kw = dict(causal=causal, window=window)
+        got = flash_kernel(q, k, v, **kw)
+        want = flash_plain(q, k, v, **kw)
+        check(bool(torch.equal(got, flash_kernel(q, k, v, **kw))),
               f"flash {label}: a second launch differs from the first")
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -2234,15 +2551,18 @@ def main() -> int:
         rel = row_rel_err(got, want)
         check(dtype != torch.bfloat16 or rel <= TOL[dtype],
               f"flash {label}: row-relative err {rel:.3g} > {TOL[dtype]}")
-        ms = timed_ms(lambda: flash_kernel(q, k, v, window=window), 20, flush)
-        plain_ms = timed_ms(lambda: flash_plain(q, k, v, window=window), 5, flush)
-        print(f"[kernels] flash {label} B={B} S={S} H={H} Hk={Hk} D={D} {str(dtype)[6:]} "
-              f"window={window}: max|err| {err:.3g} (tol {TOL[dtype]}), row-relative "
-              f"{rel:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        results["cases"].append(dict(kernel="flash_attention", label=label, B=B, S=S, H=H,
-                                     Hk=Hk, D=D, dtype=str(dtype), window=window,
-                                     max_abs_err=err, row_rel_err=rel, ms=ms,
-                                     plain_ms=plain_ms))
+        line = dict(kernel="flash_attention", label=label, B=B, S=S, Skv=Skv, H=H, Hk=Hk, D=D,
+                    dtype=str(dtype), window=window, causal=causal, max_abs_err=err,
+                    row_rel_err=rel)
+        if timed:
+            line["ms"] = timed_ms(lambda: flash_kernel(q, k, v, **kw), 20, flush)
+            line["plain_ms"] = timed_ms(lambda: flash_plain(q, k, v, **kw), 5, flush)
+        print(f"[kernels] flash {label} B={B} S={S} Skv={Skv} H={H} Hk={Hk} D={D} "
+              f"{str(dtype)[6:]} causal={causal} window={window}: max|err| {err:.3g} (tol "
+              f"{TOL[dtype]}), row-relative {rel:.3g}, second launch identical"
+              + (f", kernel {line['ms']:.4f} ms, plain {line['plain_ms']:.4f} ms" if timed
+                 else ""))
+        results["cases"].append(line)
 
     for S in (128, 512):
         for dtype in (torch.bfloat16, torch.float32):
@@ -2266,6 +2586,23 @@ def main() -> int:
             for S in (1, 37, 256):
                 flash_case(f"d192-g{G}", 2, S, 24 if G == 12 else 8, 2 if G == 12 else 8, 192,
                            dtype)
+    # an encoder (not causal, Sq = Skv, up to SeamlessM4T's 1,536 frames) and
+    # a cross-attention (Sq != Skv, not causal), and causal with more keys
+    # than queries (the ends aligned), at D in {64, 128} and G in {1, 8}
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            for G in (1, 8):
+                H, Hk = (16, 16) if G == 1 else (32, 4)
+                for S in (1, 37, 1536):
+                    flash_case(f"encoder-d{D}-g{G}", 2, S, H, Hk, D, dtype, causal=False,
+                               timed=False)
+                for Sq in (1, 37, 64):
+                    for Skv in (37, 1536):
+                        for causal in (True, False):
+                            if Sq == Skv or (causal and Sq > Skv):
+                                continue
+                            flash_case(f"cross-d{D}-g{G}", 2, Sq, H, Hk, D, dtype, Skv=Skv,
+                                       causal=causal, timed=False)
 
     def bwd_case(label, B, S, H, Hk, D, dtype, window=None):
         """The backward kernel, launched twice (the same bits required: it
@@ -2519,6 +2856,18 @@ def main() -> int:
         for G in (1, 12):               # Nemotron-4-340B's width: 12 heads of 16 rows live
             for S in (2048, 100):
                 wide_edges(dtype, 192, G, S)
+    # the cross-attention's decode over SeamlessM4T's encoder K/V (16 heads of
+    # 64, 1,536 frames, contiguous): every frame, and the edges 1 and 1,535
+    for dtype in (torch.bfloat16, torch.float32):
+        lens = [1536, 1, 1535, 1536, 1, 1535, 1536, 1536]
+        q = randn(len(lens), 1, 16, 64, dtype=dtype)
+        k, v = (randn(len(lens), 1536, 16, 64, dtype=dtype) for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got, again = decode_kernel(q, k, v, lengths), decode_kernel(q, k, v, lengths)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, again)), "decode cross-edges: a second launch differs")
+        edge_check("decode", f"cross-edges-d64-g1 S=1536 lengths {lens}", got,
+                   decode_plain(q, k, v, lengths), dtype, lengths.eq(0))
 
     def wkv6_inputs(B, T, H, D, dtype, decays="rwkv"):
         """r/k/v ~ N(0, 1), u ~ U(−0.5, 0.5), a carried state, and decays
@@ -3400,6 +3749,25 @@ def main() -> int:
           f"nemotron: the recorded flash call is not D=192, G=12: {tuple(kq.shape)}, "
           f"{tuple(kk.shape)}")
     stamp(f"nemotron-4-340b, {NEMOTRON_LAYERS} layers, paged and contiguous")
+
+    # ---- path l: SeamlessM4T-large-v2 at full width and depth (an encoder of
+    # 1,536 frames, cross-attention; flash not causal and at Sq != Skv, decode
+    # over the encoder's K/V)
+    ecfg = get_arch("seamless-m4t-large-v2")
+    results["seamless"], l_calls, l_launches = encdec_path("seamless", dev, main_path, ecfg,
+                                                           SEED + 8)
+    check(results["seamless"]["params"] == Model(ecfg, device="meta").param_count(),
+          "seamless: the model on the card and on meta count different parameters")
+    stamp("seamless-m4t-large-v2 prefill over 1,536 frames and 32 steps")
+
+    # ---- path m: Qwen2-VL-72B's first layers at full width (M-RoPE; flash,
+    # paged and decode at D=128, G=8)
+    vcfg = dataclasses.replace(get_arch("qwen2-vl-72b"), n_layers=QWEN2VL_LAYERS)
+    results["qwen2-vl"], vlm_embeds, vlm_pos = vlm_path("qwen2-vl", dev, main_path, caches_equal,
+                                                        vcfg, SEED + 9)
+    check(results["qwen2-vl"]["params"] == Model(vcfg, device="meta").param_count(),
+          "qwen2-vl: the model on the card and on meta count different parameters")
+    stamp(f"qwen2-vl-72b, {QWEN2VL_LAYERS} layers, forward, paged and contiguous")
     # the kernels on the inputs the main paths gave them
     entries = []
     (fq, fk, fv), fkw = flash_call
@@ -3741,6 +4109,51 @@ def main() -> int:
         library_ms=timed_ms(lambda: sdpa(cqt, ckt, cvt, attn_mask=cmask), 50, flush),
         shape=dict(q=list(cq.shape), k=list(ck.shape), k_stride=list(ck.stride()),
                    lengths=clen.tolist(), dtype=str(cq.dtype))))
+    # flash without the causal mask (the encoder) and at Sq != Skv (the
+    # cross-attention), and decode over the encoder's K/V: path l's first
+    # eager calls; SDPA beside each (not causal, no mask)
+    lib_l = {}
+    for name, ((lq, lk, lv, *rest), lkw) in l_calls.items():
+        if name.startswith("flash"):
+            lkw = {"causal": lkw.get("causal", True), "window": lkw.get("window")}
+            check(not lkw["causal"], f"{name}: the recorded call is causal")
+            run_k = (lambda lq=lq, lk=lk, lv=lv, lkw=lkw: flash_kernel(lq, lk, lv, **lkw))
+            run_p = (lambda lq=lq, lk=lk, lv=lv, lkw=lkw: flash_plain(lq, lk, lv, **lkw))
+            work = flash_work(lq, lk, lkw["window"], causal=False)
+            source, replaces = ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:124")
+            shape = dict(q=list(lq.shape), k=list(lk.shape), causal=False, dtype=str(lq.dtype))
+            tq = lq.transpose(1, 2).contiguous()
+        else:
+            llen = rest[0]
+            run_k = (lambda lq=lq, lk=lk, lv=lv, llen=llen: decode_kernel(lq, lk, lv, llen))
+            run_p = (lambda lq=lq, lk=lk, lv=lv, llen=llen: decode_plain(lq, lk, lv, llen))
+            work = decode_work(lq, lk, llen)
+            check(bool(llen.eq(lk.shape[1]).all()), f"{name}: not every frame is valid")
+            source, replaces = ("src/repro_torch/csrc/decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:83")
+            shape = dict(q=list(lq.shape), k=list(lk.shape), lengths=llen.tolist(),
+                         dtype=str(lq.dtype))
+            tq = lq.transpose(1, 2).contiguous()
+        lG = lq.shape[2] // lk.shape[2]
+        tk, tv = (x.repeat_interleave(lG, dim=2).transpose(1, 2).contiguous() for x in (lk, lv))
+        lib_l[name] = (lambda tq=tq, tk=tk, tv=tv: sdpa(tq, tk, tv), run_k,
+                       "flash_" if name.startswith("flash") else "decode_")
+        l_out, l_want = run_k(), run_p()
+        l_err = (l_out.float() - l_want.float()).abs().max().item()
+        l_rel = row_rel_err(l_out, l_want)
+        check(l_err <= TOL[lq.dtype] and l_rel <= TOL[lq.dtype], f"{name} on main-path "
+              f"inputs: max abs err {l_err:.3g}, row-relative {l_rel:.3g} > {TOL[lq.dtype]}")
+        l_bound, l_by = bound_ms(*work, lq.dtype)
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=l_launches[name], max_abs_err=l_err, atol=TOL[lq.dtype], rtol=0.0,
+            row_rel_err=l_rel, out_max=l_want.float().abs().max().item(),
+            ms=timed_ms(run_k, 20 if name.endswith("encoder") else 50, flush),
+            plain_ms=timed_ms(run_p, 5, flush), bound_ms=l_bound, bound_by=l_by,
+            library_ms=timed_ms(lib_l[name][0], 20 if name.endswith("encoder") else 50, flush),
+            shape=shape))
+        del l_out, l_want
     # the backward kernel at h1's and h3's first call; the library call is
     # SDPA's backward on the same tensors (its gradients' autograd call);
     # ``traced_ms`` is the kernel's time a call in h1's traced training step
@@ -3810,7 +4223,9 @@ def main() -> int:
              "flash_attention_bwd": (lambda: bwd_kernel(*h1_call[0], **h1_call[1]),
                                      BWD_KERNELS, 20),
              "flash_attention_bwd_d32": (lambda: bwd_kernel(*h3_call[0], **h3_call[1]),
-                                         BWD_KERNELS, 50)}
+                                         BWD_KERNELS, 50),
+             **{n: (run_k, frag, 20 if n.endswith("encoder") else 50)
+                for n, (_, run_k, frag) in lib_l.items()}}
     # the library calls the same way, by CUPTI (SDPA's backward: its
     # gradients' autograd call)
     library = {"flash_attention": (lambda: sdpa(qt, kt, vt, is_causal=True), 50),
@@ -3820,7 +4235,9 @@ def main() -> int:
                "flash_attention_d256": (lambda: sdpa(gqt, gkt, gvt, attn_mask=win_mask), 10),
                "decode_attention_d256": (lambda: sdpa(eqt, ekt, evt, attn_mask=emask), 50),
                "flash_attention_d192_g12": (lambda: sdpa(kqt, kkt, kvt, is_causal=True), 50),
-               "decode_attention_d192_g12": (lambda: sdpa(cqt, ckt, cvt, attn_mask=cmask), 50)}
+               "decode_attention_d192_g12": (lambda: sdpa(cqt, ckt, cvt, attn_mask=cmask), 50),
+               **{n: (lib_fn, 20 if n.endswith("encoder") else 50)
+                  for n, (lib_fn, _, _) in lib_l.items()}}
     for e in entries:
         fn, frag, iters = cupti[e["name"]]
         records = {}
@@ -4061,6 +4478,35 @@ def main() -> int:
     del nem32
     torch.cuda.empty_cache()
     stamp(f"fp32 stablelm-1.6b and nemotron-4-340b ({NEMOTRON_FP32_LAYERS} layer) parity")
+    # path l in fp32 at full width and depth: prefill over the 1,536 frames
+    # and 32 greedy steps, kernels against plain versions
+    ecfg32 = dataclasses.replace(ecfg, dtype="float32")
+    enc32 = Model(ecfg32, device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 8))
+    e_tokens, e_lengths, e_frames = encdec_inputs(ecfg32, dev, SEED + 8)
+
+    def encdec_fp32():
+        logits, streams, _, _, _ = greedy(enc32, e_tokens, n_steps, enc_inputs=e_frames,
+                                          lengths=e_lengths, max_len=ENC_MAX_LEN)
+        return logits, streams.tolist()
+
+    parity("seamless", encdec_fp32)
+    del enc32, e_frames
+    torch.cuda.empty_cache()
+    # path m's forward in fp32 on Qwen2-VL-72B's first layer at full width:
+    # the same embeddings and M-RoPE ids, kernels against plain versions
+    vlm32 = Model(dataclasses.replace(vcfg, n_layers=1, dtype="float32"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED + 9))
+    vlm_embeds32 = vlm_embeds.float()
+
+    def vlm_fp32():
+        with torch.no_grad():
+            logits, _ = vlm32.forward(vlm_embeds32, positions=vlm_pos)
+        return logits, logits[..., :vcfg.vocab_size].argmax(-1).tolist()
+
+    parity("qwen2-vl-1l", vlm_fp32)
+    del vlm32, vlm_embeds, vlm_embeds32
+    torch.cuda.empty_cache()
+    stamp("fp32 seamless-m4t-large-v2 and qwen2-vl-72b (1 layer) parity")
     rmodel32 = Model(dataclasses.replace(rcfg, dtype="float32"), device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
 

@@ -6,9 +6,10 @@ built there describe the same model field for field.  Architecture modules
 under ``repro_torch.configs`` register the configs served so far
 (``qwen1.5-0.5b``, ``qwen1.5-4b``, ``rwkv6-3b``, ``recurrentgemma-9b``, the
 mixture-of-experts ``qwen2-moe-a2.7b`` and ``qwen3-moe-30b-a3b``, the
-LayerNorm dense ``stablelm-1.6b`` and ``nemotron-4-340b``, and the tiny
-pool); the other published configs are not ported yet and ``get_arch``
-names them as unknown.
+LayerNorm dense ``stablelm-1.6b`` and ``nemotron-4-340b``, the
+vision-language ``qwen2-vl-72b``, the encoder-decoder
+``seamless-m4t-large-v2``, and the tiny pool): every architecture the JAX
+package registers.
 """
 from __future__ import annotations
 
@@ -232,16 +233,18 @@ class ShardingConfig:
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
-# The published configs ported so far; the rest of the JAX package's zoo
-# arrives with the model families that serve it.
+# The published configs, as the JAX package lists them.
 ARCH_IDS = [
     "qwen3-moe-30b-a3b",
     "qwen2-moe-a2.7b",
-    "recurrentgemma-9b",
     "rwkv6-3b",
+    "recurrentgemma-9b",
+    "qwen2-vl-72b",
+    "qwen1.5-4b",
     "qwen1.5-0.5b",
     "stablelm-1.6b",
     "nemotron-4-340b",
+    "seamless-m4t-large-v2",
 ]
 
 _MODULE_FOR_ARCH = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

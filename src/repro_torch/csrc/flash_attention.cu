@@ -1,11 +1,17 @@
 // Causal GQA flash attention for prefill, hand-written for Hopper (sm_90a).
 //
 // Replaces: flash_attention_pallas in src/repro/kernels/flash_attention.py
-// (the Pallas TPU kernel, pallas_call at line 124, body _kernel).  Same
-// function: q (B, S, H, D) against k, v (B, S, Hk, D), query row i attends
-// keys j <= i (causal) and j > i - window (sliding window), scores scaled by
+// (the Pallas TPU kernel, pallas_call at line 124, body _kernel), and
+// beyond it the function the JAX package's ops.flash_attention computes
+// (_flash_jnp, src/repro/kernels/ops.py:57), whose keys may outnumber the
+// queries: q (B, S, H, D) against k, v (B, Skv, Hk, D), the sequence ends
+// aligned, so query row i sits at key position i + (Skv - S) and attends
+// keys j <= i + (Skv - S) (causal; S <= Skv) and j > i + (Skv - S) - window
+// (sliding window); without causal every key j < Skv.  Scores scaled by
 // 1/sqrt(D), fp32 online softmax with the TPU kernel's finite NEG_INF, a
 // fully masked row gives zeros, output (B, S, H, D) in the input dtype.
+// The TPU kernel asserts S == Skv; an encoder (not causal, S == Skv) and a
+// decoder's cross-attention over it (not causal, S != Skv) need the rest.
 //
 // Two designs, one a dtype:
 //
@@ -21,7 +27,7 @@
 //    the block (under MQA at D = 256, 8 positions x 16 heads, so one K/V
 //    tile serves all 16), else GH = 1 (a block of one head).
 //  * TMA copies through 4-d tensor maps over (D, H, S, B) for q and (D, Hk,
-//    S, B) for k/v, built per call with cuTensorMapEncodeTiled (found
+//    Skv, B) for k/v, built per call with cuTensorMapEncodeTiled (found
 //    through cudaGetDriverEntryPointByVersion, so no -lcuda) and passed as
 //    __grid_constant__ parameters.  Boxes are 64 columns (128 bytes) wide
 //    with the 128-byte swizzle; a row of D values is D/64 such atom columns
@@ -36,7 +42,7 @@
 //    standard "empty" mbarrier a stage, on which one consumer thread waits
 //    before the refill, made the D = 256 call markedly slower on the card:
 //    its waiter belongs with a producer warp (see below).  TMA fills what lies
-//    outside the tensor with zeros, so keys and rows past S, and the
+//    outside the tensor with zeros, so keys past Skv, rows past S, and the
 //    columns that pad D = 16, 32 to 64, read as 0.
 //  * S = Q·Kᵀ: wgmma m64n64k16, bf16 in, fp32 out, A (Q) and B (K) both
 //    K-major from shared memory.  O += P·V: wgmma m64nDk16 with A = P in
@@ -52,7 +58,7 @@
 //    cores busy.
 //  * Online softmax in the log2 domain (exp2f, log2(e) folded into the
 //    scale); a row's max and sum reduce over the 4 threads of a quad.  Only
-//    tiles that cross the diagonal, the window's edge or the end of S are
+//    tiles that cross the diagonal, the window's edge or the end of Skv are
 //    masked; tiles no row of the block sees are never loaded (the TPU
 //    kernel's pl.when skip).
 //  * P is rounded to bf16 for the tensor-core product while the row sums
@@ -85,7 +91,7 @@
 //     16-column chunk j of S, packed to bf16 pairs, is exactly the A
 //     fragment of the j-th 16-key step of P·V.  Masks and the (position,
 //     head) of each row derive from it.
-//  5. Partial tiles: TMA zero-fills keys past S (and the mask drops them);
+//  5. Partial tiles: TMA zero-fills keys past Skv (and the mask drops them);
 //     rows past S compute on zero q and are not stored.  A tile range that
 //     is empty leaves l = 0 and stores zeros.
 //  6. G not dividing the block: GH = 1, a block of 64·WGS positions of one
@@ -135,7 +141,8 @@ static_assert(BQ == BK, "each thread stages the same share of every tile row");
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int S, int H, int Hk, int causal, int window, float scale) {
+                 T* __restrict__ o, int S, int Skv, int H, int Hk, int causal, int window,
+                 float scale) {
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -146,6 +153,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int qi = q_start + tid;
   const bool row_ok = qi < S;
+  const int off = Skv - S;          // query row i sits at key position i + off
+  const int qk = qi + off;
 
   float qr[D];
   float acc[D];
@@ -161,12 +170,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float l = 0.f;
 
   // KV tiles some row of this query tile can see.
-  const int q_last = min(q_start + BQ, S) - 1;
-  const int n_tiles = (S + BK - 1) / BK;
+  const int q_last = min(q_start + BQ, S) - 1 + off;   // as a key position
+  const int n_tiles = (Skv + BK - 1) / BK;
   const int hi = causal ? min(n_tiles, q_last / BK + 1) : n_tiles;
   int lo = 0;
   if (window > 0) {
-    const int first = q_start - window + 1;  // earliest key row q_start sees
+    const int first = q_start + off - window + 1;  // earliest key row q_start sees
     lo = first > 0 ? first / BK : 0;
   }
 
@@ -175,8 +184,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   constexpr int GROUP = VPR < 4 ? VPR : 4;       // vectors in flight per thread
   static_assert(VPR % GROUP == 0, "tile rows must split into whole groups");
   const size_t row_stride = (size_t)Hk * D;
-  const T* kb = k + (size_t)b * S * row_stride + (size_t)hk * D;
-  const T* vb = v + (size_t)b * S * row_stride + (size_t)hk * D;
+  const T* kb = k + (size_t)b * Skv * row_stride + (size_t)hk * D;
+  const T* vb = v + (size_t)b * Skv * row_stride + (size_t)hk * D;
 
   for (int j = lo; j < hi; ++j) {
     const int k0 = j * BK;
@@ -193,10 +202,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const int kp = k0 + i / VPR;
         kr[g] = make_uint4(0u, 0u, 0u, 0u);
         vr[g] = kr[g];
-        if (kp < S) {
-          const size_t off = (size_t)kp * row_stride + (i % VPR) * VEC;
-          kr[g] = load_vec(kb + off);
-          vr[g] = load_vec(vb + off);
+        if (kp < Skv) {
+          const size_t at = (size_t)kp * row_stride + (i % VPR) * VEC;
+          kr[g] = load_vec(kb + at);
+          vr[g] = load_vec(vb + at);
         }
       }
 #pragma unroll
@@ -209,7 +218,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();
 
     for (int c = 0; c < BK; c += CH) {
-      if (k0 + c >= S || (causal && k0 + c > q_last)) break;  // no row sees these keys
+      if (k0 + c >= Skv || (causal && k0 + c > q_last)) break;  // no row sees these keys
       float s[CH];
       unsigned visible = 0u;
       float m_chunk = REPRO_NEG_INF;
@@ -222,7 +231,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
           const float4 kk = *reinterpret_cast<const float4*>(&ks[c + t][d]);
           dot += qr[d] * kk.x + qr[d + 1] * kk.y + qr[d + 2] * kk.z + qr[d + 3] * kk.w;
         }
-        const bool ok = kp < S && (!causal || kp <= qi) && (window <= 0 || kp > qi - window);
+        const bool ok = kp < Skv && (!causal || kp <= qk) && (window <= 0 || kp > qk - window);
         s[t] = ok ? dot * scale : REPRO_NEG_INF;
         visible |= ok ? (1u << t) : 0u;
         m_chunk = fmaxf(m_chunk, s[t]);
@@ -286,8 +295,8 @@ constexpr size_t wide_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(WNT, D == 192 ? 1 : 2)
 flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, int S, int H, int Hk, int GH, int causal, int window,
-                  float scale) {
+                  T* __restrict__ o, int S, int Skv, int H, int Hk, int GH, int causal,
+                  int window, float scale) {
   constexpr int VEC = Vec<T>::N;      // elements per 16-byte copy
   constexpr int VPR = D / VEC;        // 16-byte vectors per row
   constexpr int KS = D + VEC;         // padded K/V row stride, elements
@@ -309,6 +318,7 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int b = blockIdx.z;
   const int G = H / Hk;
   const int hk = h0 / G;
+  const int off = Skv - S;                      // query row i sits at key position i + off
 
   // stage the q rows, widened to fp32; row r is (position q0 + r / GH,
   // head h0 + r % GH), so a position's GH heads are adjacent in memory
@@ -333,17 +343,17 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 
   // KV tiles some row of this block can see
-  const int q_last = min(q0 + bqp, S) - 1;
-  const int n_tiles = (S + WBK - 1) / WBK;
+  const int q_last = min(q0 + bqp, S) - 1 + off;   // as a key position
+  const int n_tiles = (Skv + WBK - 1) / WBK;
   const int hi = causal ? min(n_tiles, q_last / WBK + 1) : n_tiles;
   int lo = 0;
   if (window > 0) {
-    const int first = q0 - window + 1;  // earliest key position q0 sees
+    const int first = q0 + off - window + 1;  // earliest key position q0 sees
     lo = first > 0 ? first / WBK : 0;
   }
   const size_t row_stride = (size_t)Hk * D;
-  const T* kb = k + (size_t)b * S * row_stride + (size_t)hk * D;
-  const T* vb = v + (size_t)b * S * row_stride + (size_t)hk * D;
+  const T* kb = k + (size_t)b * Skv * row_stride + (size_t)hk * D;
+  const T* vb = v + (size_t)b * Skv * row_stride + (size_t)hk * D;
 
   for (int j = lo; j < hi; ++j) {
     const int k0 = j * WBK;
@@ -352,10 +362,10 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       const int kr = i / VPR;
       const int c = (i % VPR) * VEC;
       const int kp = k0 + kr;
-      const size_t off = (size_t)(kp < S ? kp : 0) * row_stride + c;
-      const int n = kp < S ? 16 : 0;
-      cp_async16(ks + kr * KS + c, kb + off, n);
-      cp_async16(vs + kr * KS + c, vb + off, n);
+      const size_t at = (size_t)(kp < Skv ? kp : 0) * row_stride + c;
+      const int n = kp < Skv ? 16 : 0;
+      cp_async16(ks + kr * KS + c, kb + at, n);
+      cp_async16(vs + kr * KS + c, vb + at, n);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -389,13 +399,13 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     // online softmax, one row's statistics reduced over its 16 threads
 #pragma unroll
     for (int i = 0; i < WRPT; ++i) {
-      const int pos = pos_r[i];
+      const int pos = pos_r[i] + off;           // the row's key position
       bool ok[WKPT];
       float m_tile = REPRO_NEG_INF;
 #pragma unroll
       for (int jj = 0; jj < WKPT; ++jj) {
         const int kp = k0 + tx + WTX * jj;
-        ok[jj] = kp < S && (!causal || kp <= pos) && (window <= 0 || kp > pos - window);
+        ok[jj] = kp < Skv && (!causal || kp <= pos) && (window <= 0 || kp > pos - window);
         s[i][jj] = ok[jj] ? s[i][jj] * scale : REPRO_NEG_INF;
         m_tile = fmaxf(m_tile, s[i][jj]);
       }
@@ -421,7 +431,7 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
     __syncthreads();  // P of every row is in shared memory
 
-    const int n_keys = min(WBK, S - k0);
+    const int n_keys = min(WBK, Skv - k0);
     for (int kk = 0; kk < n_keys; ++kk) {
       float vf[NCH][VEC];
 #pragma unroll
@@ -455,8 +465,8 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 template <typename T, int D>
-int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int Hk, int causal, int window, cudaStream_t stream) {
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv,
+                int H, int Hk, int causal, int window, cudaStream_t stream) {
   const size_t smem = wide_smem_bytes<T, D>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_wide_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -467,17 +477,17 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int
   const dim3 grid((S + bqp - 1) / bqp, H / GH, B);
   flash_wide_kernel<T, D><<<grid, WNT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hk, GH, causal, window, (float)(1.0 / sqrt((double)D)));
+      static_cast<T*>(o), S, Skv, H, Hk, GH, causal, window, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hk,
-           int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
+           int Hk, int causal, int window, cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, Hk, causal, window, (float)(1.0 / sqrt((double)D)));
+      static_cast<T*>(o), S, Skv, H, Hk, causal, window, (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
@@ -516,7 +526,7 @@ template <int D>
 __global__ void __launch_bounds__(TcTile<D>::THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                int H, int G, int GH, int causal, int window, float scale_log2) {
+                int Skv, int H, int G, int GH, int causal, int window, float scale_log2) {
   using T = TcTile<D>;
   constexpr int DP = T::DP;
   constexpr int KSTEPS = D / 16;   // 16-wide steps of S = Q·Kᵀ (the padding adds 0)
@@ -535,14 +545,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int h0 = blockIdx.y * GH;               // first query head of the group
   const int b = blockIdx.z;
   const int hk = h0 / G;
+  const int off = Skv - S;                      // query row i sits at key position i + off
+  const int q0k = q0 + off;                     // the block's first position, as a key
 
   // KV tiles some row of this block can see
-  const int q_last = min(q0 + bqp, S) - 1;
-  const int n_tiles = (S + TC_BK - 1) / TC_BK;
+  const int q_last = min(q0 + bqp, S) - 1 + off;
+  const int n_tiles = (Skv + TC_BK - 1) / TC_BK;
   const int hi = causal ? min(n_tiles, q_last / TC_BK + 1) : n_tiles;
   int lo = 0;
   if (window > 0) {
-    const int first = q0 - window + 1;          // earliest key position q0 sees
+    const int first = q0k - window + 1;         // earliest key position q0 sees
     lo = first > 0 ? first / TC_BK : 0;
   }
 
@@ -610,7 +622,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   // row R is (position q0 + R / GH, head h0 + R % GH), as the Q box lays
   // them out (heads innermost).
   const int r0 = 64 * wg + 16 * warp + lane / 4;
-  int pos[2], head[2];
+  int pos[2], head[2];          // the row's query position and head
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     pos[h] = q0 + (r0 + 8 * h) / GH;
@@ -641,13 +653,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
                    sw128_desc(vs + st * T::KV_BYTES + kj * 16 * 128, T::KV_ATOM, 1024));
   };
   // Online softmax of S for KV tile j in the log2 domain; only a tile that
-  // crosses the diagonal, the window's edge or the end of S is masked.
+  // crosses the diagonal, the window's edge or the end of Skv is masked.
   // Leaves P in bf16 pairs (the S accumulator's 16-column chunk i is the A
   // fragment of the i-th 16-key step of P·V) and O rescaled.
   auto softmax = [&](int j) {
     const int k0 = j * TC_BK;
-    const bool edge = k0 + TC_BK > S || (causal && k0 + TC_BK - 1 > q0) ||
-                      (window > 0 && k0 <= q0 + bqp - 1 - window);
+    const bool edge = k0 + TC_BK > Skv || (causal && k0 + TC_BK - 1 > q0k) ||
+                      (window > 0 && k0 <= q0k + bqp - 1 - window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -655,8 +667,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       float x = sc[i] * scale_log2;
       if (edge) {
         const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-        const bool ok = kp < S && (!causal || kp <= pos[h]) &&
-                        (window <= 0 || kp > pos[h] - window);
+        const int pk = pos[h] + off;
+        const bool ok = kp < Skv && (!causal || kp <= pk) && (window <= 0 || kp > pk - window);
         x = ok ? x : REPRO_NEG_INF;
       }
       sc[i] = x;
@@ -705,7 +717,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   // its PV, each refilled with the tile two ahead.  The first and last
   // sections are peeled so every product is issued on a path all threads of
   // the warpgroup take (ptxas serialises wgmma on a divergent one).
-  const int n = hi - lo;    // at least 1: a block's first row sees its own key
+  // at least 1: causal rows see their own key (S <= Skv), the others all
+  // Skv keys, and a window's first tile lies below the last
+  const int n = hi - lo;
   if (T::WGS == 2 && wg == 1) named_bar_arrive(1, 256);   // warpgroup 0 goes first
   mbar_wait(bar_q, 0);
   wait_k(0);
@@ -762,15 +776,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hk,
-              int causal, int window, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv, int H,
+              int Hk, int causal, int window, cudaStream_t stream) {
   const int G = H / Hk;
   const int GH = TcTile<D>::M % G == 0 ? G : 1;   // query heads of one KV head per block
   const int bqp = TcTile<D>::M / GH;
   CUtensorMap tq, tk, tv;
   if (!encode_bf16_4d(&tq, q, D, H, S, B, 64, GH, bqp, 1) ||
-      !encode_bf16_4d(&tk, k, D, Hk, S, B, 64, 1, TC_BK, 1) ||
-      !encode_bf16_4d(&tv, v, D, Hk, S, B, 64, 1, TC_BK, 1))
+      !encode_bf16_4d(&tk, k, D, Hk, Skv, B, 64, 1, TC_BK, 1) ||
+      !encode_bf16_4d(&tv, v, D, Hk, Skv, B, 64, 1, TC_BK, 1))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = TcTile<D>::SMEM;
   static bool smem_set = false;   // once per width and process
@@ -782,50 +796,52 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   }
   const dim3 grid((S + bqp - 1) / bqp, H / GH, B);
   flash_tc_kernel<D><<<grid, TcTile<D>::THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, G, GH, causal, window,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, G, GH, causal, window,
       (float)(1.4426950408889634 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
 // fp32: the CUDA-core kernels
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int Hk, int D, int causal, int window, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv,
+                int H, int Hk, int D, int causal, int window, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<float, 16>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 32: return launch<float, 32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 64: return launch<float, 64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 128: return launch_wide<float, 128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 192: return launch_wide<float, 192>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 256: return launch_wide<float, 256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 16: return launch<float, 16>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 32: return launch<float, 32>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 64: return launch<float, 64>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 128: return launch_wide<float, 128>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 192: return launch_wide<float, 192>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 256: return launch_wide<float, 256>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // bf16: the tensor-core kernel
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int Hk, int D, int causal, int window, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int Skv,
+                int H, int Hk, int D, int causal, int window, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_tc<16>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 32: return launch_tc<32>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 64: return launch_tc<64>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 128: return launch_tc<128>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 192: return launch_tc<192>(q, k, v, o, B, S, H, Hk, causal, window, stream);
-    case 256: return launch_tc<256>(q, k, v, o, B, S, H, Hk, causal, window, stream);
+    case 16: return launch_tc<16>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 32: return launch_tc<32>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 64: return launch_tc<64>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 128: return launch_tc<128>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 192: return launch_tc<192>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
+    case 256: return launch_tc<256>(q, k, v, o, B, S, Skv, H, Hk, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q: (B, S, H, D), k/v: (B, S, Hk, D), o: (B, S, H, D), all contiguous and of
-// one dtype (dtype: 0 float32, 1 bfloat16).  window <= 0 means no window.
+// q: (B, S, H, D), k/v: (B, Skv, Hk, D), o: (B, S, H, D), all contiguous and
+// of one dtype (dtype: 0 float32, 1 bfloat16).  window <= 0 means no window;
+// causal needs S <= Skv (a query past the keys' end would see none).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int B, int S, int H, int Hk, int D, int dtype, int causal,
-                                     int window, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
+                                     int B, int S, int Skv, int H, int Hk, int D, int dtype,
+                                     int causal, int window, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || H <= 0 || Hk <= 0 || H % Hk != 0 || (causal && S > Skv))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch_fp32(q, k, v, o, B, S, H, Hk, D, causal, window, st);
-  if (dtype == kBFloat16) return launch_bf16(q, k, v, o, B, S, H, Hk, D, causal, window, st);
+  if (dtype == kFloat32) return launch_fp32(q, k, v, o, B, S, Skv, H, Hk, D, causal, window, st);
+  if (dtype == kBFloat16) return launch_bf16(q, k, v, o, B, S, Skv, H, Hk, D, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

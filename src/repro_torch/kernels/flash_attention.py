@@ -2,11 +2,14 @@
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the port of
 the JAX package's ``flash_attention_pallas`` (causal GQA with an optional
-sliding window, Sq == Skv).  The dtype picks the kernel: bf16 runs
-``flash_tc_kernel`` on the tensor cores (``wgmma`` over tiles that TMA
-brings into 128-byte-swizzled shared memory; P is rounded to bf16 before
-P·V, one bf16 unit of a row's scale), fp32 the CUDA-core kernels, whose
-full-fp32 products the fp32 parity checks need.  ``flash_attention_plain``
+sliding window, Sq == Skv), widened to the function ``ops.flash_attention``
+computes there (``_flash_jnp``): keys may outnumber the queries, the
+sequence ends aligned, and attention may be non-causal — an encoder's
+self-attention and a decoder's cross-attention over it.  The dtype picks
+the kernel: bf16 runs ``flash_tc_kernel`` on the tensor cores (``wgmma``
+over tiles that TMA brings into 128-byte-swizzled shared memory; P is
+rounded to bf16 before P·V, one bf16 unit of a row's scale), fp32 the
+CUDA-core kernels, whose full-fp32 products the fp32 parity checks need.  ``flash_attention_plain``
 is the same function in plain PyTorch, tiled like the JAX package's
 ``ops._flash_jnp``: the CPU path and the reference both kernels are held
 against on the card.
@@ -114,15 +117,18 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None):
     """Launch the CUDA flash-prefill kernel.  q: (B, S, H, D); k/v:
-    (B, S, Hk, D) -> (B, S, H, D), all contiguous CUDA tensors of one dtype
-    (float32 or bfloat16), D in ``HEAD_DIMS``.  Raises on anything else, and
+    (B, Skv, Hk, D) -> (B, S, H, D), all contiguous CUDA tensors of one dtype
+    (float32 or bfloat16), D in ``HEAD_DIMS``.  Query i sits at key position
+    i + Skv − S (the ends aligned, as :func:`flash_attention_plain`);
+    ``causal`` needs S <= Skv, since a query before the first key would see
+    none (the JAX package's models never ask for it).  Raises on anything else, and
     counts each launch in ``flash_attention_cuda.launches``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -136,10 +142,13 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
             raise ValueError(f"flash_attention_cuda: {name} must be a contiguous 4-d tensor "
                              f"on a 16-byte boundary")
     B, S, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} are not (B, S, H, D), (B, S, Hk, D) x2")
-    Hk = k.shape[2]
+                         f"v {tuple(v.shape)} are not (B, S, H, D), (B, Skv, Hk, D) x2")
+    Skv, Hk = k.shape[1], k.shape[2]
+    if causal and S > Skv:
+        raise ValueError(f"flash_attention_cuda: causal attention of {S} queries over {Skv} "
+                         f"keys: with the ends aligned the first {S - Skv} see no key")
     if H % Hk != 0:
         raise ValueError(f"flash_attention_cuda: {H} query heads over {Hk} KV heads")
     if D not in HEAD_DIMS:
@@ -149,10 +158,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    if k.numel() == 0:
+        raise ValueError("flash_attention_cuda: no keys to attend to")
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.repro_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    B, S, H, Hk, D, _DTYPE_CODE[q.dtype], int(causal),
+                                    B, S, Skv, H, Hk, D, _DTYPE_CODE[q.dtype], int(causal),
                                     int(window or 0), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed with CUDA error {err}")

@@ -23,13 +23,20 @@ __all__ = ["flash_attention", "decode_attention", "paged_attention", "span_atten
 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     q_block: int = 512, kv_block: int = 1024, causal_skip: bool = True):
-    """q: (B, S, H, D); k/v: (B, S, Hk, D) -> (B, S, H, D).
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hk, D) -> (B, Sq, H, D).
+
+    The sequence ends are aligned: query i sits at key position i + Skv − Sq
+    (``causal`` then needs Sq <= Skv on the card).  Without ``causal`` every
+    query sees all Skv keys: an encoder's self-attention (Sq = Skv) and a
+    decoder's cross-attention over the encoder's output (Sq ≠ Skv), both
+    through the flash kernel on the card.
 
     The tile sizes and ``causal_skip`` shape the plain version only; the
     kernel picks its own tiles and always skips hidden KV tiles.  With grad
     enabled and an input that requires it, the call goes through
-    ``FlashAttention`` (forward and backward kernels on the card); otherwise,
-    as on every serving path, no autograd node is built.
+    ``FlashAttention`` (forward and backward kernels on the card; the
+    backward kernel takes Sq = Skv only and raises otherwise); otherwise, as
+    on every serving path, no autograd node is built.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _flash.FlashAttention.apply(q, k, v, causal, window, q_block, kv_block,

@@ -1,11 +1,13 @@
-"""Attention block of the port: GQA with RoPE, optional QKV bias and
-optional QK-norm, the full-sequence (prefill) path with an optional sliding
-window, the single-token decode path over a paged, a contiguous or a ring
-KV cache.
+"""Attention block of the port: GQA with RoPE or M-RoPE, optional QKV bias
+and optional QK-norm, the full-sequence (prefill) path, causal with an
+optional sliding window or not causal (an encoder), cross-attention over an
+encoder's output, the single-token decode path over a paged, a contiguous
+or a ring KV cache, and the cross-attention decode over the stored encoder
+K/V.
 
 Counterpart of the JAX package's ``models/attention.py`` (``attention_full``
-and the paged, contiguous and ring branches of ``attention_decode``; its
-``attention_span`` is S of these decode steps here, through
+and the paged, contiguous, ring and cross branches of ``attention_decode``;
+its ``attention_span`` is S of these decode steps here, through
 ``Model.decode_span``).  Prefill attention goes through
 ``ops.flash_attention``, decode through ``ops.paged_attention`` or
 ``ops.decode_attention``; on the card all of them are the hand-written CUDA
@@ -13,7 +15,11 @@ kernels.  A sliding-window layer keeps a ring
 buffer of its last ``S_buf`` keys: keys are RoPE-rotated at write time, so
 the order of the ring's slots does not matter.  With ``cfg.qk_norm``
 (Qwen3) q and k are RMS-normalised over head_dim before RoPE, in every path
-(JAX's ``_qk_normalize``).
+(JAX's ``_qk_normalize``).  A cross-attention layer (``Attention(cross=
+True)``) has no bias, no QK-norm and no RoPE, as JAX's ``init_attention``
+and ``attention_full`` treat ``cross``.  The RoPE tables carry M-RoPE's
+three position ids where the model gives them (``layers.rope_tables``), so
+the attention code is the same for both.
 """
 from __future__ import annotations
 
@@ -28,19 +34,21 @@ from repro_torch.models.layers import Dense, apply_rope, empty_param
 class Attention(nn.Module):
     """q/k/v/o projections; q, k and v carry a bias when ``cfg.qkv_bias``;
     with ``cfg.qk_norm`` the RMSNorm scales ``q_norm`` and ``k_norm`` of
-    shape (head_dim,), as the JAX tree names them."""
+    shape (head_dim,), as the JAX tree names them.  ``cross``: a decoder's
+    cross-attention over an encoder (no bias, no QK-norm)."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         H, Hk = cfg.n_heads, cfg.n_kv_heads
+        bias, norm = cfg.qkv_bias and not cross, cfg.qk_norm and not cross
         self.eps = cfg.norm_eps
-        self.q = Dense(d, H * hd, bias=cfg.qkv_bias, dtype=dtype, device=device)
-        self.k = Dense(d, Hk * hd, bias=cfg.qkv_bias, dtype=dtype, device=device)
-        self.v = Dense(d, Hk * hd, bias=cfg.qkv_bias, dtype=dtype, device=device)
+        self.q = Dense(d, H * hd, bias=bias, dtype=dtype, device=device)
+        self.k = Dense(d, Hk * hd, bias=bias, dtype=dtype, device=device)
+        self.v = Dense(d, Hk * hd, bias=bias, dtype=dtype, device=device)
         self.o = Dense(H * hd, d, bias=False, dtype=dtype, device=device)
-        self.q_norm = empty_param((hd,), dtype, device) if cfg.qk_norm else None
-        self.k_norm = empty_param((hd,), dtype, device) if cfg.qk_norm else None
+        self.q_norm = empty_param((hd,), dtype, device) if norm else None
+        self.k_norm = empty_param((hd,), dtype, device) if norm else None
 
     def init(self, generator: torch.Generator) -> None:
         for lin in (self.q, self.k, self.v, self.o):
@@ -69,21 +77,41 @@ def _qk_normalize(p: Attention, q, k):
     return _rms(q, p.q_norm, p.eps), _rms(k, p.k_norm, p.eps)
 
 
-def attention_full(p: Attention, cfg: ModelConfig, x, rope, *, window=None,
-                   shard: ShardingConfig = ShardingConfig()):
-    """Causal full-sequence attention.  x: (B, S, d); rope: the RoPE tables
-    of positions (B, S) (``layers.rope_tables``), or None; ``window``: query
-    i sees keys (i − window, i], or all earlier keys when None.  Returns
-    (out, (k, v)) — the rotated K/V so prefill can fill the cache."""
+def attention_full(p: Attention, cfg: ModelConfig, x, rope, *, causal: bool = True,
+                   window=None, kv_source=None, shard: ShardingConfig = ShardingConfig()):
+    """Full-sequence attention.  x: (B, S, d); rope: the RoPE tables of the
+    positions (``layers.rope_tables``), or None; ``causal``: query i sees
+    keys up to i (an encoder passes False: every key); ``window``: query i
+    sees keys (i − window, i], or all earlier keys when None.
+
+    ``kv_source`` (B, S_enc, d): cross-attention, keys and values projected
+    from the encoder's output; not causal, no QK-norm, no RoPE (``rope`` is
+    not read).  Returns (out, (k, v)) — the rotated K/V (the cross K/V) so
+    prefill can fill the cache."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k = _qk_normalize(p, _heads(p.q(x), H, hd), _heads(p.k(x), Hk, hd))
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
-    v = _heads(p.v(x), Hk, hd)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+    cross = kv_source is not None
+    src = kv_source if cross else x
+    q, k = _heads(p.q(x), H, hd), _heads(p.k(src), Hk, hd)
+    v = _heads(p.v(src), Hk, hd)
+    if not cross:
+        q, k = _qk_normalize(p, q, k)
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
+    out = ops.flash_attention(q, k, v, causal=causal and not cross, window=window,
                               q_block=shard.attn_q_block, kv_block=shard.attn_kv_block,
                               causal_skip=shard.causal_skip)
     return p.o(out.reshape(B, S, H * hd)), (k, v)
+
+
+def attention_cross_decode(p: Attention, cfg: ModelConfig, x, k_enc, v_enc, enc_len):
+    """One-token cross-attention over the encoder K/V a prefill stored.
+    x: (B, 1, d); k_enc/v_enc: this layer's (B, S_enc, Hk, hd); enc_len:
+    (B,) int32 valid encoder frames.  Nothing is written (JAX's
+    ``attention_decode`` with ``kv_source_cache``).  Returns (B, 1, d)."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    out = ops.decode_attention(_heads(p.q(x), H, hd), k_enc, v_enc, enc_len)
+    return p.o(out.reshape(B, 1, H * hd))
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x, k_cache, v_cache, pos, table, rope,

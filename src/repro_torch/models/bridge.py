@@ -13,6 +13,10 @@ JAX is needed to read any of them.  The mapping:
   ``tm.u`` its (H, hd)) and RG-LRU blocks' ``rec.*`` alike;
 * ``rem<j>/<leaf>`` leaves are the unrolled tail that the pattern does not
   divide (RecurrentGemma-9B's 38 = 12·3 + 2): layer ``n_groups·P + j``;
+* an encoder-decoder's ``encoder/blocks/b0/<leaf>`` leaves are stacked over
+  its ``n_encoder_layers``: slice g goes to ``encoder.blocks.<g>.<leaf>``,
+  and ``encoder/norm/<leaf>`` to ``encoder.norm.<leaf>``; its decoder
+  blocks' ``nc`` and ``cross`` leaves follow the block rule above;
 * every other leaf keeps its path with ``/`` turned into ``.``;
 * weights keep the ``(d_in, d_out)`` layout of ``apply_dense`` — the port
   applies ``x @ w`` — so no leaf is transposed; ``embed`` and ``lm_head``
@@ -31,6 +35,7 @@ __all__ = ["flatten_tree", "load_npz", "state_from_jax"]
 
 _STACK = re.compile(r"blocks/b(\d+)/(.+)")
 _TAIL = re.compile(r"rem(\d+)/(.+)")
+_ENCODER = re.compile(r"encoder/blocks/b0/(.+)")
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -63,17 +68,27 @@ def _to_tensor(a) -> torch.Tensor:
 def state_from_jax(params, cfg: ModelConfig, device="cpu") -> dict[str, torch.Tensor]:
     """The port's ``Model`` state dict, on ``device``, holding the weights of
     the JAX parameter tree ``params`` (nested or flat).  Raises
-    ``ValueError`` if a stacked leaf does not hold ``n_layers // P`` groups or
-    a pattern slot or tail index names no layer of ``cfg``, and
-    ``NotImplementedError`` on an encoder."""
+    ``ValueError`` if a stacked leaf does not hold ``n_layers // P`` groups
+    (an encoder leaf ``n_encoder_layers``), a pattern slot or tail index
+    names no layer of ``cfg``, or an encoder leaf comes for a config without
+    an encoder."""
     P = len(cfg.block_pattern)
     n_groups = cfg.n_layers // P
     n_tail = cfg.n_layers - n_groups * P
     state: dict[str, torch.Tensor] = {}
     for key, arr in flatten_tree(params).items():
         t = _to_tensor(arr)
-        stack, tail = _STACK.fullmatch(key), _TAIL.fullmatch(key)
-        if stack:
+        stack, tail, enc = _STACK.fullmatch(key), _TAIL.fullmatch(key), _ENCODER.fullmatch(key)
+        if key.startswith("encoder/") and not cfg.enc_dec:
+            raise ValueError(f"{key}: an encoder leaf, but {cfg.name} has no encoder")
+        if enc:
+            leaf = enc[1].replace("/", ".")
+            if t.shape[0] != cfg.n_encoder_layers:
+                raise ValueError(f"{key}: {t.shape[0]} stacked encoder layers, config has "
+                                 f"{cfg.n_encoder_layers}")
+            for g in range(cfg.n_encoder_layers):
+                state[f"encoder.blocks.{g}.{leaf}"] = t[g]
+        elif stack:
             slot, leaf = int(stack[1]), stack[2].replace("/", ".")
             if slot >= P or t.shape[0] != n_groups:
                 raise ValueError(f"{key}: {t.shape[0]} stacked groups at slot {slot}, config "
@@ -85,8 +100,9 @@ def state_from_jax(params, cfg: ModelConfig, device="cpu") -> dict[str, torch.Te
             if j >= n_tail:
                 raise ValueError(f"{key}: tail layer {j}, config has {n_tail} tail layers")
             state[f"blocks.{n_groups * P + j}.{leaf}"] = t
-        elif key.startswith(("blocks/", "encoder")):
-            raise NotImplementedError(f"{key}: encoder stacks are not ported yet")
+        elif key.startswith("blocks/") or (key.startswith("encoder/")
+                                            and not key.startswith("encoder/norm/")):
+            raise ValueError(f"{key}: not a leaf of a block stack")
         else:
             state[key.replace("/", ".")] = t
     return {k: v.to(device) for k, v in state.items()}

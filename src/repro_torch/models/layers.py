@@ -1,4 +1,4 @@
-"""Norms, projections, RoPE and the parameter initializers.
+"""Norms, projections, RoPE (and M-RoPE) and the parameter initializers.
 
 Counterpart of the JAX package's ``models/layers.py``.  Weights keep that
 package's layout: a projection's ``w`` is ``(d_in, d_out)`` and is applied as
@@ -115,11 +115,28 @@ def rope_freqs(head_dim: int, rotary_pct: float, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
 
 
-def rope_tables(positions, inv_freq):
+def rope_tables(positions, inv_freq, sections=None):
     """The (cos, sin) tables of RoPE at ``positions`` (..., S), each of shape
     (..., S, 1, rot/2): angles in fp32, as in the JAX package.  Computed once
-    per forward and shared by every layer."""
-    angles = positions[..., None].float() * inv_freq
+    per forward and shared by every layer.
+
+    M-RoPE (Qwen2-VL, arXiv:2409.12191 §2.1): with ``sections`` (t, h, w),
+    summing to rot/2, ``positions`` is (..., 3, S), the temporal, height and
+    width ids of each token, and frequency band f takes the id of the
+    section it falls in (the first t bands the temporal id, and so on), as
+    JAX's ``apply_rope`` repeats them.  Each angle is the same fp32 product,
+    so a text token (the same id three times) gets plain RoPE's table bit
+    for bit."""
+    if sections is not None:
+        if sum(sections) != inv_freq.shape[-1]:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to rot/2 = "
+                             f"{inv_freq.shape[-1]}")
+        which = torch.repeat_interleave(torch.arange(len(sections), device=positions.device),
+                                        torch.tensor(sections, device=positions.device))
+        positions = positions.index_select(-2, which).transpose(-1, -2)   # (..., S, rot/2)
+        angles = positions.float() * inv_freq
+    else:
+        angles = positions[..., None].float() * inv_freq
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 

@@ -1,6 +1,7 @@
-"""Decoder-only model of the port: prefill, and single-token decode over a
-paged or contiguous KV cache, the RWKV6 recurrent state, or the RG-LRU
-hybrid's mixed cache (ring K/V and recurrent state).
+"""Model of the port: prefill, and single-token decode over a paged or
+contiguous KV cache, the RWKV6 recurrent state, or the RG-LRU hybrid's mixed
+cache (ring K/V and recurrent state); and the encoder-decoder, whose decoder
+cross-attends to an encoder's output.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the families
 ported so far (``Model.init``, ``forward``, ``loss``, ``prefill``,
@@ -17,8 +18,16 @@ and optional QKV bias and QK-norm; the same stacks with mixture-of-experts
 MLPs (family ``moe``: Qwen1.5-MoE, Qwen3-MoE; ``models/moe.py``); RWKV6 stacks
 (family ``ssm``) with LayerNorm; and the RG-LRU hybrid (family ``hybrid``,
 RecurrentGemma): RG-LRU blocks mixed with sliding-window (or global)
-attention blocks, RMSNorm, GeGLU and RoPE.  Other families raise
-``NotImplementedError`` at construction.
+attention blocks, RMSNorm, GeGLU and RoPE; the vision-language trunk
+(family ``vlm``, Qwen2-VL): a dense stack with M-RoPE that takes token ids
+or precomputed patch-and-text embeddings, its three position ids a token
+given to ``forward``; and the encoder-decoder (family ``audio``,
+SeamlessM4T): ``n_encoder_layers`` non-causal attention blocks with RoPE
+and their own final norm over precomputed frame embeddings, and a decoder
+whose blocks add a cross-attention (norm ``nc``, attention ``cross``)
+between self-attention and the MLP.  The frontends are stubs in the JAX
+package too: ``repro_torch.launch.specs`` makes their embeddings from a
+seed.  Other families raise ``NotImplementedError`` at construction.
 
 A mixture-of-experts stack dispatches its tokens with capacity in
 ``forward`` and ``prefill`` (JAX's ``apply_moe``) and with ``exact=True``
@@ -36,7 +45,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ShardingConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention, attention_decode, attention_full
+from repro_torch.models.attention import (
+    Attention,
+    attention_cross_decode,
+    attention_decode,
+    attention_full,
+)
 from repro_torch.models.layers import (
     empty_param,
     init_normal_,
@@ -49,23 +63,37 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.rwkv6 import ChannelMix, TimeMix
 
-__all__ = ["Model", "Block", "RWKVBlock", "RGLRUBlock"]
+__all__ = ["Model", "Block", "Encoder", "RWKVBlock", "RGLRUBlock"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+_FRONTEND = {"dense": None, "moe": None, "vlm": "vision", "audio": "audio"}
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
     kinds = set(cfg.layer_kinds())
-    if (cfg.family == "dense" and cfg.moe is None) or (cfg.family == "moe" and cfg.moe):
+    if (cfg.family in ("dense", "vlm", "audio") and cfg.moe is None) or (
+            cfg.family == "moe" and cfg.moe):
         if kinds != {"attn"}:
             unsupported.append(f"blocks {sorted(kinds)}")
         if cfg.norm not in ("rmsnorm", "layernorm"):
             unsupported.append(f"norm {cfg.norm!r}")
-        if cfg.rope_type not in ("rope", "none"):
+        if cfg.rope_type not in ("rope", "mrope", "none"):
             unsupported.append(f"rope_type {cfg.rope_type!r}")
+        if cfg.rope_type == "mrope" and (
+                len(cfg.mrope_sections or ()) != 3
+                or sum(cfg.mrope_sections) != int(cfg.head_dim * cfg.rotary_pct) // 2):
+            unsupported.append(f"mrope_sections {cfg.mrope_sections} not three summing to "
+                               f"rot/2 = {int(cfg.head_dim * cfg.rotary_pct) // 2}")
         if cfg.activation not in ("swiglu", "geglu", "gelu", "relu2"):
             unsupported.append(f"activation {cfg.activation!r}")
+        if cfg.frontend not in (None, _FRONTEND[cfg.family]):
+            unsupported.append(f"frontend {cfg.frontend!r} in family {cfg.family!r}")
+        if cfg.enc_dec != (cfg.family == "audio") or (cfg.enc_dec and cfg.n_encoder_layers < 1):
+            unsupported.append(f"enc_dec={cfg.enc_dec} with {cfg.n_encoder_layers} encoder "
+                               f"layers in family {cfg.family!r}")
     elif cfg.family == "ssm":
         if kinds != {"rwkv"}:
             unsupported.append(f"blocks {sorted(kinds)}")
@@ -89,8 +117,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             unsupported.append(f"rope_type {cfg.rope_type!r}")
     else:
         unsupported.append(f"family {cfg.family!r}")
-    if cfg.enc_dec or cfg.frontend:
-        unsupported.append("encoder-decoder / modality frontend")
+    if cfg.family in ("ssm", "hybrid") and (cfg.enc_dec or cfg.frontend):
+        unsupported.append("encoder-decoder / modality frontend on a recurrent stack")
     if cfg.tie_embeddings:
         unsupported.append("tied embeddings")
     if cfg.dtype not in _DTYPES:
@@ -100,17 +128,23 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """Pre-norm decoder block: ``x + attn(n1(x))``, then ``x + mlp(n2(x))``.
-    ``window`` is the sliding window of a ``local`` block, None for global
-    attention.  ``mlp`` is an :class:`MoE` when ``cfg.moe`` is set, using
-    the ``moe_dispatch`` of ``shard``."""
+    """Pre-norm decoder block: ``x + attn(n1(x))``, then (``cross``, an
+    encoder-decoder's decoder block) ``x + cross(nc(x), encoder output)``,
+    then ``x + mlp(n2(x))``.  ``window`` is the sliding window of a
+    ``local`` block, None for global attention.  ``mlp`` is an :class:`MoE`
+    when ``cfg.moe`` is set, using the ``moe_dispatch`` of ``shard``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device, window=None,
-                 shard: Optional[ShardingConfig] = None):
+                 shard: Optional[ShardingConfig] = None, cross: bool = False):
         super().__init__()
         self.window = window
         self.n1 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
+        self.nc = self.cross = None
+        if cross:
+            self.nc = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype,
+                                device=device)
+            self.cross = Attention(cfg, dtype=dtype, device=device, cross=True)
         self.n2 = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
         if cfg.moe:
             self.mlp = MoE(cfg, dtype=dtype, device=device,
@@ -119,8 +153,9 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, dtype=dtype, device=device)
 
     def init(self, generator: torch.Generator) -> None:
-        for m in (self.n1, self.attn, self.n2, self.mlp):
-            m.init(generator)
+        for m in (self.n1, self.attn, self.nc, self.cross, self.n2, self.mlp):
+            if m is not None:
+                m.init(generator)
 
     def ffn(self, x, exact: bool = False):
         """``mlp(n2(x))`` and its auxiliary loss (None for a dense MLP);
@@ -184,15 +219,35 @@ def _make_block(cfg: ModelConfig, kind: str, *, dtype, device, shard) -> nn.Modu
     if kind == "rglru":
         return RGLRUBlock(cfg, dtype=dtype, device=device)
     return Block(cfg, dtype=dtype, device=device,
-                 window=cfg.window if kind == "local" else None, shard=shard)
+                 window=cfg.window if kind == "local" else None, shard=shard,
+                 cross=cfg.enc_dec)
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder (JAX's ``params["encoder"]``):
+    ``n_encoder_layers`` attention blocks, run without a causal mask, and
+    their final ``norm``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device, shard):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(cfg, dtype=dtype, device=device, shard=shard)
+                                    for _ in range(cfg.n_encoder_layers))
+        self.norm = make_norm(cfg.norm, cfg.d_model, cfg.norm_eps, dtype=dtype, device=device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for blk in self.blocks:
+            blk.init(generator)
+        self.norm.init(generator)
 
 
 class Model(nn.Module):
     """The decoder: dense attention blocks, RWKV6 blocks for family ``ssm``
     (``recurrent``), or RG-LRU and attention blocks for family ``hybrid``
-    (``hybrid``).  Parameters are created uninitialized on ``device``
-    (default ``"cuda"``, which raises when no card is present): fill them
-    with :meth:`init` or from the JAX package through the weight bridge.
+    (``hybrid``); with ``cfg.enc_dec`` also an :class:`Encoder`
+    (``encoder``) whose output the decoder blocks cross-attend to.
+    Parameters are created uninitialized on ``device`` (default ``"cuda"``,
+    which raises when no card is present): fill them with :meth:`init` or
+    from the JAX package through the weight bridge.
 
     Parameters are created with ``requires_grad=False``, so a serving model
     builds no autograd graph; the trainer (``training.train_loop``) turns
@@ -224,9 +279,13 @@ class Model(nn.Module):
         self.cache_index = [sum(r == is_rec[i] for r in is_rec[:i]) for i in range(len(kinds))]
         self.final_norm = make_norm(cfg.norm, d, cfg.norm_eps, dtype=self.dtype, device=dev)
         self.lm_head = empty_param((d, self.vocab_padded), self.dtype, dev)
+        self.encoder = (Encoder(cfg, dtype=self.dtype, device=dev, shard=self.shard)
+                        if cfg.enc_dec else None)
+        # M-RoPE's (t, h, w) sections of the frequency bands
+        self.mrope_sections = tuple(cfg.mrope_sections) if cfg.rope_type == "mrope" else None
         # RoPE inverse frequencies, built once on the device (not a weight)
         inv_freq = None
-        if cfg.rope_type == "rope" and int(cfg.head_dim * cfg.rotary_pct) // 2:
+        if cfg.rope_type in ("rope", "mrope") and int(cfg.head_dim * cfg.rotary_pct) // 2:
             inv_freq = torch.as_tensor(rope_freqs(cfg.head_dim, cfg.rotary_pct, cfg.rope_theta),
                                        dtype=torch.float32, device=dev)
         self.register_buffer("rope_inv_freq", inv_freq, persistent=False)
@@ -248,14 +307,21 @@ class Model(nn.Module):
         for blk in self.blocks:
             blk.init(generator)
         init_normal_(self.lm_head, generator)
+        if self.encoder is not None:
+            self.encoder.init(generator)
         return self
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
     # ---------------- helpers ----------------
-    def _embed_in(self, tokens):
-        return self.embed[tokens.long()].to(self.dtype)
+    def _embed_in(self, inputs):
+        """Token ids (B, S) through the embedding, or float embeddings (B, S,
+        d) as they are, cast to the model dtype (JAX's ``_embed_in``: the
+        vision stub's patch-and-text embeddings)."""
+        if inputs.is_floating_point():
+            return inputs.to(device=self.device, dtype=self.dtype)
+        return self.embed[inputs.long()].to(self.dtype)
 
     def _logits(self, x):
         x = self.final_norm(x)
@@ -268,22 +334,54 @@ class Model(nn.Module):
         return torch.arange(S, dtype=torch.int32, device=self.device)[None, :].expand(B, S)
 
     def _rope(self, positions):
+        """RoPE tables of positions (B, S), or with M-RoPE of (B, 3, S)
+        (temporal, height and width ids); M-RoPE's text positions (B, S)
+        take plain RoPE's tables, which equal the three-id ones bit for bit."""
         if self.rope_inv_freq is None:
             return None
+        if positions.dim() == 3:
+            if self.mrope_sections is None:
+                raise ValueError(f"{self.cfg.name}: positions {tuple(positions.shape)} of three "
+                                 f"ids a token need rope_type 'mrope'")
+            return rope_tables(positions, self.rope_inv_freq, self.mrope_sections)
         return rope_tables(positions, self.rope_inv_freq)
 
+    def _run_encoder(self, enc_inputs):
+        """The encoder over frame embeddings (B, S_enc, d): non-causal
+        attention blocks with RoPE at positions 0 .. S_enc − 1, then its
+        norm (JAX's ``_run_encoder``)."""
+        if enc_inputs is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder needs enc_inputs, the "
+                             f"encoder's frame embeddings (B, S_enc, d)")
+        x = enc_inputs.to(device=self.device, dtype=self.dtype)
+        rope = self._rope(self._positions(*x.shape[:2]))
+        for blk in self.encoder.blocks:
+            a, _ = attention_full(blk.attn, self.cfg, blk.n1(x), rope, causal=False,
+                                  shard=self.shard)
+            x = x + a
+            x = x + blk.ffn(x)[0]
+        return self.encoder.norm(x)
+
     # ---------------- full-sequence forward (training) ----------------
-    def _dense_block(self, blk, x, rope):
+    def _dense_block(self, blk, x, rope, enc_out=None):
         """One attention block over the full sequence: (x, aux), aux the
-        MoE's load-balance loss or None."""
+        MoE's load-balance loss or None; a decoder block of an
+        encoder-decoder cross-attends to ``enc_out`` between the two."""
         a, _ = attention_full(blk.attn, self.cfg, blk.n1(x), rope, window=blk.window,
                               shard=self.shard)
         x = x + a
+        if blk.cross is not None:
+            c, _ = attention_full(blk.cross, self.cfg, blk.nc(x), None, kv_source=enc_out,
+                                  shard=self.shard)
+            x = x + c
         h, aux = blk.ffn(x)
         return x + h, aux
 
-    def forward(self, tokens, positions=None):
-        """tokens: (B, S) int; positions: (B, S) int or None (0 .. S−1).
+    def forward(self, inputs, enc_inputs=None, positions=None):
+        """inputs: token ids (B, S) or float embeddings (B, S, d) (the vision
+        stub's); enc_inputs: an encoder-decoder's frame embeddings (B, S_enc,
+        d); positions: (B, S) int, with M-RoPE (B, 3, S) (temporal, height
+        and width ids), or None (0 .. S−1, the same id three times).
         Returns ``(logits (B, S, V) float32, aux)``, aux the auxiliary loss
         summed over the layers (the MoE's load-balance loss, with capacity
         dispatch; 0 for the other families), as JAX's ``Model.forward``.
@@ -297,27 +395,31 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{self.cfg.name}: training a {self.cfg.family} stack needs backward kernels "
                 f"for its recurrence (WKV6 / RG-LRU), which are not written yet")
-        x = self._embed_in(tokens)
+        x = self._embed_in(inputs)
         B, S = x.shape[:2]
         pos = positions if positions is not None else self._positions(B, S)
         rope = self._rope(pos.to(self.device))
+        enc_out = self._run_encoder(enc_inputs) if self.encoder is not None else None
         remat = self.shard.remat == "block" and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
             if remat:
-                x, aux = checkpoint(self._dense_block, blk, x, rope, use_reentrant=False)
+                x, aux = checkpoint(self._dense_block, blk, x, rope, enc_out,
+                                    use_reentrant=False)
             else:
-                x, aux = self._dense_block(blk, x, rope)
+                x, aux = self._dense_block(blk, x, rope, enc_out)
             if aux is not None:
                 aux_total = aux_total + aux
         return self._logits(x), aux_total
 
     def loss(self, batch: dict):
-        """batch: {"tokens" (B, S), "labels" (B, S), optional "positions"}.
-        Next-token cross-entropy (labels already shifted), mean over the
-        labels that are not −100, plus ``aux``; float32, as JAX's
-        ``Model.loss``."""
-        logits, aux = self.forward(batch["tokens"], positions=batch.get("positions"))
+        """batch: {"tokens" (B, S) or "embeds" (B, S, d), "labels" (B, S),
+        optional "enc_embeds" and "positions"}.  Next-token cross-entropy
+        (labels already shifted), mean over the labels that are not −100,
+        plus ``aux``; float32, as JAX's ``Model.loss``."""
+        logits, aux = self.forward(batch.get("tokens", batch.get("embeds")),
+                                   enc_inputs=batch.get("enc_embeds"),
+                                   positions=batch.get("positions"))
         labels = batch["labels"].to(device=logits.device, dtype=torch.long)
         mask = (labels >= 0).float()
         safe = labels.clamp_min(0)
@@ -327,7 +429,7 @@ class Model(nn.Module):
         return ce.sum() / mask.sum().clamp_min(1.0) + aux
 
     # ---------------- caches ----------------
-    def init_cache(self, batch: int, max_len: int) -> dict:
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> dict:
         """The contiguous serving cache, zeroed, layers stacked on axis 0.
 
         Attention stacks: ``{"k", "v"}`` of shape (n_layers, batch, max_len,
@@ -347,6 +449,13 @@ class Model(nn.Module):
         keeps layer ``i = g·P + s`` (P = len(block_pattern), g < n_groups =
         n_layers // P) at ``cache["blocks"][f"b{s}"][leaf][g]`` and layer
         ``i = n_groups·P + j`` at ``cache[f"rem{j}"][leaf]``.
+
+        An encoder-decoder adds its decoder's cross K/V, ``{"cross_k",
+        "cross_v"}`` of shape (n_layers, batch, enc_len, Hk, hd), and their
+        valid lengths ``cross_len`` (batch,) int32, ``enc_len`` (every frame
+        valid).  JAX keeps them at ``cache[...]["cross"]``, with a ``len``
+        of zeros in ``init_cache``; over zero K/V either length gives the
+        same zero output.
         """
         cfg, dev = self.cfg, self.device
         if self.recurrent:
@@ -362,6 +471,11 @@ class Model(nn.Module):
         k = torch.zeros(shape, dtype=self.dtype, device=dev)
         cache = {"k": k, "v": torch.zeros_like(k),
                  "len": torch.zeros(batch, dtype=torch.int32, device=dev)}
+        if self.encoder is not None:
+            ck = torch.zeros((cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim),
+                             dtype=self.dtype, device=dev)
+            cache.update(cross_k=ck, cross_v=torch.zeros_like(ck),
+                         cross_len=torch.full((batch,), enc_len, dtype=torch.int32, device=dev))
         if self.hybrid:
             W = cfg.lru_width or cfg.d_model
             cache["conv"] = torch.zeros((n_rec, batch, cfg.conv_width - 1, W),
@@ -374,8 +488,8 @@ class Model(nn.Module):
         ``(n_layers, n_pages + 1, page_size, Hk, hd)`` and the per-slot
         lengths ``len`` (batch,) int32.  Page ``n_pages`` is the drop page:
         the target of writes to unmapped positions, never mapped by a table
-        and never read.  Attention stacks only, as in JAX."""
-        if self.recurrent or self.hybrid:
+        and never read.  Decoder-only attention stacks only, as in JAX."""
+        if self.recurrent or self.hybrid or self.encoder is not None:
             raise ValueError("paged KV cache requires a decoder-only global-attention stack")
         cfg = self.cfg
         shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
@@ -385,8 +499,10 @@ class Model(nn.Module):
 
     # ---------------- prefill ----------------
     @torch.no_grad()
-    def prefill(self, tokens, lengths=None, max_len: Optional[int] = None):
-        """Run the full prompt.  tokens: (B, S) int.  Returns ``(logits,
+    def prefill(self, inputs, lengths=None, max_len: Optional[int] = None, enc_inputs=None):
+        """Run the full prompt.  inputs: token ids (B, S), or float
+        embeddings (B, S, d) (the vision stub's; M-RoPE then takes the text
+        positions 0 .. S − 1, as JAX's ``prefill`` does).  Returns ``(logits,
         cache)`` with logits (B, 1, V) float32 at each row's last valid token.
 
         Attention stacks: the cache holds the rotated K and the V of every
@@ -410,8 +526,17 @@ class Model(nn.Module):
         ``lengths`` raises ``ValueError`` on RWKV6 and hybrid stacks, as
         JAX's assertion does: a recurrent state would advance through the
         padding.
+
+        Encoder-decoders: ``enc_inputs`` (B, S_enc, d) runs the encoder
+        first; each decoder layer's cross K/V join the cache as
+        ``cross_k``/``cross_v`` (n_layers, B, S_enc, Hk, hd) with
+        ``cross_len`` = S_enc for every row.  (JAX's ``prefill`` sets every
+        int32 leaf of its cache to ``lengths`` when they are given, the
+        cross ``len`` among them, so its later decode steps read only the
+        first ``lengths[b]`` encoder frames; the port keeps all of them,
+        as JAX's own cache without ``lengths`` does.)
         """
-        x = self._embed_in(tokens)
+        x = self._embed_in(inputs)
         B, S = x.shape[:2]
         if (self.recurrent or self.hybrid) and lengths is not None:
             raise ValueError("variable-length prefill requires attention-only models")
@@ -424,7 +549,8 @@ class Model(nn.Module):
             return self._logits(x[:, -1:]), {"shift_tm": shift_tm, "shift_cm": shift_cm,
                                              "wkv": wkv}
         rope = self._rope(self._positions(B, S))
-        ks, vs, convs, hs = [], [], [], []
+        enc_out = self._run_encoder(enc_inputs) if self.encoder is not None else None
+        ks, vs, convs, hs, cks, cvs = [], [], [], [], [], []
         for blk in self.blocks:
             if isinstance(blk, RGLRUBlock):
                 x, (conv, h) = blk(x)
@@ -434,11 +560,18 @@ class Model(nn.Module):
             a, (k, v) = attention_full(blk.attn, self.cfg, blk.n1(x), rope, window=blk.window,
                                        shard=self.shard)
             x = x + a
+            if blk.cross is not None:
+                c, (ck, cv) = attention_full(blk.cross, self.cfg, blk.nc(x), None,
+                                             kv_source=enc_out, shard=self.shard)
+                x = x + c
+                cks.append(ck)
+                cvs.append(cv)
             x = x + blk.ffn(x)[0]
             ks.append(k)
             vs.append(v)
         if lengths is not None:
-            lengths = lengths.to(device=self.device, dtype=torch.int32)
+            # the cache's own copy: decode steps advance it in place
+            lengths = lengths.to(device=self.device, dtype=torch.int32, copy=True)
             last = x[torch.arange(B, device=self.device), lengths.long() - 1][:, None]
         else:
             lengths = torch.full((B,), S, dtype=torch.int32, device=self.device)
@@ -462,12 +595,19 @@ class Model(nn.Module):
             buf_k[:, :, :take] = k[:, :, :take]
             buf_v[:, :, :take] = v[:, :, :take]
             k, v = buf_k, buf_v
-        return self._logits(last), {"k": k, "v": v, "len": lengths}
+        cache = {"k": k, "v": v, "len": lengths}
+        if enc_out is not None:
+            cache.update(cross_k=torch.stack(cks), cross_v=torch.stack(cvs),
+                         cross_len=torch.full((B,), enc_out.shape[1], dtype=torch.int32,
+                                              device=self.device))
+        return self._logits(last), cache
 
     # ---------------- decode ----------------
     @torch.no_grad()
     def decode_step(self, tokens, cache: dict, table=None):
-        """tokens: (B, 1) int.  Returns logits (B, 1, V) float32 and
+        """tokens: (B, 1) int, or float embeddings (B, 1, d) (the vision
+        stub's; M-RoPE takes the text position ``len``, the same id three
+        times, as JAX's decode does).  Returns logits (B, 1, V) float32 and
         advances ``cache`` by one token, in place.
 
         Attention stacks: ``table`` (B, n_cols) int32 switches the layers onto
@@ -485,12 +625,17 @@ class Model(nn.Module):
         ``table`` raises ``ValueError`` on both: recurrent state and ring
         buffers have no paged form.
 
+        Encoder-decoders: after its self-attention each decoder layer
+        attends to its ``cross_k``/``cross_v`` over ``cross_len`` frames
+        (the encoder ran at prefill; nothing of it is written).  A
+        ``table`` raises ``ValueError``: JAX pages decoder-only stacks only.
+
         Every new state is copied into the cache's own tensors, which are
         never replaced and never read on the host, so a CUDA graph captured
         over steps on one cache replays them on the same memory.
         """
         x = self._embed_in(tokens)
-        if (self.recurrent or self.hybrid) and table is not None:
+        if (self.recurrent or self.hybrid or self.encoder is not None) and table is not None:
             raise ValueError("paged KV cache requires a decoder-only global-attention stack")
         if self.recurrent:
             for i, blk in enumerate(self.blocks):
@@ -510,6 +655,10 @@ class Model(nn.Module):
                 continue
             x = x + attention_decode(blk.attn, self.cfg, blk.n1(x), cache["k"][j],
                                      cache["v"][j], pos, table, rope, window=blk.window)
+            if blk.cross is not None:
+                x = x + attention_cross_decode(blk.cross, self.cfg, blk.nc(x),
+                                               cache["cross_k"][j], cache["cross_v"][j],
+                                               cache["cross_len"])
             x = x + blk.ffn(x, exact=True)[0]
         cache["len"] += 1
         return self._logits(x)
@@ -521,9 +670,10 @@ class Model(nn.Module):
         position i's those of the token after ``tokens[:, i]``, and advances
         ``cache`` by S tokens, in place.  ``table`` as in :meth:`decode_step`.
 
-        Global-attention stacks only, as in the JAX package (``_block_span``):
-        a recurrent or hybrid model (the only stacks with a sliding-window
-        layer) raises ``ValueError``.  The span is S :meth:`decode_step`
+        Decoder-only global-attention stacks, as in the JAX package
+        (``_block_span``): a recurrent or hybrid model (the only stacks with
+        a sliding-window layer) or an encoder-decoder (cross-attention)
+        raises ``ValueError``.  The span is S :meth:`decode_step`
         calls, so its logits and cache are theirs bit for bit: the JAX
         package's contract, which makes the speculative stream the target's
         own.  One product over the B·S rows would round a row otherwise on
@@ -532,5 +682,7 @@ class Model(nn.Module):
         """
         if self.recurrent or self.hybrid:
             raise ValueError("decode_span supports global-attention blocks only")
+        if self.encoder is not None:
+            raise ValueError("decode_span does not support cross-attention")
         return torch.cat([self.decode_step(tokens[:, i:i + 1], cache, table)
                           for i in range(tokens.shape[1])], dim=1)

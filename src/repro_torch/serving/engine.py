@@ -143,6 +143,10 @@ class ServingEngine:
         if model.recurrent or model.hybrid:
             raise ValueError(f"{model.cfg.name}: the engine prefills right-padded batches, and "
                              f"variable-length prefill requires attention-only models")
+        if model.encoder is not None:
+            raise ValueError(f"{model.cfg.name}: the engine serves decoder-only stacks; an "
+                             f"encoder-decoder's prefill needs the encoder's inputs "
+                             f"(Model.prefill(enc_inputs=), then RecurrentDecoder)")
         self.model = model
         self.max_slots = max_slots
         self.max_len = max_len

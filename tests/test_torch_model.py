@@ -306,12 +306,29 @@ def test_rwkv_cache_layout_and_paged_refusal():
 
 
 def test_unported_families_raise():
-    """M-RoPE (the VLM's rotary) and encoder-decoder stacks are not ported
-    yet.  (Local-attention and RG-LRU blocks are: the hybrid family; so are
-    QK-norm and mixture-of-experts MLPs, ``tests/test_torch_moe.py``, and
-    LayerNorm dense stacks with squared-ReLU or GELU MLPs,
-    ``tests/test_torch_dense_layernorm.py``.)"""
-    for change in (dict(rope_type="mrope", mrope_sections=(4, 2, 2)),
-                   dict(enc_dec=True, n_encoder_layers=2, family="audio")):
+    """The vision-language trunk (M-RoPE, the vision stub) and the
+    encoder-decoder (the audio stub) build since they were ported
+    (``tests/test_torch_encdec_vlm.py``), as do local-attention and RG-LRU
+    blocks (the hybrid family), QK-norm and mixture-of-experts MLPs
+    (``tests/test_torch_moe.py``) and LayerNorm dense stacks with
+    squared-ReLU or GELU MLPs (``tests/test_torch_dense_layernorm.py``).
+    What is not ported still raises: tied embeddings, an unknown family, a
+    frontend on a recurrent stack, M-RoPE sections that do not cover the
+    rotary half."""
+    base = get_arch("tiny-s")
+    half = base.head_dim // 2
+    sections = (half // 4, half // 4 + half % 4, half // 2)
+    for change in (dict(family="vlm", rope_type="mrope", mrope_sections=sections,
+                        frontend="vision"),
+                   dict(enc_dec=True, n_encoder_layers=2, family="audio", frontend="audio")):
+        model = Model(dataclasses.replace(base, **change), device="cpu")
+        assert (model.encoder is not None) == (change["family"] == "audio")
+    for change in (dict(tie_embeddings=True), dict(family="diffusion"),
+                   dict(family="vlm", rope_type="mrope", mrope_sections=(1, 1, 1),
+                        frontend="vision"),
+                   dict(family="dense", frontend="vision", enc_dec=True, n_encoder_layers=2)):
         with pytest.raises(NotImplementedError):
-            Model(dataclasses.replace(get_arch("tiny-s"), **change), device="cpu")
+            Model(dataclasses.replace(base, **change), device="cpu")
+    with pytest.raises(NotImplementedError, match="recurrent"):
+        Model(dataclasses.replace(get_arch("rwkv6-3b").reduced(), frontend="audio"),
+              device="cpu")

@@ -291,7 +291,7 @@ def test_bridge_refuses_wrong_stacks():
         state_from_jax({"blocks/b3/n1/scale": flat["blocks/b0/n1/scale"]}, cfg)
     with pytest.raises(ValueError, match="tail"):            # a tail the config lacks
         state_from_jax({"rem2/n1/scale": flat["rem0/n1/scale"]}, cfg)
-    with pytest.raises(NotImplementedError, match="encoder"):
+    with pytest.raises(ValueError, match="no encoder"):     # an encoder leaf, no encoder
         state_from_jax({"encoder/norm/scale": flat["final_norm/scale"]}, cfg)
 
 
