@@ -6,18 +6,20 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit, as nvidia-smi reports them.
-2. Build: the six CUDA kernel sources compiled by nvcc from
+2. Build: the eight CUDA kernel sources compiled by nvcc from
    ``src/repro_torch/csrc``, one nvcc per source, all started together;
    ptxas's report per kernel (the paged kernel's D=128 instantiations,
    bf16 and fp32, must be among them, and every D=192 one: flash_tc,
    flash_wide, paged and decode_wide in their dtypes), and no spill in the
-   WKV6 kernels, the RG-LRU kernel, the wide-head decode kernel, the paged
-   kernel at D=128, any D=192 instantiation or the flash backward's kernels;
-   ``cuobjdump -sass`` of the flash library must show HGMMA (Hopper's
-   tensor-core product) in the bf16 kernel at every head width, that of
-   the flash backward in both bf16 kernels at every width it is built
-   for, and the RG-LRU kernel's fp64 instructions (its exp(2a) near 0)
-   are counted.
+   WKV6 kernels (forward and backward), the RG-LRU kernels (forward and
+   backward), the wide-head decode kernel, the paged kernel at D=128, any
+   D=192 instantiation or the flash backward's kernels (the D=256 wide
+   kernels' four instantiations must be reported); ``cuobjdump -sass`` of
+   the flash library must show HGMMA (Hopper's tensor-core product) in the
+   bf16 kernel at every head width, that of the flash backward in both
+   bf16 tensor-core kernels at every width of ``HEAD_DIMS_BWD_TC`` (16,
+   32, 64: D=256 runs the CUDA-core wide kernels in both dtypes), and the
+   RG-LRU kernel's fp64 instructions (its exp(2a) near 0) are counted.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
    at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32), at ragged
    GQA/window shapes (D=32 and 64 with windows, D=16 under MQA), at S=1,
@@ -69,18 +71,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    {1, 37, 64} against Skv in {37, 1,536}, causal (the ends aligned) and
    not (a cross-attention), at D in {64, 128} and G in {1, 8}, bf16 and
    fp32, each launched twice for identical bits; decode over a cross
-   cache of 1,536 frames at lengths 1, 1,535 and 1,536, launched twice.
-4. Fourteen main paths, each driven with every launch count set to 0 just
+   cache of 1,536 frames at lengths 1, 1,535 and 1,536, launched twice;
+   the flash backward at D=256 with G in {1, 16}, S in {1, 37, 256} and S
+   = 300 past a window of 64; the WKV6 backward at D in {16, 32, 64}, T in
+   {1, 31, 32, 33} and at RWKV6-3B's (4, 512, 40, 64), decays from 1e-12
+   to 1 in one chunk and RWKV6's own, with and without a state and the
+   final state's gradient; the RG-LRU backward at T in {1, 15, 16, 17}
+   (W=200) and at RecurrentGemma-9B's (2, 3072, 4096), gates mild, strong
+   and within 1e-6 of 0; each backward case in bf16 and fp32, launched
+   twice for identical bits, every gradient held row by row (fp32 1e-4,
+   bf16 2e-2).
+4. Sixteen main paths, each driven with every launch count set to 0 just
    before it and read just after; on each, every kernel it runs must have
-   launched, no plain version may see a CUDA tensor, and flash attention
-   builds autograd nodes (``FlashAttention``) on the training paths only.  Each path runs as
+   launched, no plain version may see a CUDA tensor, and the kernels'
+   autograd nodes (``FlashAttention``, ``WKV6``, ``RGLRU``) are built on
+   the training paths only.  Each path runs as
    the port runs it, every fused decode dispatch one CUDA-graph replay
    (``serving/graphs.py``: a key's first dispatch eager, the next captured),
    and then again on the same inputs through the eager body (the graphs'
    ``run`` set to call the body), where the kernels' inputs are recorded:
-   a. paged serving: full-width Qwen1.5-0.5B in bf16, random weights from
-      the port's seeded ``Model.init``, 16 batch-prompted requests through
-      ``ServingEngine(paged=True)`` (flash prefill, paged decode);
+   a. paged serving: Qwen1.5-0.5B at full width in bf16, cut to its first
+      12 of 24 layers for the script's time (``PATH_A_LAYERS``), random
+      weights from the port's seeded ``Model.init``, 16 batch-prompted
+      requests through ``ServingEngine(paged=True)`` (flash prefill, paged
+      decode);
    b. contiguous serving: the same model and requests through
       ``ServingEngine(paged=False)`` (flash prefill, contiguous decode);
    c. full-width RWKV6-3B in bf16, random weights: ``Model.prefill`` of 4
@@ -92,12 +106,14 @@ Phases, in order; any failure raises and the script exits non-zero:
       token ids into caches of max_len 4,096 (2,048-slot rings), then 32
       greedy steps the same way, writing into the wrapped rings: exactly
       26 × 33 RG-LRU, 12 flash and 12 × 32 decode-attention launches;
-   e. paged serving of full-width Qwen1.5-4B in bf16 (40 layers, 20 heads
-      of 128, 3.95 B parameters) as path a serves Qwen1.5-0.5B: the paged
-      kernel at D=128;
+   e. paged serving of Qwen1.5-4B at full width in bf16 (20 heads of 128),
+      cut to its first 16 of 40 layers (``PATH_E_LAYERS``; paths g and the
+      fp32 parity take the same cut), as path a serves Qwen1.5-0.5B: the
+      paged kernel at D=128;
    f. speculative decoding (``SpeculativeEngine``, paged, K = 4 drafts a
       round, every draft and verify dispatch one graph replay) of the
-      half-sampled workload in bf16, Qwen1.5-0.5B drafting for itself (the
+      half-sampled workload in bf16, Qwen1.5-0.5B at full width cut to its
+      first 8 of 24 layers (``PATH_F_LAYERS``) drafting for itself (the
       same weights: the accept-all case) and for Qwen1.5-4B at full width
       cut to 10 of its 40 layers (the reject-most case): graphed against
       eager (streams, counters, launches identical), paged launches =
@@ -115,7 +131,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    g. RoBatch's control plane over a live pool: ``Gateway`` over two
       ``ServedPoolMember``s of the paths' engines (paged, page 16, graphed,
       max_len 1024), full-width Qwen1.5-0.5B priced as the tiny pool's
-      ``tiny-s`` ($0.1/$0.4 per 1M tokens in/out) and full-width
+      ``tiny-s`` ($0.1/$0.4 per 1M tokens in/out) and path e's
       Qwen1.5-4B as ``tiny-l`` ($0.8/$3.2), on the tiny pool's addition
       task (32 train, 32 test queries), each model's output head cut to the
       byte tokenizer's ids and each answer judged by ``parity_judge`` (random
@@ -139,7 +155,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    h. training on the card, in four parts, each its own main path:
       h1, full-width Qwen1.5-0.5B in bf16 trained 12 steps of 8 x 512
       tokens (``Trainer``, ``ShardedPipeline`` over ``synthetic_lm_stream``,
-      AdamW with the cosine schedule, a checkpoint every 6 steps): finite
+      AdamW with the cosine schedule, a checkpoint after step 12): finite
       losses and grad norms, the last 3 losses' mean below the first, flash
       forward and backward launched 12 x 24 times each, a fresh ``Trainer``
       restoring step 12 bit for bit; step times in turns against
@@ -213,6 +229,19 @@ Phases, in order; any failure raises and the script exits non-zero:
       steps) and contiguous (16 steps), graphed against eager (tokens,
       launches, caches), and a graphed paged step clocked against its bound
       (every weight but the embedding) with one dispatch traced.
+   n. training full-width RWKV6-3B at full depth (32 layers, 3.09 B
+      parameters) in bf16, 12 steps of 4 x 512 tokens as h1 trains
+      (``remat="none"``, one checkpoint after the last step): WKV6 forward
+      and backward launched exactly 12 x 32 times each, as many ``WKV6``
+      nodes, finite losses whose last 3 average below every loss before
+      them (AdamW's cosine schedule to 3e-4 after 2 steps); a fresh ``Trainer`` restoring the checkpoint
+      into its fresh state, bit for bit against the live one; one step
+      under ``"none"`` and one under ``"block"`` (the forward launched
+      twice a layer), each timed with its peak memory, and one traced step.
+   o. the same for RecurrentGemma-9B's first 3 of 38 layers at full width
+      (one (rglru, rglru, local) group, 2.75 B parameters), 8 steps of 2 x
+      3,072 tokens (past the 2,048 window): RG-LRU forward and backward 2
+      a step, flash forward and its backward at D=256 one a step.
    Graphed against eager, each path a-e, i and j must give identical streams and
    launches (serving: also identical engine counters and
    ``kv_occupancy()``); the final caches are compared bit for bit and any
@@ -262,7 +291,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    streams identical; path l in fp32 at full width and depth (prefill
    logits within 1e-3, identical greedy streams) and path m's forward in
    fp32 on Qwen2-VL-72B's first layer at full width (logits within 1e-3);
-   and the recurrent paths' parity of phase 5.
+   the recurrent paths' parity of phase 5; and paths n and o narrowed in
+   fp32 (RWKV6-3B at d_model 256, 2 layers, 2 x 512 tokens; the hybrid at
+   d_model 512, one group, head width 256, 2 x 2,100 tokens past its
+   window), trained 3 steps through the kernels and again through the
+   plain versions: losses within 1e-5 relative, the first step's
+   gradients within 1e-4 row-relative.
 
 The line before the last is a JSON object with one entry per kernel (time,
 CUPTI time, launches, bound, plain and library times, the library's by
@@ -270,13 +304,16 @@ CUPTI too; the D=192 entries from path k's first eager calls; the
 encoder's and the cross-attention's flash and the cross decode from path
 l's), the flash
 backward's at h1's and h3's first call, beside the
-backward of SDPA on the same tensors; the last line is
+backward of SDPA on the same tensors, and the WKV6 and RG-LRU backwards'
+and the flash backward's at D=256 at paths n's and o's first calls (SDPA's
+masked backward beside the last); the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke_results.json``.  Needs a CUDA device and the
 repository's ``src/`` beside this file.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -315,7 +352,10 @@ D192 = {"flash_tc_kernelILi192E": "flash_tc<192>",
         "decode_wide_kernelI13__nv_bfloat16Li192E": "decode_wide<bf16, 192>"}
 FLUSH_KERNEL = "ReduceOp<unsigned char"   # the reading flush's kernel: max of a uint8 buffer
 SPEC_K = 4                     # the speculative paths' depth
+PATH_A_LAYERS = 12             # path a's Qwen1.5-0.5B: its first 12 of 24 layers
+PATH_E_LAYERS = 16             # path e's Qwen1.5-4B (also path g's member, its fp32 parity)
 SPEC_4B_LAYERS = 10            # path f's Qwen1.5-4B target: its first 10 of 40 layers (bf16)
+PATH_F_LAYERS = 8              # path f's Qwen1.5-0.5B (self-draft pair, and the 4B's draft)
 MOE_FP32_LAYERS = 4            # path i's fp32 parity: Qwen3-30B-A3B's first 4 of 48 layers
 PATH_B_LAYERS = 8              # path b's Qwen1.5-0.5B: its first 8 of 24 layers
 NEMOTRON_LAYERS = 4            # path k's Nemotron-4-340B: its first 4 of 96 layers (bf16)
@@ -526,6 +566,32 @@ def rglru_work(x, state):
     B, T, W = x.shape
     n_state = B * W * (1 if state is None else 2)
     return B * T * W * (2 * x.element_size() + 4) + 4 * n_state, 8 * B * T * W
+
+
+def wkv6_bwd_work(r, state, d_state):
+    """Bytes and FLOPs one WKV6 backward call needs: r, k, v and dO read and
+    dr, dk, dv written in the model dtype, w read and dw written in fp32, u
+    read and du written, the fp32 state and the final state's gradient read
+    where given and the state's gradient written; 12·D² FLOPs per token and
+    head (∂r = S·dO and the state's step in the forward sweep, ∂lw, ∂k and
+    ∂v against G and G's step in the reverse one), done in fp32."""
+    B, T, H, D = r.shape
+    e = r.element_size()
+    n_state = B * H * D * D * (1 + (state is not None) + (d_state is not None))
+    n_bytes = 7 * B * T * H * D * e + 8 * B * T * H * D + 2 * H * D * e + 4 * n_state
+    return n_bytes, 12 * D * D * B * T * H
+
+
+def rglru_bwd_work(x, state, d_state):
+    """Bytes and operations one RG-LRU backward call needs: x and dh read and
+    dx written in the model dtype, a_log read and da_log written in fp32,
+    the state and the final state's gradient read where given and the
+    state's gradient written; 16 operations per token and channel (the
+    forward's 8 to rebuild the state, and δ, ∂x, ∂a_log and the carry),
+    each counted as one fp32 operation."""
+    B, T, W = x.shape
+    n_state = B * W * (1 + (state is not None) + (d_state is not None))
+    return B * T * W * (3 * x.element_size() + 8) + 4 * n_state, 16 * B * T * W
 
 
 def horizon_view(t, max_len):
@@ -2022,7 +2088,8 @@ H_BUDGETS = (1.5, 4.0)                  # h3: submit budgets, times the initial 
 H_HTTP_QUERIES = (0, 5, 11, 23)         # h4: positions in the test set asked over HTTP
 H_WINDOW_S = 0.05                       # h4: the live server's admission window
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # backward kernel vs plain, row-relative
-BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
+BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
+               "bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")
 PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
                          r'(,[a-zA-Z0-9_]+="[^"]*")*\})? (-?[0-9.e+-]+|\+Inf|NaN)$')
 
@@ -2262,6 +2329,252 @@ def train_parity(label, dev, main_path, plain_kernels):
                 grad_row_rel=grad_rel[worst], worst_grad=worst, micro_rel=micro_rel)
 
 
+N_STEPS, N_BATCH, N_SEQ = 12, 4, 512    # path n: full-width RWKV6-3B, steps of B x S tokens
+O_STEPS, O_BATCH, O_SEQ = 8, 2, 3072    # path o: RecurrentGemma-9B's first O_LAYERS layers
+O_LAYERS = 3                            # one (rglru, rglru, local) group of its 38 layers
+R_PARITY_STEPS = 3                      # phase 7: narrow recurrent models, fp32 steps
+R_PEAK_LR, R_WARMUP = 3e-4, 2           # paths n and o: AdamW's cosine schedule
+NODE_OF = {"wkv6": "WKV6", "rglru_scan": "RGLRU", "flash_attention": "FlashAttention"}
+
+
+@contextlib.contextmanager
+def recording_first_backward(cls):
+    """Clone the saved tensors and the incoming gradients of the first
+    backward of the autograd Function ``cls`` into ``calls`` (a list of one
+    ``(saved, grads)``) by wrapping ``cls.backward``; the kernel wrapper it
+    calls, whose launch counter the paths read, is left as it is."""
+    orig = cls.backward
+    calls = []
+
+    def backward(ctx, *grads):
+        if not calls:
+            calls.append(([None if t is None else t.detach().clone() for t in ctx.saved_tensors],
+                          [None if g is None else g.detach().contiguous().clone()
+                           for g in grads]))
+        return orig(ctx, *grads)
+
+    cls.backward = staticmethod(backward)
+    try:
+        yield calls
+    finally:
+        cls.backward = staticmethod(orig)
+
+
+def train_recurrent(label, dev, main_path, cfg, steps, batch, seq, ckpt_dir, per_step):
+    """Paths n and o: ``cfg`` (full width, bf16) trained ``steps`` steps of
+    ``batch`` x ``seq`` tokens from ``synthetic_lm_stream`` through
+    ``ShardedPipeline``, as path h builds its trainer (``remat="none"``,
+    AdamW with the cosine schedule to ``R_PEAK_LR`` after ``R_WARMUP``
+    steps, clip 1.0), one checkpoint after the last step.  ``per_step``
+    gives each kernel's launches a step (the backward kernels' too): every
+    count must be exactly ``steps`` times it, and the autograd nodes of each
+    forward as many as its launches.  The finite losses must fall: the last
+    3's mean below every loss before them (a run that climbs or stalls at
+    the end fails).  A fresh ``Trainer`` then restores the checkpoint bit
+    for bit (into its fresh state in place: two copies of a ~30 GB state fit
+    the card, three would not), and the restored model takes one step under
+    ``remat="none"`` and one under ``"block"`` (forward launches twice a
+    step, backward as many), and one traced step.  Returns
+    what it measured and the first backward call of each kernel, as
+    (args, kwargs) of its ``*_cuda`` wrapper, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ShardingConfig
+    from repro_torch.data.pipeline import ShardedPipeline, synthetic_lm_stream
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import rglru_scan as rglru_mod
+    from repro_torch.kernels import rwkv6_scan as wkv6_mod
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+    from repro_torch.training.train_loop import Trainer, make_train_step, train_state
+
+    gc.collect()                             # engines of earlier paths left in cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()     # what earlier paths still hold
+    opt = adamw(cosine_schedule(R_PEAK_LR, warmup=R_WARMUP, total=steps), grad_clip=1.0)
+    t0 = time.perf_counter()
+    model = Model(cfg, ShardingConfig(remat="none"), device=dev)
+    tr = Trainer(model, opt, ckpt_dir=ckpt_dir, ckpt_every=steps)
+    params, state, start = tr.restore_or_init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(start == 0, f"{label}: a checkpoint was there before training")
+    n_params = model.param_count()
+    pipe = ShardedPipeline(synthetic_lm_stream(cfg.vocab_size, batch, seq, seed=SEED),
+                           device=dev)
+    nodes = {}
+    torch.cuda.reset_peak_memory_stats()
+    with main_path(label, tuple(per_step), autograd=True, nodes=nodes) as counts, \
+            recording_first_backward(wkv6_mod.WKV6) as wkv6_calls, \
+            recording_first_backward(rglru_mod.RGLRU) as rglru_calls, \
+            recording_backward(flash_mod) as flash_calls:
+        t0 = time.perf_counter()
+        params, state, hist = tr.fit(params, state, (b for _, b in zip(range(steps), pipe)),
+                                     log_every=1)
+        fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    step_s = np.diff([0.0] + [h["time"] for h in hist])
+    print(f"[{label}] {cfg.name} ({cfg.n_layers} layers) {n_params / 1e9:.3f} B parameters, "
+          f"bf16, init {init_s:.1f}s; {steps} steps of {batch} x {seq} tokens in {fit_s:.1f}s "
+          f"(the checkpoint after the last step included): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 3) for x in norms]}; "
+          f"host-clock step seconds {[round(float(x), 3) for x in step_s]}; peak memory "
+          f"{peak / 2**30:.2f} GiB (above {held / 2**30:.2f} GiB that earlier paths hold)")
+    check(len(hist) == steps and np.all(np.isfinite(losses)) and np.all(np.isfinite(norms)),
+          f"{label}: a loss or grad norm is not finite")
+    check(np.mean(losses[-3:]) < min(losses[:-3]),
+          f"{label}: the last 3 losses {losses[-3:]} do not average below the lowest before "
+          f"them, {min(losses[:-3])}")
+    want = {k: steps * n for k, n in per_step.items()}
+    check({k: counts[k] for k in want} == want,
+          f"{label}: launches {counts}, expected {want}")
+    want_nodes = {NODE_OF[k]: n for k, n in want.items() if k in NODE_OF}
+    check({k: nodes[k] for k in want_nodes} == want_nodes and sum(nodes.values())
+          == sum(want_nodes.values()), f"{label}: autograd nodes {nodes}, expected {want_nodes}")
+
+    # ---- a fresh trainer restores the checkpoint bit for bit, read into
+    # its fresh state in place; the trained one is then freed
+    t0 = time.perf_counter()
+    model2 = Model(cfg, ShardingConfig(remat="none"), device=dev)
+    tr2 = Trainer(model2, opt, ckpt_dir=ckpt_dir, ckpt_every=steps)
+    p2, s2, start2 = tr2.restore_or_init(torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live, back = train_state(params, state), train_state(p2, s2)
+    differ = [k for k in live if k not in back or not torch.equal(live[k], back[k])]
+    print(f"[{label}] a fresh Trainer restored step {start2} in {restore_s:.1f}s: {len(back)} "
+          f"tensors, {len(differ)} differ from the trained state")
+    check(start2 == steps and set(back) == set(live) and not differ,
+          f"{label}: restored step {start2}, differing tensors {differ[:5]}")
+    del live, back, params, state, model, tr
+    model, tr, params, state = model2, tr2, p2, s2
+    del model2, tr2, p2, s2
+    torch.cuda.empty_cache()
+
+    # ---- one step under remat "none", one under "block"
+    remat_steps = {}
+    for remat in ("none", "block"):
+        model.shard = dataclasses.replace(model.shard, remat=remat)
+        step = make_train_step(model, opt)
+        before = {k: main_path.kernel[k].launches for k in per_step}
+        b = next(pipe)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        check(np.isfinite(float(m["loss"])), f"{label}: remat {remat}: loss not finite")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        got = {k: main_path.kernel[k].launches - before[k] for k in per_step}
+        expect = {k: n * (2 if remat == "block" and not k.endswith("_bwd") else 1)
+                  for k, n in per_step.items()}
+        check(got == expect, f"{label}: remat {remat}: a step launched {got}, expected {expect}")
+        remat_steps[remat] = dict(seconds=took, peak_bytes=torch.cuda.max_memory_allocated()
+                                  - held, launches=got)
+        print(f"[{label}] remat={remat}: a step {1e3 * took:.1f} ms (host clock), peak memory "
+              f"{remat_steps[remat]['peak_bytes'] / 2**30:.2f} GiB, launches {got} (checked)")
+
+    # ---- one traced step
+    model.shard = dataclasses.replace(model.shard, remat="none")
+    step = make_train_step(model, opt)
+    b = next(pipe)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    pipe.close()
+    rows = device_rows(prof)
+    dev_ms = device_total_ms(rows)
+    frags = {"wkv6_bwd": ("wkv6_bwd",), "rglru_bwd": ("rglru_bwd",),
+             "flash_attention_bwd": BWD_KERNELS}
+    bwd_ms = {k: sum(e.self_device_time_total for e in rows
+                     if any(f in e.key for f in frags[k])) / 1e3
+              for k in per_step if k in frags}
+    print(f"[{label}] traced step: device busy "
+          + ("not measured (no device time in the trace)" if dev_ms is None else
+             f"{dev_ms:.2f} ms of {wall_ms:.2f} ms ({100 * dev_ms / wall_ms:.1f}%); the "
+             f"backward kernels {bwd_ms} ms"))
+    top = top_device(rows, n=8)
+    for name, ms in top:
+        print(f"[{label}]   {ms:.3f} ms: {name}")
+    del params, state, model, tr, step
+    torch.cuda.empty_cache()
+    calls = {}
+    if wkv6_calls:
+        (r, k, v, w, u, s0), (d_out, d_state) = wkv6_calls[0]
+        calls["wkv6_bwd"] = ((r, k, v, w, u, d_out, s0, d_state), {})
+    if rglru_calls:
+        (x, a_log, h0), (d_h, d_hT) = rglru_calls[0]
+        calls["rglru_bwd"] = ((x, a_log, d_h, h0, d_hT), {})
+    for width, (args, kw) in flash_calls.items():
+        calls["flash_attention_bwd"] = (tuple(args), kw)
+    out = dict(params=n_params, layers=cfg.n_layers, losses=losses, grad_norms=norms,
+               step_s=step_s.tolist(), fit_s=fit_s, init_s=init_s, peak_bytes=peak,
+               restore_s=restore_s, remat_steps=remat_steps,
+               traced_step=dict(wall_ms=wall_ms, device_ms=dev_ms, backward_ms=bwd_ms,
+                                backward_calls={k: n for k, n in per_step.items()
+                                                if k in frags},
+                                top=top),
+               launches=dict(counts), nodes=nodes)
+    return out, calls
+
+
+def recurrent_train_parity(label, dev, main_path, plain_kernels, cfg, batch, seq):
+    """Phase 7: a narrow ``cfg`` in fp32 from one seeded init, trained
+    ``R_PARITY_STEPS`` steps through the kernels and again through the
+    plain versions (``ops`` routed to them): losses within 1e-5 relative,
+    the first step's gradients within 1e-4 row-relative, as h2."""
+    from repro_torch.config import ShardingConfig
+    from repro_torch.data.pipeline import synthetic_lm_stream
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.train_loop import make_train_step, trainable
+
+    init = Model(cfg, ShardingConfig(remat="none"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED)).state_dict()
+    stream = synthetic_lm_stream(cfg.vocab_size, batch, seq, seed=SEED + 1)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+               for _ in range(R_PARITY_STEPS)]
+
+    def run():
+        model = Model(cfg, ShardingConfig(remat="none"), device=dev)
+        model.load_state_dict(init)
+        opt = adamw(3e-3, grad_clip=1.0)
+        params = trainable(model)
+        grads = torch.autograd.grad(model.loss(batches[0]), list(params.values()))
+        step, st = make_train_step(model, opt), opt.init(list(params.values()))
+        losses = []
+        for b in batches:
+            params, st, m = step(params, st, b)
+            losses.append(float(m["loss"]))
+        return losses, dict(zip(params, grads))
+
+    expect = tuple(k for k in ("wkv6", "wkv6_bwd", "rglru_scan", "rglru_bwd", "flash_attention",
+                               "flash_attention_bwd")
+                   if (k.startswith("wkv6") and cfg.family == "ssm")
+                   or (not k.startswith("wkv6") and cfg.family == "hybrid"))
+    with main_path(label, expect, autograd=True):
+        lk, gk = run()
+    with plain_kernels():
+        lp, gp = run()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    grad_rel = {n: row_rel_err(gk[n], gp[n]) for n in gk}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"[{label}] {cfg.name} narrowed (d_model {cfg.d_model}, {cfg.n_layers} layers) fp32, "
+          f"{R_PARITY_STEPS} steps of {batch} x {seq}: losses kernels {lk}, plain {lp}, max "
+          f"relative difference {loss_rel:.3g} (tol 1e-5); step-1 gradients row-relative max "
+          f"{grad_rel[worst]:.3g} at {worst} (tol 1e-4)")
+    check(loss_rel <= 1e-5, f"{label}: kernel and plain losses differ by {loss_rel:.3g}")
+    check(grad_rel[worst] <= 1e-4, f"{label}: gradient {worst} differs by {grad_rel[worst]:.3g}")
+    return dict(losses_kernels=lk, losses_plain=lp, loss_rel=loss_rel,
+                grad_row_rel=grad_rel[worst], worst_grad=worst)
+
+
 def tiny_pool_path(label, dev, main_path):
     """h3 and h4: the tiny pool trained on the card (``build_tiny_pool``, the
     JAX package's steps, prices and members), ``Gateway.fit`` with the MLP
@@ -2432,9 +2745,11 @@ def main() -> int:
             "decode_attention": (decode_mod, "decode_attention_cuda", "decode_attention_plain"),
             "wkv6": (wkv6_mod, "wkv6_cuda", "wkv6_plain"),
             "rglru_scan": (rglru_mod, "rglru_cuda", "rglru_plain")}
-    # the backward is reached through FlashAttention, not an ops entry point
+    # the backwards are reached through the autograd Functions, not ops entry points
     wrapped = {**kern, "flash_attention_bwd": (flash_mod, "flash_attention_backward_cuda",
-                                               "flash_attention_backward_plain")}
+                                               "flash_attention_backward_plain"),
+               "wkv6_bwd": (wkv6_mod, "wkv6_backward_cuda", "wkv6_backward_plain"),
+               "rglru_bwd": (rglru_mod, "rglru_backward_cuda", "rglru_backward_plain")}
     kernel = {n: getattr(m, c) for n, (m, c, _) in wrapped.items()}
     plain = {n: getattr(m, p) for n, (m, _, p) in wrapped.items()}
     flash_kernel, flash_plain = kernel["flash_attention"], plain["flash_attention"]
@@ -2443,6 +2758,8 @@ def main() -> int:
     wkv6_kernel, wkv6_plain = kernel["wkv6"], plain["wkv6"]
     rglru_kernel, rglru_plain = kernel["rglru_scan"], plain["rglru_scan"]
     bwd_kernel, bwd_plain = kernel["flash_attention_bwd"], plain["flash_attention_bwd"]
+    wkv6_bwd_kernel, wkv6_bwd_plain = kernel["wkv6_bwd"], plain["wkv6_bwd"]
+    rglru_bwd_kernel, rglru_bwd_plain = kernel["rglru_bwd"], plain["rglru_bwd"]
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False        # full fp32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -2463,7 +2780,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(f'{n} {s:.1f}s' for n, s in took.items())}; "
           f"wall {build_s:.1f}s")
-    d128_seen, d192_seen = set(), set()
+    d128_seen, d192_seen, wide_bwd_seen = set(), set(), set()
     for name in build.SOURCES:
         log = Path(f"{build.library_path(name)}.log")
         if log.exists():
@@ -2484,7 +2801,11 @@ def main() -> int:
                     d192 = [v for k, v in D192.items() if k in entry]
                     if d192 and "Used" in line:
                         d192_seen.update(d192)
-                    redesigned = (name in ("rwkv6_scan", "rglru_scan", "flash_attention_bwd")
+                    if (name == "flash_attention_bwd" and "wide_kernel" in entry
+                            and "Used" in line):
+                        wide_bwd_seen.add(entry)
+                    redesigned = (name in ("rwkv6_scan", "rglru_scan", "flash_attention_bwd",
+                                           "rwkv6_scan_bwd", "rglru_scan_bwd")
                                   or "decode_wide" in entry or paged128 or d192)
                     check(not redesigned or spill is None or spill[1] == spill[2] == "0",
                           f"ptxas spills in {entry}: {line}")
@@ -2492,6 +2813,10 @@ def main() -> int:
           f"ptxas reported no D=128 paged instantiation for some dtype: {d128_seen}")
     check(d192_seen == set(D192.values()),
           f"ptxas reported no D=192 instantiation of {set(D192.values()) - d192_seen}")
+    # the D=256 backward's two CUDA-core kernels, fp32 and bf16 each
+    check(len(wide_bwd_seen) == 4 and all(any(k in e for e in wide_bwd_seen)
+                                          for k in ("bwd_dq_wide", "bwd_dkdv_wide")),
+          f"ptxas reported {sorted(wide_bwd_seen)} of the D=256 backward's four kernels")
     results["build_s"] = build_s
     hgmma = sass_counts("flash_attention", lambda op: op.startswith("HGMMA"))
     tc_hgmma = {int(re.search(r"flash_tc_kernelILi(\d+)E", f)[1]): n
@@ -2512,7 +2837,10 @@ def main() -> int:
     print(f"[build] flash_attention_bwd SASS: HGMMA instructions in the bf16 kernels "
           f"{dict(sorted(bwd_hgmma.items()))}; in the fp32 kernels "
           f"{sum(n for f, n in bwd_sass.items() if '_tc_kernel' not in f)}")
-    want_bwd = {f"{k}<{D}>" for k in BWD_KERNELS if "_tc_" in k for D in flash_mod.HEAD_DIMS_BWD}
+    # D=256 runs the CUDA-core wide kernels in bf16 too: HGMMA is held at the
+    # tensor-core widths, HEAD_DIMS_BWD_TC
+    want_bwd = {f"{k}<{D}>" for k in BWD_KERNELS if "_tc_" in k
+                for D in flash_mod.HEAD_DIMS_BWD_TC}
     check(set(bwd_hgmma) == want_bwd and all(bwd_hgmma.values()),
           f"the bf16 flash backward lacks HGMMA at some head width: {bwd_hgmma}")
     results["flash_bwd_tc_hgmma"] = bwd_hgmma
@@ -2629,7 +2957,7 @@ def main() -> int:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype in (torch.bfloat16, torch.float32):
-        for D in flash_mod.HEAD_DIMS_BWD:
+        for D in flash_mod.HEAD_DIMS_BWD_TC:
             for G in (1, 2, 4):
                 for S in (1, 37, 128, 512):
                     bwd_case(f"G={G}", 2, S, 8, 8 // G, D, dtype)
@@ -2641,6 +2969,12 @@ def main() -> int:
             check((B * H * -(-S // 64) < sms) == (label == "below-sms"),
                   f"flash backward {label}: {B * H * -(-S // 64)} blocks on {sms} SMs")
             bwd_case(label, B, S, H, Hk, D, dtype, window=window)
+        # D=256 (RecurrentGemma's local attention, 16 heads on one KV head):
+        # the wide CUDA-core kernels, at G in {1, 16}, and past a window
+        for G in (1, 16):
+            for S in (1, 37, 256):
+                bwd_case(f"d256-G={G}", 2, S, 16, 16 // G, 256, dtype)
+            bwd_case(f"d256-G={G}-window", 2, 300, 16, 16 // G, 256, dtype, window=64)
 
     def paged_inputs(dtype, B=8, ps=16, H=16, Hk=16, D=64, max_len=512):
         """Pools and a table with a shared prefix of up to 8 pages (rows 0-3), a CoW
@@ -2954,6 +3288,44 @@ def main() -> int:
         wkv6_case(2, 33, 3, 32, torch.float32, decays, timed=False)
     wkv6_case(2, 45, 3, 16, torch.float32, decays="wide", timed=False)
 
+    def recurrent_bwd_case(label, got, again, want, names, dtype, line):
+        """A recurrence's backward kernel (two launches) against its plain
+        version: identical bits across the launches, every gradient held
+        row by row (fp32 1e-4, bf16 2e-2)."""
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rel = {n: row_rel_err(a, b) for n, a, b in zip(names, got, want)}
+        tol = BWD_TOL[dtype]
+        worst = max(rel, key=rel.get)
+        print(f"[kernels] {label} {str(dtype)[6:]}: row-relative "
+              f"{', '.join(f'{n} {r:.3g}' for n, r in rel.items())} (tol {tol}); two launches "
+              f"{'identical' if same else 'DIFFER'}")
+        check(same, f"{label}: two launches gave different bits")
+        check(rel[worst] <= tol, f"{label}: {worst} row-relative err {rel[worst]:.3g} > {tol}")
+        results["cases"].append(dict(line, dtype=str(dtype), row_rel_err=rel, identical=same))
+
+    def wkv6_bwd_case(B, T, H, D, dtype, decays, state):
+        r, k, v, w, u, s0 = wkv6_inputs(B, T, H, D, dtype, decays)
+        do = randn(B, T, H, D, dtype=dtype)
+        s0, ds = (s0, randn(B, H, D, D, dtype=torch.float32)) if state else (None, None)
+        args = (r, k, v, w, u, do, s0, ds)
+        recurrent_bwd_case(f"wkv6 backward B={B} T={T} H={H} D={D} {decays} state={state}",
+                           wkv6_bwd_kernel(*args), wkv6_bwd_kernel(*args), wkv6_bwd_plain(*args),
+                           ("dr", "dk", "dv", "dw", "du", "dstate"), dtype,
+                           dict(kernel="wkv6_bwd", B=B, T=T, H=H, D=D, decays=decays,
+                                state=state))
+
+    # the step, a chunk ± 1 and a long prefill, decays from 1e-12 to 1 in one
+    # chunk ("wide") and RWKV6's own, with and without a state
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in wkv6_mod.HEAD_DIMS:
+            for T in (1, 31, 32, 33):
+                for state in (False, True):
+                    wkv6_bwd_case(2, T, 3, D, dtype, "wide", state)
+        for decays in ("rwkv", "wide"):
+            for state in (False, True):
+                wkv6_bwd_case(4, 512, 40, 64, dtype, decays, state)
+
     def rglru_inputs(B, T, W, dtype, gates):
         """x ~ N(0, 1), a carried state ~ N(0, 1), and log-gates ``mild``
         −|N(0, 0.5)|, ``strong`` U(−20, 0) or ``near0`` U(−1e-6, 0), where
@@ -3009,6 +3381,24 @@ def main() -> int:
             for gates in ("mild", "strong", "near0"):
                 rglru_case(3, T, 200, dtype, gates, timed=False)
 
+    def rglru_bwd_case(B, T, W, dtype, gates):
+        x, a_log, h0 = rglru_inputs(B, T, W, dtype, gates)
+        dh, dhT = randn(B, T, W, dtype=dtype), randn(B, W, dtype=torch.float32)
+        args = (x, a_log, dh, h0, dhT)
+        recurrent_bwd_case(f"rglru backward B={B} T={T} W={W} {gates}",
+                           rglru_bwd_kernel(*args), rglru_bwd_kernel(*args),
+                           rglru_bwd_plain(*args), ("dx", "da_log", "dstate"), dtype,
+                           dict(kernel="rglru_bwd", B=B, T=T, W=W, gates=gates))
+
+    # a chunk of the forward ± 1 and RecurrentGemma-9B's training length, with
+    # gates within 1e-6 of 0 (where 1 − exp(2a) keeps a few bits) among them
+    for dtype in (torch.bfloat16, torch.float32):
+        for T in (1, C - 1, C, C + 1):
+            for gates in ("mild", "strong", "near0"):
+                rglru_bwd_case(3, T, 200, dtype, gates)
+        for gates in ("mild", "near0"):
+            rglru_bwd_case(2, 3072, 4096, dtype, gates)
+
     stamp("kernels against plain versions")
     @contextlib.contextmanager
     def plain_kernels():
@@ -3035,49 +3425,66 @@ def main() -> int:
             return fn(x, *args, **kwargs)
         return wrapper
 
+    node_classes = (flash_mod.FlashAttention, wkv6_mod.WKV6, rglru_mod.RGLRU)
+
     @contextlib.contextmanager
-    def main_path(label, expect, autograd=False):
+    def main_path(label, expect, autograd=False, nodes=None):
         """Launch counts to 0 before the path, read after; every kernel of
         ``expect`` must have launched and no plain version may see a CUDA
-        tensor.  ``FlashAttention`` nodes (flash attention under autograd)
-        are counted too: a training path (``autograd``) must build them, a
+        tensor.  The autograd nodes of ``FlashAttention``, ``WKV6`` and
+        ``RGLRU`` are counted too (into ``nodes``, by class name, when it
+        is given): a training path (``autograd``) must build some, a
         serving path none."""
         for fn in kernel.values():
             fn.launches = 0
         plain_on_cuda["n"] = 0
-        nodes = {"n": 0}
-        apply = flash_mod.FlashAttention.apply
+        built = {cls.__name__: 0 for cls in node_classes}
 
-        def counted_apply(*args):
-            nodes["n"] += 1
-            return apply(*args)
+        def counted(cls):
+            apply = cls.apply
+
+            def counted_apply(*args):
+                built[cls.__name__] += 1
+                return apply(*args)
+            return counted_apply
 
         for n, (m, _, p) in wrapped.items():
             setattr(m, p, guard(plain[n]))
-        flash_mod.FlashAttention.apply = counted_apply
+        for cls in node_classes:
+            cls.apply = counted(cls)
         counts = {}
         try:
             torch.cuda.synchronize()
             yield counts
             torch.cuda.synchronize()
         finally:
-            del flash_mod.FlashAttention.apply
+            for cls in node_classes:
+                del cls.apply
             for n, (m, _, p) in wrapped.items():
                 setattr(m, p, plain[n])
         counts.update({n: fn.launches for n, fn in kernel.items()})
+        if nodes is not None:
+            nodes.update(built)
         print(f"[{label}] launches {counts}; plain calls on CUDA tensors {plain_on_cuda['n']}; "
-              f"FlashAttention nodes {nodes['n']}")
+              f"autograd nodes {built}")
         check(all(counts[n] > 0 for n in expect), f"{label}: a kernel never launched: {counts}")
         check(plain_on_cuda["n"] == 0, f"{label}: a plain version ran on CUDA tensors")
-        check((nodes["n"] > 0) == autograd, f"{label}: {nodes['n']} FlashAttention nodes")
+        check((sum(built.values()) > 0) == autograd, f"{label}: autograd nodes {built}")
         results.setdefault("launches", {})[label] = dict(counts)
+        results.setdefault("nodes", {})[label] = dict(built)
+
+    main_path.kernel = kernel           # the wrappers, for counts read between paths
 
     cfg = get_arch("qwen1.5-0.5b")
     t0 = time.perf_counter()
-    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    # path a serves Qwen1.5-0.5B at full width, cut to its first
+    # PATH_A_LAYERS of 24 layers for the script's time
+    model = Model(dataclasses.replace(cfg, n_layers=PATH_A_LAYERS), device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     print(f"[serve] {cfg.name}: {model.param_count() / 1e9:.3f} B parameters in "
-          f"{str(model.dtype)[6:]}, init {time.perf_counter() - t0:.1f}s")
+          f"{str(model.dtype)[6:]} ({PATH_A_LAYERS} of its {cfg.n_layers} layers), init "
+          f"{time.perf_counter() - t0:.1f}s")
 
     def serve_once(engine, reqs):
         torch.cuda.synchronize()
@@ -3424,7 +3831,8 @@ def main() -> int:
 
     stamp("recurrentgemma")
     # ---- path e: paged serving of full-width Qwen1.5-4B (the paged kernel at D=128)
-    qcfg = get_arch("qwen1.5-4b")
+    # full width, cut to its first PATH_E_LAYERS of 40 layers for the script's time
+    qcfg = dataclasses.replace(get_arch("qwen1.5-4b"), n_layers=PATH_E_LAYERS)
     t0 = time.perf_counter()
     model4 = Model(qcfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 3))
     torch.cuda.synchronize()
@@ -3597,12 +4005,19 @@ def main() -> int:
                     span_rounding=rounding, in_serve_span_rounding=in_serve)
 
     model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
-    # the Qwen1.5-4B target at full width, its depth cut for the script's time
+    # both pairs at full width, their depth cut for the script's time: the
+    # Qwen1.5-0.5B to its first PATH_F_LAYERS of 24, the Qwen1.5-4B target
+    # to its first SPEC_4B_LAYERS of 40
+    model_f = Model(dataclasses.replace(cfg, n_layers=PATH_F_LAYERS), device=dev)
+    model_f.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("blocks.")
+                             or int(k.split(".")[1]) < PATH_F_LAYERS})
     model4f = Model(dataclasses.replace(qcfg, n_layers=SPEC_4B_LAYERS), device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED + 3))
-    results["speculative_bf16"] = {"self": speculative("spec-self", model, model, probe=True),
-                                   "4b": speculative("spec-4b", model4f, model)}
-    del model4f
+    results["speculative_bf16"] = {"self": speculative("spec-self", model_f, model_f,
+                                                       probe=True),
+                                   "4b": speculative("spec-4b", model4f, model_f)}
+    del model4f, model_f
     # ---- path g: RoBatch's control plane over a live pool of the two models
     results["control_plane"], g_recorded = control_plane("robatch-pool", dev, (model, model4),
                                                          main_path)
@@ -3624,6 +4039,28 @@ def main() -> int:
     del h_gw
     torch.cuda.empty_cache()
     stamp("tiny pool trained, fit, submit and served over HTTP")
+
+    # ---- paths n and o: training the recurrent families on the card
+    # (WKV6, RG-LRU and the flash backward at D=256 through their kernels)
+    ocfg = dataclasses.replace(gcfg, n_layers=O_LAYERS)
+    o_kinds = ocfg.layer_kinds()
+    recurrent_calls = {}
+    for label, tcfg, steps, batch, seq, per_step in (
+            ("train-rwkv6", rcfg, N_STEPS, N_BATCH, N_SEQ,
+             {"wkv6": rcfg.n_layers, "wkv6_bwd": rcfg.n_layers}),
+            ("train-rgemma", ocfg, O_STEPS, O_BATCH, O_SEQ,
+             {"rglru_scan": o_kinds.count("rglru"), "rglru_bwd": o_kinds.count("rglru"),
+              "flash_attention": o_kinds.count("local"),
+              "flash_attention_bwd": o_kinds.count("local")})):
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+        try:
+            results[label], calls = train_recurrent(label, dev, main_path, tcfg, steps, batch,
+                                                    seq, ckpt_dir, per_step)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        recurrent_calls.update({k: (v, results[label]) for k, v in calls.items()})
+        torch.cuda.empty_cache()
+        stamp(f"{label}: {tcfg.name}, {tcfg.n_layers} layers, trained")
 
     # ---- path i: paged serving of full-width Qwen3-30B-A3B (mixture of
     # experts, QK-norm, GQA 32/4: the flash and paged kernels at D=128, G=8)
@@ -4197,6 +4634,71 @@ def main() -> int:
             traced_ms=traced,
             shape=dict(q=list(bq.shape), k=list(bk.shape), window=bkw["window"],
                        dtype=str(bq.dtype))))
+    # the recurrences' backward kernels and the flash backward at D=256, at
+    # paths n's and o's first calls; the library call beside D=256 is SDPA's
+    # backward with the causal-and-window mask on the same tensors, and the
+    # recurrences have none (no single PyTorch call computes their gradient);
+    # ``traced_ms`` is the kernel's time a call in its path's traced step
+    new_bwd = {}
+    for name, key, frag, source, replaces in (
+            ("wkv6_bwd", "wkv6_bwd", ("wkv6_bwd",), "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+             "src/repro/kernels/ops.py:271 (jax.grad of _wkv6_jnp; no pallas_call)"),
+            ("rglru_bwd", "rglru_bwd", ("rglru_bwd",), "src/repro_torch/csrc/rglru_scan_bwd.cu",
+             "src/repro/kernels/ops.py:329 (jax.grad of _rglru_jnp; no pallas_call)"),
+            ("flash_attention_bwd_d256", "flash_attention_bwd", BWD_KERNELS,
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/ops.py:57 (jax.grad of _flash_jnp; no pallas_call)")):
+        (nargs, nkw), path_res = recurrent_calls[key]
+        run_k = (lambda f=kernel[key], a=nargs, kw=nkw: f(*a, **kw))
+        run_p = (lambda f=plain[key], a=nargs, kw=nkw: f(*a, **kw))
+        n_out, n_want = run_k(), run_p()
+        n_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(n_out, n_want))
+        n_rel = max(row_rel_err(a, w) for a, w in zip(n_out, n_want))
+        n_tol = BWD_TOL[nargs[0].dtype]
+        check(n_rel <= n_tol, f"{name} on main-path inputs: row-relative {n_rel:.3g} > {n_tol}")
+        n_max = max(w.float().abs().max().item() for w in n_want)
+        del n_out, n_want
+        lib_n = None
+        if key == "wkv6_bwd":
+            work, shape = wkv6_bwd_work(nargs[0], nargs[6], nargs[7]), dict(
+                r=list(nargs[0].shape), state=nargs[6] is not None, dtype=str(nargs[0].dtype))
+        elif key == "rglru_bwd":
+            work, shape = rglru_bwd_work(nargs[0], nargs[3], nargs[4]), dict(
+                x=list(nargs[0].shape), state=nargs[3] is not None, dtype=str(nargs[0].dtype))
+        else:
+            nq, nk, nv, ndo = nargs
+            work = bwd_work(nq, nk, nkw["window"])
+            shape = dict(q=list(nq.shape), k=list(nk.shape), window=nkw["window"],
+                         dtype=str(nq.dtype))
+            G = nq.shape[2] // nk.shape[2]
+            lq = nq.transpose(1, 2).contiguous().requires_grad_()
+            lk, lv = (x.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                      .requires_grad_() for x in (nk, nv))
+            npos = torch.arange(nq.shape[1], device=dev)
+            nmask = (npos[None, :] <= npos[:, None]) & (
+                npos[None, :] > npos[:, None] - (nkw["window"] or nq.shape[1]))
+            lo = sdpa(lq, lk, lv, attn_mask=nmask)
+            ldo = ndo.transpose(1, 2).contiguous()
+
+            def lib_n(lo=lo, lq=lq, lk=lk, lv=lv, ldo=ldo):
+                return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+            bwd_lib[name] = lib_n
+        n_bound, n_by = bound_ms(*work, nargs[0].dtype if key == "flash_attention_bwd"
+                                 else torch.float32)
+        traced_step = path_res["traced_step"]
+        n_traced = (None if traced_step["device_ms"] is None
+                    else traced_step["backward_ms"][key] / traced_step["backward_calls"][key])
+        iters = 5 if key == "flash_attention_bwd" else 20
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=path_res["launches"][key], max_abs_err=n_err, atol=0.0, rtol=n_tol,
+            scale="row", row_rel_err=n_rel, out_max=n_max,
+            ms=timed_ms(run_k, iters, flush), plain_ms=timed_ms(run_p, 2, flush),
+            bound_ms=n_bound, bound_by=n_by,
+            library_ms=None if lib_n is None else timed_ms(lib_n, iters, flush),
+            traced_ms=n_traced, shape=shape))
+        new_bwd[name] = (run_k, frag, iters)
     # CUPTI device time a call, read after every event timing of the run (a
     # process that has run the profiler pays more host time a launch), each
     # call after a reading flush of the 128 MB buffer; the name fragment
@@ -4224,6 +4726,7 @@ def main() -> int:
                                      BWD_KERNELS, 20),
              "flash_attention_bwd_d32": (lambda: bwd_kernel(*h3_call[0], **h3_call[1]),
                                          BWD_KERNELS, 50),
+             **new_bwd,
              **{n: (run_k, frag, 20 if n.endswith("encoder") else 50)
                 for n, (_, run_k, frag) in lib_l.items()}}
     # the library calls the same way, by CUPTI (SDPA's backward: its
@@ -4528,6 +5031,19 @@ def main() -> int:
     del gmodel32
 
     stamp("fp32 recurrent parity")
+    # paths n and o in fp32 at a narrow width: training through the kernels
+    # against training through the plain versions
+    narrow_rwkv = dataclasses.replace(rcfg, d_model=256, d_ff=896, n_layers=2,
+                                      vocab_size=4096, dtype="float32")
+    narrow_hybrid = dataclasses.replace(gcfg, d_model=512, n_heads=2, n_kv_heads=1,
+                                        head_dim=256, lru_width=512, d_ff=1024, n_layers=3,
+                                        vocab_size=4096, dtype="float32")
+    results["train_parity_rwkv6"] = recurrent_train_parity(
+        "train-parity-rwkv6", dev, main_path, plain_kernels, narrow_rwkv, 2, N_SEQ)
+    results["train_parity_rgemma"] = recurrent_train_parity(
+        "train-parity-rgemma", dev, main_path, plain_kernels, narrow_hybrid, 2,
+        narrow_hybrid.window + 52)
+    stamp("fp32 recurrent training parity")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     results["kernels"] = entries

@@ -21,13 +21,17 @@ import json
 import os
 import shutil
 import time
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
+from numpy.lib import format as npformat
 
 __all__ = ["save_state", "load_state", "latest_step", "CheckpointManager"]
 
+_READERS = min(8, os.cpu_count() or 1)     # threads a restore reads with
 _DTYPES = {str(d): d for d in (torch.float32, torch.bfloat16, torch.int32, torch.int64)}
 
 
@@ -39,9 +43,10 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    a = np.require(a, requirements=("C", "W"))      # a copy only if it is not already so
     if dtype == torch.bfloat16:
-        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(dtype)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a).to(dtype)
 
 
 def save_state(state: dict, directory: str, step: int, metadata: Optional[dict] = None) -> str:
@@ -50,12 +55,18 @@ def save_state(state: dict, directory: str, step: int, metadata: Optional[dict] 
     tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(directory, f"step_{step:012d}")
     os.makedirs(tmp, exist_ok=True)
-    arrays = {k: _to_numpy(v) for k, v in state.items()}
+    # the layout np.savez writes (one uncompressed ``<name>.npy`` member a
+    # leaf), a leaf copied to the host at a time, so a 30 GB state never
+    # sits in host memory whole
     with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
-        np.savez(f, **arrays)
+        with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for k, v in state.items():
+                with zf.open(f"{k}.npy", "w", force_zip64=True) as member:
+                    npformat.write_array(member, _to_numpy(v), allow_pickle=False)
         f.flush()
         os.fsync(f.fileno())
-    meta = {"step": step, "time": time.time(), "n_leaves": len(arrays),
+    meta = {"step": step, "time": time.time(), "n_leaves": len(state),
             "dtypes": {k: str(v.dtype) for k, v in state.items()}, **(metadata or {})}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -76,25 +87,37 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_state(template: dict, directory: str, step: Optional[int] = None):
-    """Read the checkpoint of ``step`` (default the latest) into new tensors
-    with the dtype and device of ``template``'s (same names).  Returns
-    ``(state, step)``; raises ``FileNotFoundError`` when there is none and
-    ``KeyError`` when the names differ."""
+    """Read the checkpoint of ``step`` (default the latest) into ``template``'s
+    own tensors (same names) in place, a leaf at a time, so a restore holds
+    no second copy of the state on the device.  Up to ``_READERS`` threads
+    read the leaves, each through its own handle on the archive (the zip
+    member's CRC and the copies release the GIL).  Returns ``(template,
+    step)``; raises ``FileNotFoundError`` when there is none and ``KeyError``
+    when the names differ."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
     path = os.path.join(directory, f"step_{step:012d}")
     with open(os.path.join(path, "meta.json")) as f:
         dtypes = json.load(f).get("dtypes", {})
-    with np.load(os.path.join(path, "arrays.npz")) as data:
+    npz = os.path.join(path, "arrays.npz")
+    with np.load(npz) as data:
         if set(data.files) != set(template):
             raise KeyError(f"checkpoint {path} holds {sorted(set(data.files) ^ set(template))} "
                            f"that the template does not, or the reverse")
-        out = {}
-        for k, t in template.items():
-            saved = _DTYPES.get(dtypes.get(k), t.dtype)
-            out[k] = _from_numpy(data[k], saved).to(device=t.device, dtype=t.dtype)
-    return out, step
+
+    def read(leaves):
+        with np.load(npz) as data, torch.no_grad():
+            for k, t in leaves:
+                t.copy_(_from_numpy(data[k], _DTYPES.get(dtypes.get(k), t.dtype)))
+
+    # largest first, dealt round the readers, so their shares come out even
+    leaves = sorted(template.items(), key=lambda kv: -kv[1].numel() * kv[1].element_size())
+    n = max(1, min(_READERS, len(leaves)))
+    with ThreadPoolExecutor(n) as pool:
+        for done in [pool.submit(read, leaves[i::n]) for i in range(n)]:
+            done.result()
+    return template, step
 
 
 class CheckpointManager:

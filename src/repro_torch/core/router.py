@@ -120,10 +120,7 @@ def train_mlp_router(
             sel = torch.as_tensor(order[s:s + batch_size], device=dev)
             loss = _bce_loss(router, x[sel], y[sel])
             grads = torch.autograd.grad(loss, params)
-            new, state = opt.update(list(grads), state, [p.detach() for p in params])
-            with torch.no_grad():
-                for p, q in zip(params, new):
-                    p.copy_(q)
+            state = opt.update(list(grads), state, [p.detach() for p in params])[1]
         with torch.no_grad():
             val = float(_bce_loss(router, x[vi], y[vi]))
         if val < best[0]:

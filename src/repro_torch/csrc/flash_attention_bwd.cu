@@ -78,6 +78,9 @@
 // the H100 it beat 32 on the tiny pool's training shapes taken together and
 // at 1,024 blocks, though 32 won at 144-160 blocks
 // (benchmarks/torch_flash_bwd_tiles.py).
+// D = 256 (RecurrentGemma's local attention), both dtypes: bwd_dq_wide_kernel
+// and bwd_dkdv_wide_kernel, the same two launches on the CUDA cores with
+// tiles of 32 rows by 256 columns (see their section below).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -839,11 +842,311 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout, v
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- D = 256, both dtypes: CUDA cores, tiles of 32 rows -------------------
+// RecurrentGemma's local attention (16 heads on one KV head, D = 256, window
+// 2048).  Four 64 x 256 fp32 accumulators would not fit one warpgroup's
+// registers, so these kernels keep to the CUDA cores and fp32 products in
+// both dtypes (bf16 inputs are widened when they land in shared memory, the
+// gradients rounded once), with narrower tiles: 32 rows (queries in A, keys
+// in B) by all 256 columns, rows padded by four floats so that a row starts
+// on 16 bytes and a quarter-warp's float4 reads of eight rows fall on
+// distinct banks.  A block's 256 threads form a 16 x 16 grid: thread
+// (ty, tx) owns score rows ty + 16a and columns tx + 16c (a, c < 2) of a
+// 32 x 32 tile, and rows ty + 16a, columns 4(tx + 16c) + e (c, e < 4) of a
+// gradient tile; a row's max and sum reduce over its 16 threads (a half
+// warp) with shuffles.  Tiles are loaded synchronously (no prefetch): a
+// simple kernel that is right, two launches and no atomics as above.
+constexpr int WD = 256;                  // the head width these kernels take
+constexpr int WT = 32;                   // rows of a Q tile, keys of a KV tile
+constexpr int W_THREADS = 256;
+constexpr int WP = WD + 4;               // row pitch of a 32 x 256 tile in shared memory
+constexpr int WSP = WT + 1;              // row pitch of a 32 x 32 score tile
+
+// Rows row0 .. row0 + WT - 1 of head `head` of a (B, S, n_heads, WD) tensor
+// into dst[WT][WP] as fp32, in 16-byte pieces; rows past S as zeros.
+template <typename T>
+__device__ __forceinline__ void wide_load(float* dst, const T* __restrict__ src, int b, int row0,
+                                          int head, int n_heads, int S) {
+  constexpr int PER = 16 / sizeof(T), ROW = WD / PER;
+  for (int p = threadIdx.x; p < WT * ROW; p += W_THREADS) {
+    const int r = p / ROW, c = (p % ROW) * PER, row = row0 + r;
+    float* d = dst + r * WP + c;
+    if (row < S) {
+      store_widened(d, load_vec(src + ((static_cast<size_t>(b) * S + row) * n_heads + head) * WD + c),
+                    T{});
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) d[j] = 0.f;
+    }
+  }
+}
+
+// s[a][c] = Σ_d A[ty + 16a][d] · Bm[tx + 16c][d] over two tiles of pitch WP.
+__device__ __forceinline__ void wide_dot(float (&s)[2][2], const float* A, const float* Bm,
+                                         int ty, int tx) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a) s[a][0] = s[a][1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < WD; d += 4) {
+    float4 av[2], bv[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      av[a] = *reinterpret_cast<const float4*>(A + (ty + 16 * a) * WP + d);
+      bv[a] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * a) * WP + d);
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float x = s[a][c];
+        x = fmaf(av[a].x, bv[c].x, x);
+        x = fmaf(av[a].y, bv[c].y, x);
+        x = fmaf(av[a].z, bv[c].z, x);
+        s[a][c] = fmaf(av[a].w, bv[c].w, x);
+      }
+  }
+}
+
+// acc[a][4c + e] += x[a] · row[4(tx + 16c) + e] (row of pitch WP)
+__device__ __forceinline__ void wide_axpy(float (&acc)[2][16], const float (&x)[2],
+                                          const float* row, int tx) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 r4 = *reinterpret_cast<const float4*>(row + 4 * (tx + 16 * c));
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      acc[a][4 * c] = fmaf(x[a], r4.x, acc[a][4 * c]);
+      acc[a][4 * c + 1] = fmaf(x[a], r4.y, acc[a][4 * c + 1]);
+      acc[a][4 * c + 2] = fmaf(x[a], r4.z, acc[a][4 * c + 2]);
+      acc[a][4 * c + 3] = fmaf(x[a], r4.w, acc[a][4 * c + 3]);
+    }
+  }
+}
+
+// rows row0 + ty + 16a (< S) of head `head` of a (B, S, n_heads, WD) output
+template <typename T>
+__device__ __forceinline__ void wide_store(T* __restrict__ dst, const float (&acc)[2][16],
+                                           float mul, int b, int row0, int head, int n_heads,
+                                           int S, int ty, int tx) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int row = row0 + ty + 16 * a;
+    if (row >= S) continue;
+    T* out = dst + ((static_cast<size_t>(b) * S + row) * n_heads + head) * WD;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[4 * (tx + 16 * c) + e] = from_float<T>(acc[a][4 * c + e] * mul);
+  }
+}
+
+// A: dQ of one (Q tile, head, batch row), after a first pass that computes
+// the rows' LSE and δ into lse_s/dl_s and the (B, H, S) scratch.
+template <typename T>
+__global__ void __launch_bounds__(W_THREADS)
+bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, float* __restrict__ lse,
+                   float* __restrict__ delta, T* __restrict__ dq, Shape s) {
+  extern __shared__ float4 wide_smem[];
+  float* qs = reinterpret_cast<float*>(wide_smem);
+  float* dos = qs + WT * WP;
+  float* ks = dos + WT * WP;
+  float* vs = ks + WT * WP;
+  float* dss = vs + WT * WP;               // [WT queries][WSP]
+  float* lse_s = dss + WT * WSP;
+  float* dl_s = lse_s + WT;
+  const int nt = (s.S + WT - 1) / WT;
+  const int q0 = (nt - 1 - static_cast<int>(blockIdx.x)) * WT;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int lo = key_lo(q0, s) / WT;
+  const int n = (key_hi(q0, WT, s) + WT - 1) / WT - lo;   // at least 1
+  wide_load(qs, q, b, q0, h, s.H, s.S);
+  wide_load(dos, dout, b, q0, h, s.H, s.S);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[2] = {0.f, 0.f};
+  float dq_acc[2][16];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) dq_acc[a][x] = 0.f;
+  // iterations 0 .. n-1: pass 1 (LSE and δ); n .. 2n-1: pass 2 (dQ)
+  for (int it = 0; it < 2 * n; ++it) {
+    const int k0 = (lo + it % n) * WT;
+    __syncthreads();                       // the previous tiles are read
+    wide_load(ks, k, b, k0, hk, s.Hk, s.S);
+    wide_load(vs, v, b, k0, hk, s.Hk, s.S);
+    __syncthreads();                       // this tile (and Q, dO, LSE, δ) in place
+    float sc[2][2], dp[2][2];
+    wide_dot(sc, qs, ks, ty, tx);
+    wide_dot(dp, dos, vs, ty, tx);
+    if (it < n) {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int i = q0 + ty + 16 * a;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          sc[a][c] = visible(i, k0 + tx + 16 * c, s) ? sc[a][c] * s.scale : -INFINITY;
+          mx = fmaxf(mx, sc[a][c]);
+        }
+        // a row with no visible key yet keeps m = -inf and l = acc = 0
+        const float m_new = fmaxf(m[a], row_max(mx));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        float sum = 0.f, dsum = 0.f;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = expf(sc[a][c] - m_use);
+          sum += e;
+          dsum = fmaf(e, dp[a][c], dsum);
+        }
+        const float corr = m[a] == -INFINITY ? 0.f : expf(m[a] - m_use);
+        l[a] = l[a] * corr + row_sum(sum);
+        acc[a] = acc[a] * corr + row_sum(dsum);
+        m[a] = m_new;
+      }
+      if (it == n - 1) {                   // read by pass 2 after the next barriers
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int r = ty + 16 * a, i = q0 + r;
+          const float lse_r = l[a] > 0.f ? m[a] + logf(l[a]) : INFINITY;
+          const float dl_r = l[a] > 0.f ? acc[a] / l[a] : 0.f;
+          if (tx == 0) {
+            lse_s[r] = lse_r;
+            dl_s[r] = dl_r;
+            if (i < s.S) {
+              const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + i;
+              lse[row] = lse_r;
+              delta[row] = dl_r;
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int r = ty + 16 * a;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = tx + 16 * c;
+          const float p = visible(q0 + r, k0 + col, s) ? expf(sc[a][c] * s.scale - lse_s[r]) : 0.f;
+          dss[r * WSP + col] = p * (dp[a][c] - dl_s[r]);
+        }
+      }
+      __syncthreads();
+      // dQ[i][d] += Σ_j dS[i][j] K[j][d]
+#pragma unroll 4
+      for (int j = 0; j < WT; ++j) {
+        const float sa[2] = {dss[ty * WSP + j], dss[(ty + 16) * WSP + j]};
+        wide_axpy(dq_acc, sa, ks + j * WP, tx);
+      }
+    }
+  }
+  wide_store(dq, dq_acc, s.scale, b, q0, h, s.H, s.S, ty, tx);
+}
+
+// B: dK and dV of one (KV tile, KV head, batch row), summed over the G heads
+// of the group in the block.
+template <typename T>
+__global__ void __launch_bounds__(W_THREADS)
+bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     Shape s) {
+  extern __shared__ float4 wide_smem[];
+  float* ks = reinterpret_cast<float*>(wide_smem);
+  float* vs = ks + WT * WP;
+  float* qs = vs + WT * WP;
+  float* dos = qs + WT * WP;
+  float* ps = dos + WT * WP;               // [WT queries][WSP]
+  float* dss = ps + WT * WSP;              // [WT queries][WSP]
+  float* lse_s = dss + WT * WSP;
+  float* dl_s = lse_s + WT;
+  const int k0 = blockIdx.x * WT, hk = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int qlo = query_lo(k0, s) / WT;
+  const int nq = (query_hi(k0, WT, s) + WT - 1) / WT - qlo;   // at least 1
+  wide_load(ks, k, b, k0, hk, s.Hk, s.S);
+  wide_load(vs, v, b, k0, hk, s.Hk, s.S);
+  float dk_acc[2][16], dv_acc[2][16];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int x = 0; x < 16; ++x) dk_acc[a][x] = dv_acc[a][x] = 0.f;
+  // iteration it: Q tile qlo + it % nq of head hk·G + it / nq
+  for (int it = 0; it < s.G * nq; ++it) {
+    const int q0 = (qlo + it % nq) * WT, h = hk * s.G + it / nq;
+    __syncthreads();                       // the previous pair's tiles are read
+    wide_load(qs, q, b, q0, h, s.H, s.S);
+    wide_load(dos, dout, b, q0, h, s.H, s.S);
+    if (threadIdx.x < WT) {
+      const int i = q0 + threadIdx.x;
+      const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + i;
+      lse_s[threadIdx.x] = i < s.S ? lse[row] : INFINITY;
+      dl_s[threadIdx.x] = i < s.S ? delta[row] : 0.f;
+    }
+    __syncthreads();
+    float sc[2][2], dp[2][2];
+    wide_dot(sc, qs, ks, ty, tx);
+    wide_dot(dp, dos, vs, ty, tx);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = ty + 16 * a;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = tx + 16 * c;
+        const float p = visible(q0 + r, k0 + col, s) ? expf(sc[a][c] * s.scale - lse_s[r]) : 0.f;
+        ps[r * WSP + col] = p;
+        dss[r * WSP + col] = p * (dp[a][c] - dl_s[r]);
+      }
+    }
+    __syncthreads();
+    // dV[j][d] += Σ_i P[i][j] dO[i][d];  dK[j][d] += Σ_i dS[i][j] Q[i][d]
+#pragma unroll 2
+    for (int i = 0; i < WT; ++i) {
+      const float pa[2] = {ps[i * WSP + ty], ps[i * WSP + ty + 16]};
+      const float sa[2] = {dss[i * WSP + ty], dss[i * WSP + ty + 16]};
+      wide_axpy(dv_acc, pa, dos + i * WP, tx);
+      wide_axpy(dk_acc, sa, qs + i * WP, tx);
+    }
+  }
+  wide_store(dk, dk_acc, s.scale, b, k0, hk, s.Hk, s.S, ty, tx);
+  wide_store(dv, dv_acc, 1.f, b, k0, hk, s.Hk, s.S, ty, tx);
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int Hk,
+                int causal, int window, cudaStream_t stream) {
+  const Shape s{S, H, Hk, H / Hk, causal, window, static_cast<float>(1.0 / std::sqrt(double(WD)))};
+  const int nt = (S + WT - 1) / WT;
+  const size_t tile = WT * WP * sizeof(float), score = WT * WSP * sizeof(float);
+  const size_t sm_dq = 4 * tile + score + 2 * WT * sizeof(float);
+  const size_t sm_dkdv = 4 * tile + 2 * score + 2 * WT * sizeof(float);
+  static bool smem_set = false;   // once per dtype and process
+  if (!smem_set) {
+    cudaError_t err = allow_smem(bwd_dq_wide_kernel<T>, sm_dq);
+    if (err == cudaSuccess) err = allow_smem(bwd_dkdv_wide_kernel<T>, sm_dkdv);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const auto* qt = static_cast<const T*>(q);
+  const auto* kt = static_cast<const T*>(k);
+  const auto* vt = static_cast<const T*>(v);
+  const auto* dt = static_cast<const T*>(dout);
+  bwd_dq_wide_kernel<T><<<dim3(nt, H, B), W_THREADS, sm_dq, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), s);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dkdv_wide_kernel<T><<<dim3(nt, Hk, B), W_THREADS, sm_dkdv, stream>>>(
+      qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, Hk, D), all contiguous,
 // 16-byte aligned (TMA's tiles and the fp32 kernels' 16-byte pieces) and of
-// one dtype (0 float32, 1 bfloat16), D in {16, 32, 64}; lse, delta:
+// one dtype (0 float32, 1 bfloat16), D in {16, 32, 64, 256}; lse, delta:
 // (B, H, S) float32 scratch.  window <= 0 means no window.  Two launches on
 // `stream`; returns cudaGetLastError() after them (0 on success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -863,6 +1166,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                       st);
       case 64: return launch_fp32<64>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
                                       st);
+      case 256: return launch_wide<float>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal,
+                                          window, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -874,6 +1179,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                     st);
       case 64: return launch_tc<64>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
                                     st);
+      case 256: return launch_wide<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk,
+                                                  causal, window, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "paged_attention", "decode_attention", "rwkv6_scan",
-           "rglru_scan", "flash_attention_bwd")
+           "rglru_scan", "flash_attention_bwd", "rwkv6_scan_bwd", "rglru_scan_bwd")
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"     # the CUDA toolkit's default location
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -21,7 +21,10 @@ pass computes the rows' log-sum-exp and δ, a second dQ) and a dkdv kernel a
 KV tile.  bf16 runs ``bwd_dq_tc_kernel`` and ``bwd_dkdv_tc_kernel`` on the
 tensor cores (``wgmma`` over TMA tiles, P and dS rounded to bf16 before
 their products), fp32 ``bwd_dq_kernel`` and ``bwd_dkdv_kernel`` on the CUDA
-cores.  ``flash_attention_backward_plain`` is the same arithmetic tiled in
+cores.  At D = 256 (RecurrentGemma's local attention) both dtypes run
+``bwd_dq_wide_kernel`` and ``bwd_dkdv_wide_kernel``: CUDA cores, fp32
+products, tiles of 32 rows, since four 64 × 256 fp32 accumulators do not
+fit one warpgroup's registers.  ``flash_attention_backward_plain`` is the same arithmetic tiled in
 plain PyTorch, and :class:`FlashAttention` joins the forward and the
 backward for autograd, each picked by the tensors' device.
 """
@@ -38,10 +41,11 @@ from repro_torch.kernels import build, launches
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "HEAD_DIMS",
            "flash_attention_backward_cuda", "flash_attention_backward_plain",
-           "HEAD_DIMS_BWD", "FlashAttention"]
+           "HEAD_DIMS_BWD", "HEAD_DIMS_BWD_TC", "FlashAttention"]
 
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's compiled head widths
-HEAD_DIMS_BWD = (16, 32, 64)              # the backward kernel's
+HEAD_DIMS_BWD = (16, 32, 64, 256)         # the backward kernels'
+HEAD_DIMS_BWD_TC = (16, 32, 64)           # of those, the widths bf16 takes on the tensor cores
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -304,10 +308,16 @@ def flash_attention_backward_cuda(q, k, v, d_out, *, causal: bool = True,
     ``flash_attention_backward_cuda.launches``.
 
     Two launches on the current stream, the second reading the (B, H, S)
-    fp32 log-sum-exp and δ the first writes: bf16 runs the tensor-core
-    kernels (one warpgroup a 64-row tile; S, dP, dQ, dV and dK through
-    ``wgmma`` from 128-byte-swizzled TMA tiles, D = 16 and 32 padded to 64
-    by TMA's zero fill), fp32 the CUDA-core kernels (tiles of 64 rows)."""
+    fp32 log-sum-exp and δ the first writes: bf16 at D in
+    ``HEAD_DIMS_BWD_TC`` runs the tensor-core kernels (one warpgroup a
+    64-row tile; S, dP, dQ, dV and dK through ``wgmma`` from
+    128-byte-swizzled TMA tiles, D = 16 and 32 padded to 64 by TMA's zero
+    fill), fp32 the CUDA-core kernels (tiles of 64 rows); D = 256 takes the
+    wide CUDA-core kernels in both dtypes (tiles of 32 rows, fp32
+    products).  The head width is checked first, wherever the tensors lie."""
+    if q.dim() == 4 and q.shape[3] not in HEAD_DIMS_BWD:
+        raise ValueError(f"flash_attention_backward_cuda: head_dim {q.shape[3]} not in "
+                         f"{HEAD_DIMS_BWD}")
     for name, t in (("q", q), ("k", k), ("v", v), ("d_out", d_out)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_backward_cuda: {name} is on {t.device}, "
@@ -333,8 +343,6 @@ def flash_attention_backward_cuda(q, k, v, d_out, *, causal: bool = True,
     Hk = k.shape[2]
     if H % Hk != 0:
         raise ValueError(f"flash_attention_backward_cuda: {H} query heads over {Hk} KV heads")
-    if D not in HEAD_DIMS_BWD:
-        raise ValueError(f"flash_attention_backward_cuda: head_dim {D} not in {HEAD_DIMS_BWD}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_backward_cuda: window must be >= 1, got {window}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -21,6 +21,11 @@ __all__ = ["flash_attention", "decode_attention", "paged_attention", "span_atten
            "paged_span_attention", "wkv6", "rglru_scan"]
 
 
+def _needs_grad(*tensors) -> bool:
+    """Grad is enabled and some tensor (None skipped) requires it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     q_block: int = 512, kv_block: int = 1024, causal_skip: bool = True):
     """q: (B, Sq, H, D); k/v: (B, Skv, Hk, D) -> (B, Sq, H, D).
@@ -38,7 +43,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = Non
     backward kernel takes Sq = Skv only and raises otherwise); otherwise, as
     on every serving path, no autograd node is built.
     """
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _needs_grad(q, k, v):
         return _flash.FlashAttention.apply(q, k, v, causal, window, q_block, kv_block,
                                            causal_skip)
     if q.device.type == "cpu":
@@ -95,7 +100,11 @@ def paged_span_attention(q, k_pool, v_pool, table, base_len):
 def wkv6(r, k, v, w, u, state=None):
     """RWKV6 recurrence.  r/k/v: (B, T, H, D); w: (B, T, H, D) float32
     decays; u: (H, D); state: (B, H, D, D) float32 or None.  Returns
-    ``(out in r's dtype, final state float32)``."""
+    ``(out in r's dtype, final state float32)``.  With grad enabled and an
+    input that requires it, the call goes through ``WKV6`` (forward and
+    backward kernels on the card); otherwise no autograd node is built."""
+    if _needs_grad(r, k, v, w, u, state):
+        return _wkv6.WKV6.apply(r, k, v, w, u, state)
     if r.device.type == "cpu":
         return _wkv6.wkv6_plain(r, k, v, w, u, state)
     return _wkv6.wkv6_cuda(r, k, v, w, u, state)
@@ -104,7 +113,11 @@ def wkv6(r, k, v, w, u, state=None):
 def rglru_scan(x, a_log, state=None):
     """RG-LRU recurrence.  x: (B, T, W) in the model dtype; a_log: (B, T, W)
     float32 log-gates ≤ 0; state: (B, W) float32 or None.  Returns ``(h in
-    x's dtype, final state float32)``."""
+    x's dtype, final state float32)``.  With grad enabled and an input that
+    requires it, the call goes through ``RGLRU`` (forward and backward
+    kernels on the card); otherwise no autograd node is built."""
+    if _needs_grad(x, a_log, state):
+        return _rglru.RGLRU.apply(x, a_log, state)
     if x.device.type == "cpu":
         return _rglru.rglru_plain(x, a_log, state)
     return _rglru.rglru_cuda(x, a_log, state)

@@ -31,6 +31,23 @@ predecessor's walk ended in, so it steps the plain version's recurrence;
 it is bit-identical to the plain version wherever every ``2a > −0.5`` and
 within a few units of the gates elsewhere.  The chain's scratch is held
 here across calls, one a device, and the kernel leaves it zeroed.
+
+Training adds the backward, which the JAX package takes as ``jax.grad`` of
+``_rglru_jnp``: with g_t = sqrt(max(1 − exp(2a_t), 1e-12)) and δ_t the
+gradient reaching h_t (from the output and from h_{t+1})::
+
+    δ_t = ∂h_t + exp(a_{t+1}) · δ_{t+1}
+    ∂x_t = g_t · δ_t
+    ∂a_t = δ_t · (exp(a_t) · h_{t−1}) + (δ_t · x_t) · ∂g_t/∂a_t,
+    ∂g/∂a = −exp(2a) / g, zero where the clamp holds g at 1e-6
+
+and ∂state = exp(a_0) · δ_0.  h_{t−1} is the fp32 state, rebuilt from
+the inputs by the forward's own steps, never the rounded output.
+``rglru_backward_cuda`` launches ``csrc/rglru_scan_bwd.cu`` (one thread a
+channel: a forward sweep saving each token's incoming state in fp32, then
+the reverse sweep), ``rglru_backward_plain`` is the same arithmetic in
+plain fp32 PyTorch, each product and sum rounded apart in the order above,
+and :class:`RGLRU` joins forward and backward for autograd.
 """
 from __future__ import annotations
 
@@ -40,7 +57,8 @@ import torch
 
 from repro_torch.kernels import build, launches
 
-__all__ = ["rglru_cuda", "rglru_plain", "CHUNK"]
+__all__ = ["rglru_cuda", "rglru_plain", "CHUNK", "rglru_backward_cuda", "rglru_backward_plain",
+           "RGLRU"]
 
 CHUNK = 16                   # tokens a chunk block of the kernel (csrc/rglru_scan.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -148,3 +166,129 @@ def rglru_cuda(x, a_log, state=None):
 
 
 rglru_cuda.launches = 0
+
+
+def rglru_backward_plain(x, a_log, d_h, state=None, d_state=None):
+    """Gradients of :func:`rglru_plain` at (x, a_log, state) given the
+    output's gradient ``d_h`` (B, T, W) and the final state's ``d_state``
+    (B, W) or None (zeros).  Returns ``(dx in x's dtype, da_log float32,
+    d_state0 float32)``.
+
+    The gates as the forward takes them (exp(2a) correctly rounded), the
+    states rebuilt by its steps, then the reverse sweep of the module
+    docstring token by token in fp32.
+    """
+    B, T, W = x.shape
+    h = (torch.zeros((B, W), dtype=torch.float32, device=x.device) if state is None
+         else state.float())
+    al = a_log.float()
+    a = torch.exp(al)
+    e2 = torch.exp(2.0 * al.double()).float()            # correctly rounded
+    one_m = 1.0 - e2
+    g = torch.sqrt(torch.clamp_min(one_m, 1e-12))
+    dg = torch.where(one_m >= 1e-12, -(e2 / g), 0.0)
+    xf = x.float()
+    gated = g * xf
+    h_in = torch.empty((B, T, W), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        h_in[:, t] = h
+        h = a[:, t] * h + gated[:, t]
+    carry = (torch.zeros((B, W), dtype=torch.float32, device=x.device) if d_state is None
+             else d_state.float())
+    dh = d_h.float()
+    dx = torch.empty((B, T, W), dtype=torch.float32, device=x.device)
+    da = torch.empty_like(dx)
+    for t in reversed(range(T)):
+        d = dh[:, t] + carry
+        dx[:, t] = g[:, t] * d
+        da[:, t] = d * (a[:, t] * h_in[:, t]) + (d * xf[:, t]) * dg[:, t]
+        carry = a[:, t] * d
+    return dx.to(x.dtype), da, carry
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = build.load("rglru_scan_bwd")
+    fn = lib.repro_rglru_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def rglru_backward_cuda(x, a_log, d_h, state=None, d_state=None):
+    """Launch the CUDA RG-LRU backward.  x and d_h: (B, T, W) contiguous of
+    one dtype, float32 or bfloat16; a_log: (B, T, W) contiguous float32;
+    state and d_state: (B, W) contiguous float32, or None for zeros.  All on
+    one CUDA device.  Returns ``(dx, da_log, d_state0)`` as
+    :func:`rglru_backward_plain` does.  Raises on anything else, and counts
+    each launch in ``rglru_backward_cuda.launches``.  The forward sweep's
+    fp32 states (B·T·W floats) take a scratch from the caching allocator.
+    Shapes and dtypes are checked before the device."""
+    B, T, W = x.shape
+    named = [("x", x), ("a_log", a_log), ("d_h", d_h)]
+    named += [(n, t) for n, t in (("state", state), ("d_state", d_state)) if t is not None]
+    if x.dtype not in _DTYPE_CODE or d_h.dtype != x.dtype:
+        raise ValueError(f"rglru_backward_cuda: x and d_h must share float32 or bfloat16, got "
+                         f"{x.dtype}, {d_h.dtype}")
+    if a_log.dtype != torch.float32 or any(t is not None and t.dtype != torch.float32
+                                           for t in (state, d_state)):
+        raise ValueError("rglru_backward_cuda: a_log, state and d_state must be float32")
+    if (x.dim() != 3 or a_log.shape != x.shape or d_h.shape != x.shape
+            or any(t is not None and tuple(t.shape) != (B, W) for t in (state, d_state))):
+        raise ValueError(f"rglru_backward_cuda: shapes x {tuple(x.shape)}, a_log "
+                         f"{tuple(a_log.shape)}, d_h {tuple(d_h.shape)} are not (B, T, W) x3 "
+                         f"with states (B, W)")
+    for name, t in named:
+        if t.device.type != "cuda":
+            raise ValueError(f"rglru_backward_cuda: {name} is on {t.device}, not a CUDA device")
+        if t.device != x.device:
+            raise ValueError(f"rglru_backward_cuda: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"rglru_backward_cuda: {name} must be contiguous")
+    dx, da = torch.empty_like(x), torch.empty_like(a_log)
+    d_state0 = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    if B * W == 0:
+        return dx, da, d_state0
+    if T == 0:
+        return dx, da, (d_state0.zero_() if d_state is None else d_state0.copy_(d_state))
+    lib = _lib_bwd()
+    h_in = torch.empty((B, T, W), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.repro_rglru_scan_bwd(x.data_ptr(), a_log.data_ptr(),
+                                   None if state is None else state.data_ptr(),
+                                   d_h.data_ptr(), None if d_state is None else d_state.data_ptr(),
+                                   dx.data_ptr(), da.data_ptr(), d_state0.data_ptr(),
+                                   h_in.data_ptr(), B, T, W, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_backward_cuda: launch failed with CUDA error {err}")
+    launches.count(rglru_backward_cuda)
+    return dx, da, d_state0
+
+
+rglru_backward_cuda.launches = 0
+
+
+class RGLRU(torch.autograd.Function):
+    """The RG-LRU scan with its gradient: forward and backward each take the
+    kernel on a CUDA tensor and the plain version on a CPU one.  The
+    forward saves its inputs; the backward rebuilds the fp32 states.
+    ``ops.rglru_scan`` routes here only when grad is enabled and an input
+    requires it, so serving never builds a node."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, state):
+        fwd = rglru_plain if x.device.type == "cpu" else rglru_cuda
+        h, h_out = fwd(x, a_log, state)
+        ctx.save_for_backward(x, a_log, state)
+        ctx.set_materialize_grads(False)
+        return h, h_out
+
+    @staticmethod
+    def backward(ctx, d_h, d_state):
+        x, a_log, state = ctx.saved_tensors
+        d_h = torch.zeros_like(x) if d_h is None else d_h.contiguous()
+        if d_state is not None:
+            d_state = d_state.contiguous()
+        bwd = rglru_backward_plain if x.device.type == "cpu" else rglru_backward_cuda
+        dx, da, d_state0 = bwd(x, a_log, d_h, state, d_state)
+        return dx, da, (d_state0 if state is not None else None)

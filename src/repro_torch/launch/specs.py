@@ -10,6 +10,8 @@ frames, d_model) and the vision-language trunk precomputed patch-and-text
 embeddings (B, S, d_model).  ``mrope_positions`` gives the three M-RoPE ids
 of a text-image-text sequence by Qwen2-VL's rule.  The per-cell sharding
 presets of the JAX module belong to the mesh, which is not ported yet.
+Every maker puts its tensors on the card unless ``device`` says otherwise
+(the tests pass ``device="cpu"``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
 
 __all__ = ["AUDIO_ENC_FRAMES", "enc_len_for", "frame_embeddings", "patch_embeddings",
            "mrope_positions", "batch_inputs", "prefill_inputs", "decode_inputs"]
@@ -34,18 +37,18 @@ def enc_len_for(cfg: ModelConfig) -> int:
 
 def _normal(shape, seed: int, cfg: ModelConfig, device) -> torch.Tensor:
     x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
-    return torch.from_numpy(x).to(device=device, dtype=_DTYPES[cfg.dtype])
+    return torch.from_numpy(x).to(device=resolve_device(device), dtype=_DTYPES[cfg.dtype])
 
 
 def frame_embeddings(cfg: ModelConfig, batch: int, seed: int, n_frames: int = AUDIO_ENC_FRAMES,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """The audio stub's frame embeddings (batch, n_frames, d_model), N(0, 1)
     from ``seed``, in the model dtype."""
     return _normal((batch, n_frames, cfg.d_model), seed, cfg, device)
 
 
 def patch_embeddings(cfg: ModelConfig, batch: int, seq: int, seed: int,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """The vision stub's patch-and-text embeddings (batch, seq, d_model),
     N(0, 1) from ``seed``, in the model dtype."""
     return _normal((batch, seq, cfg.d_model), seed, cfg, device)
@@ -69,10 +72,10 @@ def mrope_positions(text_before: int, grid_h: int, grid_w: int, text_after: int)
 
 def _tokens(cfg: ModelConfig, shape, seed: int, device) -> torch.Tensor:
     ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
-    return torch.from_numpy(ids).to(device)
+    return torch.from_numpy(ids).to(resolve_device(device))
 
 
-def batch_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int, device="cpu") -> dict:
+def batch_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int, device="cuda") -> dict:
     """A training batch as JAX's ``batch_inputs`` shapes it: ``labels``
     (batch, seq); ``tokens`` (batch, seq), or the vision stub's ``embeds``
     (batch, seq, d_model); an encoder-decoder also ``enc_embeds`` (batch,
@@ -88,7 +91,7 @@ def batch_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int, device="cpu"
     return out
 
 
-def prefill_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int, device="cpu") -> dict:
+def prefill_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int, device="cuda") -> dict:
     """A prefill's inputs as JAX's ``prefill_inputs`` shapes them:
     ``tokens`` (batch, seq) ids, or the vision stub's (batch, seq, d_model)
     embeddings; an encoder-decoder also ``enc_embeds`` (batch,
@@ -100,7 +103,7 @@ def prefill_inputs(cfg: ModelConfig, batch: int, seq: int, seed: int, device="cp
     return out
 
 
-def decode_inputs(cfg: ModelConfig, batch: int, seed: int, device="cpu") -> dict:
+def decode_inputs(cfg: ModelConfig, batch: int, seed: int, device="cuda") -> dict:
     """A decode step's input as JAX's ``decode_inputs`` shapes it: ``tokens``
     (batch, 1) ids, or the vision stub's (batch, 1, d_model) embedding."""
     if cfg.frontend == "vision":

@@ -213,6 +213,12 @@ class RGLRUBlock(nn.Module):
         return x + self.mlp(self.n2(x)), (conv, h)
 
 
+def _recurrent_block(blk, x):
+    """An RWKV6 or RG-LRU block over the whole sequence from zero state: (x,
+    None), the carried states dropped (training's full forward)."""
+    return blk(x)[0], None
+
+
 def _make_block(cfg: ModelConfig, kind: str, *, dtype, device, shard) -> nn.Module:
     if kind == "rwkv":
         return RWKVBlock(cfg, dtype=dtype, device=device)
@@ -386,15 +392,12 @@ class Model(nn.Module):
         summed over the layers (the MoE's load-balance loss, with capacity
         dispatch; 0 for the other families), as JAX's ``Model.forward``.
 
-        With ``shard.remat == "block"`` and grad enabled, each block runs
-        under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed
-        in the backward, as JAX wraps each scan group in ``jax.checkpoint``.
-        Attention stacks only: the WKV6 and RG-LRU kernels have no backward
-        yet, so a recurrent or hybrid model raises ``NotImplementedError``."""
-        if self.recurrent or self.hybrid:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training a {self.cfg.family} stack needs backward kernels "
-                f"for its recurrence (WKV6 / RG-LRU), which are not written yet")
+        RWKV6 and RG-LRU blocks run over the whole sequence from zero
+        state (their WKV6 and RG-LRU calls take ``ops``' autograd nodes
+        under grad), a hybrid's attention blocks as the dense ones.  With
+        ``shard.remat == "block"`` and grad enabled, each block runs under
+        ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
+        backward, as JAX wraps each scan group in ``jax.checkpoint``."""
         x = self._embed_in(inputs)
         B, S = x.shape[:2]
         pos = positions if positions is not None else self._positions(B, S)
@@ -403,11 +406,11 @@ class Model(nn.Module):
         remat = self.shard.remat == "block" and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.blocks:
-            if remat:
-                x, aux = checkpoint(self._dense_block, blk, x, rope, enc_out,
-                                    use_reentrant=False)
+            if isinstance(blk, Block):
+                fn, args = self._dense_block, (blk, x, rope, enc_out)
             else:
-                x, aux = self._dense_block(blk, x, rope, enc_out)
+                fn, args = _recurrent_block, (blk, x)
+            x, aux = checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
             if aux is not None:
                 aux_total = aux_total + aux
         return self._logits(x), aux_total

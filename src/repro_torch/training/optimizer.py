@@ -2,10 +2,14 @@
 pytree optimizer (``training/optimizer.py`` there).
 
 The API keeps the (init, update) pair, so the router trainer reads as its
-JAX counterpart.  ``update`` is functional: it returns new parameter and
-moment tensors and leaves its inputs alone.  The arithmetic is JAX's, in
-the same order: moments in ``moment_dtype`` (float32 by default), the
-update in float32, the bias corrections ``1 − β^t`` in float32.
+JAX counterpart.  ``update`` donates the parameters and the state, as the
+JAX trainer's jit donates both: each tensor is overwritten in place with
+its new value and the same tensors are returned, so a step keeps one copy
+of them (at RWKV6-3B's width a second copy of its fp32 moments, 24.7 GB,
+beside its weights would not fit one card).  The gradients are left
+alone.  The arithmetic is JAX's, in the same order: moments in
+``moment_dtype`` (float32 by default), the update in float32, the bias
+corrections ``1 − β^t`` in float32.
 """
 from __future__ import annotations
 
@@ -29,14 +33,20 @@ class Optimizer:
     update: Callable
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
-    """Scale every gradient by min(1, max_norm / (‖grads‖ + 1e-9)), the norm
-    taken over all of them in float32.  Returns (clipped grads, norm)."""
+def _clip_scale(grads: list, max_norm: float):
+    """(min(1, max_norm / (‖grads‖ + 1e-9)), ‖grads‖), the norm taken over
+    all of them in float32."""
     total = 0
     for g in grads:
         total = total + torch.sum(torch.square(g.to(torch.float32)))
     gnorm = torch.sqrt(total)
-    scale = torch.clamp_max(max_norm / (gnorm + 1e-9), 1.0)
+    return torch.clamp_max(max_norm / (gnorm + 1e-9), 1.0), gnorm
+
+
+def clip_by_global_norm(grads: list, max_norm: float):
+    """Scale every gradient by min(1, max_norm / (‖grads‖ + 1e-9)), the norm
+    taken over all of them in float32.  Returns (clipped grads, norm)."""
+    scale, gnorm = _clip_scale(grads, max_norm)
     return [g * scale for g in grads], gnorm
 
 
@@ -74,25 +84,37 @@ def adamw(
         return OptimizerState(step=0, mu=[torch.zeros_like(p, dtype=moment_dtype) for p in params],
                               nu=[torch.zeros_like(p, dtype=moment_dtype) for p in params])
 
+    @torch.no_grad()
     def update(grads: list, state: OptimizerState, params: list):
-        if grad_clip is not None:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
+        """One step: returns ``(params, state)``, the same tensors updated in
+        place.  A leaf at a time, so its float32 temporaries are the only
+        memory it takes beside them; each product and sum is JAX's, rounded
+        where JAX's is (in-place forms of the same operations)."""
+        scale = _clip_scale(grads, grad_clip)[0] if grad_clip is not None else None
         step = state.step + 1
         lr = lr_fn(step)
         t = torch.tensor(float(step), dtype=torch.float32)
         b1t = (1 - torch.tensor(b1, dtype=torch.float32) ** t).item()
         b2t = (1 - torch.tensor(b2, dtype=torch.float32) ** t).item()
-        new_p, new_m, new_v = [], [], []
         for g, m, v, p in zip(grads, state.mu, state.nu, params):
-            g32 = g.to(torch.float32)
-            m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
-            v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g32)
-            d = (m32 / b1t) / (torch.sqrt(v32 / b2t) + eps)
+            g32 = (g if scale is None else g * scale).to(torch.float32)
+            m32 = m.to(torch.float32) * b1
+            m32.add_(g32 * (1 - b1))
+            v32 = v.to(torch.float32) * b2
+            v32.add_(torch.square(g32).mul_(1 - b2))
+            del g32
+            d = torch.sqrt(v32 / b2t).add_(eps)
+            d = torch.div(m32, b1t).div_(d)
+            m.copy_(m32)                     # donated: rounded to moment_dtype in place
+            v.copy_(v32)
+            del m32, v32
             if weight_decay:
-                d = d + weight_decay * p.to(torch.float32)
-            new_p.append((p.to(torch.float32) - lr * d).to(p.dtype))
-            new_m.append(m32.to(moment_dtype))
-            new_v.append(v32.to(moment_dtype))
-        return new_p, OptimizerState(step=step, mu=new_m, nu=new_v)
+                d.add_(p.to(torch.float32) * weight_decay)
+            d.mul_(lr)
+            if p.dtype == torch.float32:
+                p.sub_(d)
+            else:
+                p.copy_(p.to(torch.float32).sub_(d))
+        return list(params), OptimizerState(step=step, mu=list(state.mu), nu=list(state.nu))
 
     return Optimizer(init=init, update=update)

@@ -6,10 +6,10 @@ its ``make_train_step`` and ``Trainer``.  The mesh's partition specs (data
 parallelism, ZeRO-1, FSDP) wait for the mesh slice.  Where JAX's step is a
 pure function over a parameter pytree, the port's parameters are the
 model's own (``nn.Parameter``s by state name, grad turned on by
-:func:`trainable`): the step computes the gradients with autograd, takes
-the AdamW update functionally and copies it into the parameters in place,
-as JAX donates them to its jit.  On the card the model's attention runs
-the flash forward and backward kernels (``kernels.flash_attention``).
+:func:`trainable`): the step computes the gradients with autograd and
+takes the AdamW update in place on the parameters and the moments, as JAX
+donates both to its jit.  On the card the model's attention, WKV6 and
+RG-LRU run their forward and backward kernels (``kernels.ops``).
 """
 from __future__ import annotations
 
@@ -79,10 +79,7 @@ def make_train_step(model: Model, opt: Optimizer):
         else:
             loss, grads = value_and_grad(leaves, batch)
         grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads))
-        new, opt_state = opt.update(list(grads), opt_state, leaves)
-        with torch.no_grad():
-            for p, n in zip(leaves, new):
-                p.copy_(n)
+        _, opt_state = opt.update(list(grads), opt_state, leaves)   # in place
         return params, opt_state, {"loss": loss.to(torch.float32), "grad_norm": grad_norm}
 
     return train_step
@@ -121,18 +118,14 @@ class Trainer:
         return params, self.opt.init(list(params.values()))
 
     def restore_or_init(self, generator: torch.Generator):
-        """``init_state``, then the latest checkpoint over it if there is one.
-        Returns ``(params, opt_state, start_step)``."""
+        """``init_state``, then the latest checkpoint over it if there is one,
+        read into the fresh parameters and moments in place.  Returns
+        ``(params, opt_state, start_step)``."""
         params, opt_state = self.init_state(generator)
         start = 0
         if self._mgr and self._mgr.latest_step() is not None:
             state, start = self._mgr.restore(train_state(params, opt_state))
-            with torch.no_grad():
-                for n, p in params.items():
-                    p.copy_(state[f"params/{n}"])
-            opt_state = OptimizerState(step=int(state["opt/step"]),
-                                       mu=[state[f"opt/mu/{n}"] for n in params],
-                                       nu=[state[f"opt/nu/{n}"] for n in params])
+            opt_state = opt_state._replace(step=int(state["opt/step"]))
         return params, opt_state, start
 
     def fit(self, params, opt_state, batches, start_step: int = 0, log_every: int = 10):

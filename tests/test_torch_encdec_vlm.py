@@ -230,7 +230,7 @@ def _pair(arch):
 
 
 def _frames(cfg, B, seed=3):
-    return specs.frame_embeddings(cfg, B, seed, n_frames=ENC_LEN)
+    return specs.frame_embeddings(cfg, B, seed, n_frames=ENC_LEN, device="cpu")
 
 
 def test_bridge_maps_encoder_and_cross_leaves():
@@ -371,7 +371,7 @@ def test_vlm_forward_with_image_grid_positions_matches_reference():
     cfg = model.cfg
     pos = specs.mrope_positions(4, 3, 4, 5)
     S = pos.shape[-1]
-    embeds = specs.patch_embeddings(cfg, 2, S, seed=9)
+    embeds = specs.patch_embeddings(cfg, 2, S, seed=9, device="cpu")
     pos3 = torch.stack([pos, pos + 2])
     want, _ = jmodel.forward(jparams, jnp.asarray(embeds.numpy()),
                              positions=jnp.asarray(pos3.numpy()))
@@ -388,7 +388,7 @@ def test_vlm_prefill_from_embeddings_then_decode_matches_reference():
     and the same tokens."""
     jmodel, jparams, model = _pair("qwen2-vl-72b")
     cfg = model.cfg
-    embeds = specs.patch_embeddings(cfg, 2, 13, seed=10)
+    embeds = specs.patch_embeddings(cfg, 2, 13, seed=10, device="cpu")
     want, jcache = jmodel.prefill(jparams, jnp.asarray(embeds.numpy()), 24)
     got, cache = model.prefill(embeds, max_len=24)
     _close(got.numpy(), want, LOGIT_TOL)
@@ -400,7 +400,7 @@ def test_vlm_prefill_from_embeddings_then_decode_matches_reference():
         _close(got.numpy(), want, LOGIT_TOL)
         tok = np.asarray(want)[:, 0].argmax(-1).astype(np.int32)[:, None]
         np.testing.assert_array_equal(got[:, 0].argmax(-1).numpy(), tok[:, 0])
-    e = specs.decode_inputs(cfg, 2, seed=11)["tokens"]
+    e = specs.decode_inputs(cfg, 2, seed=11, device="cpu")["tokens"]
     want, _ = step(jparams, jnp.asarray(e.numpy()), jcache)
     _close(model.decode_step(e, cache).numpy(), want, LOGIT_TOL)
 
@@ -442,9 +442,9 @@ def test_stub_input_shapes_match_reference_specs(arch):
     jcfg, cfg = jax_get_arch(arch).reduced(), get_arch(arch).reduced()
     assert specs.AUDIO_ENC_FRAMES == jspecs.AUDIO_ENC_FRAMES
     assert specs.enc_len_for(cfg) == jspecs.enc_len_for(jcfg, None)
-    for kind, ours in (("train", specs.batch_inputs(cfg, 2, 40, 0)),
-                       ("prefill", specs.prefill_inputs(cfg, 2, 40, 0)),
-                       ("decode", specs.decode_inputs(cfg, 2, 0))):
+    for kind, ours in (("train", specs.batch_inputs(cfg, 2, 40, 0, device="cpu")),
+                       ("prefill", specs.prefill_inputs(cfg, 2, 40, 0, device="cpu")),
+                       ("decode", specs.decode_inputs(cfg, 2, 0, device="cpu"))):
         shape = ShapeConfig("t", kind, 40, 2)
         fn = {"train": jspecs.batch_inputs, "prefill": jspecs.prefill_inputs,
               "decode": jspecs.decode_inputs}[kind]

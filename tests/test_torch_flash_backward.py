@@ -149,5 +149,5 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_wide_heads():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, 1, 4, 2, 2, 16))
     with pytest.raises(ValueError, match="not a CUDA device"):
         flash_attention_backward_cuda(q, k, v, do)
-    assert HEAD_DIMS_BWD == (16, 32, 64)
+    assert HEAD_DIMS_BWD == (16, 32, 64, 256)
     assert flash_attention_backward_cuda.launches == 0

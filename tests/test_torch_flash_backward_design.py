@@ -42,7 +42,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS_BWD,
+    HEAD_DIMS_BWD_TC,
     flash_attention_backward_plain,
     flash_attention_plain,
 )
@@ -174,7 +174,7 @@ def _jax_grads(q, k, v, do, window):
 
 # (D, G, S, window): every head width, group size and length of the card's
 # cases but its longest, and one window shorter than S
-CASES = [(D, G, S, None) for D in HEAD_DIMS_BWD for G in (1, 2, 4) for S in (1, 37, 128)]
+CASES = [(D, G, S, None) for D in HEAD_DIMS_BWD_TC for G in (1, 2, 4) for S in (1, 37, 128)]
 CASES.append((32, 2, 128, 40))
 
 
@@ -231,7 +231,7 @@ def test_chip_smoke_names_every_backward_kernel():
     kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                          src)
     frags = _bwd_kernel_fragments()
-    assert len(kernels) == 4, kernels
+    assert len(kernels) == 6, kernels
     for name in kernels:
         assert any(f in name for f in frags), (name, frags)
     for f in frags:

@@ -19,6 +19,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch, repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.kernels.ops, repro_torch.models.bridge\n"
             "import repro_torch.models.rglru, repro_torch.kernels.rglru_scan\n"
+            "import repro_torch.kernels.rwkv6_scan, repro_torch.kernels.flash_attention\n"
             "import repro_torch.configs.recurrentgemma_9b\n"
             "import repro_torch.serving.graphs, repro_torch.utils.prng\n"
             "import repro_torch.serving.speculative, repro_torch.configs.qwen1_5_4b\n"

@@ -37,7 +37,7 @@ from repro_torch.config import ShardingConfig, get_arch
 from repro_torch.data.pipeline import ShardedPipeline, synthetic_lm_stream
 from repro_torch.models.bridge import state_from_jax
 from repro_torch.models.transformer import Model
-from repro_torch.training.optimizer import adamw, cosine_schedule
+from repro_torch.training.optimizer import adamw, clip_by_global_norm, cosine_schedule
 from repro_torch.training.train_loop import Trainer, make_train_step, train_state, trainable
 from repro_torch.utils.tree import tree_bytes, tree_size, tree_summary
 
@@ -165,16 +165,6 @@ def test_padded_vocab_masks_under_autograd():
     assert bool(grads["lm_head"][:, :500].abs().sum() > 0)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
-def test_recurrent_families_refuse_training(arch):
-    """The WKV6 and RG-LRU kernels have no backward yet: ``forward`` (and so
-    ``loss``) raises on those families instead of training them wrongly."""
-    model = Model(get_arch(arch).reduced(), ShardingConfig(remat="none"), device="cpu")
-    batch = {k: torch.from_numpy(v) for k, v in _batch(model.cfg.vocab_size, S=8).items()}
-    with pytest.raises(NotImplementedError, match="backward kernels"):
-        model.loss(batch)
-
-
 def test_cosine_schedule_equals_jax():
     for args in ((1e-3, 10, 100), (3e-3, 10, 12)):
         j, t = jax_cosine(*args), cosine_schedule(*args)
@@ -279,7 +269,7 @@ def test_checkpoint_atomic_and_keep_n(tmp_path):
     steps = sorted(d for d in os.listdir(tmp_path) if d.startswith("step_"))
     assert steps == ["step_000000000003", "step_000000000004"]
     assert not [d for d in os.listdir(tmp_path) if d.startswith("tmp.")]
-    restored, step = mgr.restore(state)
+    restored, step = mgr.restore({k: torch.zeros_like(v) for k, v in state.items()})
     assert step == 4
     for k in state:
         assert restored[k].dtype == state[k].dtype and torch.equal(restored[k], state[k])
@@ -292,10 +282,70 @@ def test_checkpoint_ignores_partial_writes(tmp_path):
     save_state(state, str(tmp_path), 7)
     os.makedirs(tmp_path / "tmp.9.123", exist_ok=True)   # a torn write
     assert latest_step(str(tmp_path)) == 7
-    restored, step = load_state(state, str(tmp_path))
+    restored, step = load_state({"a": torch.zeros_like(state["a"])}, str(tmp_path))
     assert step == 7 and torch.equal(restored["a"], state["a"])
     with pytest.raises(FileNotFoundError):
         load_state(state, str(tmp_path / "empty"))
+
+
+def test_checkpoint_restores_into_the_template(tmp_path):
+    """A restore reads each leaf into the template's own tensor, bf16 bit
+    for bit, and returns those tensors."""
+    saved = {"w": torch.randn(4, 3).to(torch.bfloat16), "m": torch.randn(5),
+             "step": torch.tensor(9, dtype=torch.int64)}
+    save_state(saved, str(tmp_path), 9)
+    template = {k: torch.zeros_like(v) for k, v in saved.items()}
+    restored, step = load_state(template, str(tmp_path))
+    assert step == 9
+    for k in saved:
+        assert restored[k] is template[k] and torch.equal(template[k], saved[k]), k
+
+
+def _functional_adamw(grads, state, params, lr, b1, b2, eps, weight_decay, grad_clip):
+    """AdamW as a function of its inputs, which it leaves alone: JAX's
+    order of operations, new tensors out."""
+    if grad_clip is not None:
+        grads, _ = clip_by_global_norm(grads, grad_clip)
+    t = torch.tensor(float(state.step + 1), dtype=torch.float32)
+    b1t = (1 - torch.tensor(b1, dtype=torch.float32) ** t).item()
+    b2t = (1 - torch.tensor(b2, dtype=torch.float32) ** t).item()
+    new_p, new_m, new_v = [], [], []
+    for g, m, v, p in zip(grads, state.mu, state.nu, params):
+        g32 = g.to(torch.float32)
+        m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
+        v32 = b2 * v.to(torch.float32) + (1 - b2) * torch.square(g32)
+        d = (m32 / b1t) / (torch.sqrt(v32 / b2t) + eps)
+        if weight_decay:
+            d = d + weight_decay * p.to(torch.float32)
+        new_p.append((p.to(torch.float32) - lr * d).to(p.dtype))
+        new_m.append(m32.to(m.dtype))
+        new_v.append(v32.to(v.dtype))
+    return new_p, new_m, new_v
+
+
+def test_adamw_update_donates_params_and_moments():
+    """The update overwrites the parameters and moments in place and returns
+    those tensors; the parameters (fp32 and bf16) and both moments equal
+    the functional form's, bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    params = [torch.randn(6, 5, generator=g), torch.randn(7, generator=g).to(torch.bfloat16)]
+    grads = [torch.randn(p.shape, generator=g).to(p.dtype) for p in params]
+    opt = adamw(1e-2, weight_decay=1e-3, grad_clip=0.5)
+    state = opt.init(params)
+    state = opt.update(grads, state, [p.clone() for p in params])[1]   # non-zero moments
+    want_p, want_m, want_v = _functional_adamw(
+        grads, state._replace(mu=[m.clone() for m in state.mu], nu=[v.clone() for v in state.nu]),
+        [p.clone() for p in params], 1e-2, 0.9, 0.95, 1e-8, 1e-3, 0.5)
+    before = [t.clone() for t in params]
+    new, new_state = opt.update(grads, state, params)
+    assert all(a is b for a, b in zip(new, params))
+    assert all(a is b for a, b in zip(new_state.mu, state.mu))
+    assert all(a is b for a, b in zip(new_state.nu, state.nu))
+    assert not any(torch.equal(a, b) for a, b in zip(params, before))
+    for got, want in ((new, want_p), (new_state.mu, want_m), (new_state.nu, want_v)):
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype
+            torch.testing.assert_close(a, w, rtol=0, atol=0)
 
 
 def test_synthetic_stream_equals_jax():
