@@ -13,12 +13,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    flash_wide, paged and decode_wide in their dtypes), and no spill in the
    WKV6 kernels (forward and backward), the RG-LRU kernels (forward and
    backward), the wide-head decode kernel, the paged kernel at D=128, any
-   D=192 instantiation or the flash backward's kernels (the D=256 wide
-   kernels' four instantiations must be reported); ``cuobjdump -sass`` of
-   the flash library must show HGMMA (Hopper's tensor-core product) in the
-   bf16 kernel at every head width, that of the flash backward in both
+   D=192 instantiation or the flash backward's kernels (the fp32 D=256
+   wide kernels' two instantiations must be reported); ``cuobjdump -sass``
+   of the flash library must show HGMMA (Hopper's tensor-core product) in
+   the bf16 kernel at every head width, that of the flash backward in both
    bf16 tensor-core kernels at every width of ``HEAD_DIMS_BWD_TC`` (16,
-   32, 64: D=256 runs the CUDA-core wide kernels in both dtypes), and the
+   32, 64 one warpgroup a block; 256 the two-warpgroup kernels), and the
    RG-LRU kernel's fp64 instructions (its exp(2a) near 0) are counted.
 3. Kernels against their plain PyTorch versions on the card: flash prefill
    at Qwen1.5-0.5B's heads (B=8, S in {128, 512}, bf16 and fp32), at ragged
@@ -73,7 +73,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    fp32, each launched twice for identical bits; decode over a cross
    cache of 1,536 frames at lengths 1, 1,535 and 1,536, launched twice;
    the flash backward at D=256 with G in {1, 16}, S in {1, 37, 256} and S
-   = 300 past a window of 64; the WKV6 backward at D in {16, 32, 64}, T in
+   = 300 past a window of 64, S = 130 with a window of 50 (ending inside a
+   64-key tile), G = 3 (split 1 + 2 over a cluster of two dkdv blocks),
+   and in bf16 at path o's shape (2, 3072, 16 on 1, window 2048); the
+   WKV6 backward at D in {16, 32, 64}, T in
    {1, 31, 32, 33} and at RWKV6-3B's (4, 512, 40, 64), decays from 1e-12
    to 1 in one chunk and RWKV6's own, with and without a state and the
    final state's gradient; the RG-LRU backward at T in {1, 15, 16, 17}
@@ -365,8 +368,13 @@ NEMOTRON_FP32_LAYERS = 1       # its fp32 parity: the first layer (51.6 GB)
 T_START = time.perf_counter()
 
 
+STAMPS = []                    # (phase, seconds since the start), into the results file
+
+
 def stamp(phase):
-    print(f"[time] {phase} done at {time.perf_counter() - T_START:.1f}s", flush=True)
+    at = time.perf_counter() - T_START
+    STAMPS.append((phase, round(at, 1)))
+    print(f"[time] {phase} done at {at:.1f}s", flush=True)
 
 
 def check(cond, msg):
@@ -2089,7 +2097,8 @@ H_HTTP_QUERIES = (0, 5, 11, 23)         # h4: positions in the test set asked ov
 H_WINDOW_S = 0.05                       # h4: the live server's admission window
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # backward kernel vs plain, row-relative
 BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
-               "bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")
+               "bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel", "bwd_dq_wg2_kernel",
+               "bwd_dkdv_wg2_kernel")
 PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"'
                          r'(,[a-zA-Z0-9_]+="[^"]*")*\})? (-?[0-9.e+-]+|\+Inf|NaN)$')
 
@@ -2813,10 +2822,10 @@ def main() -> int:
           f"ptxas reported no D=128 paged instantiation for some dtype: {d128_seen}")
     check(d192_seen == set(D192.values()),
           f"ptxas reported no D=192 instantiation of {set(D192.values()) - d192_seen}")
-    # the D=256 backward's two CUDA-core kernels, fp32 and bf16 each
-    check(len(wide_bwd_seen) == 4 and all(any(k in e for e in wide_bwd_seen)
+    # the fp32 D=256 backward's two CUDA-core kernels
+    check(len(wide_bwd_seen) == 2 and all(any(k in e for e in wide_bwd_seen)
                                           for k in ("bwd_dq_wide", "bwd_dkdv_wide")),
-          f"ptxas reported {sorted(wide_bwd_seen)} of the D=256 backward's four kernels")
+          f"ptxas reported {sorted(wide_bwd_seen)} of the fp32 D=256 backward's two kernels")
     results["build_s"] = build_s
     hgmma = sass_counts("flash_attention", lambda op: op.startswith("HGMMA"))
     tc_hgmma = {int(re.search(r"flash_tc_kernelILi(\d+)E", f)[1]): n
@@ -2831,16 +2840,15 @@ def main() -> int:
     bwd_sass = sass_counts("flash_attention_bwd", lambda op: op.startswith("HGMMA"))
     bwd_hgmma = {}
     for f, n in bwd_sass.items():
-        m = re.search(r"(bwd_(?:dq|dkdv)_tc_kernel)ILi(\d+)E", f)
+        m = re.search(r"(bwd_(?:dq|dkdv)_(?:tc|wg2)_kernel)ILi(\d+)E", f)
         if m:
             bwd_hgmma[f"{m[1]}<{m[2]}>"] = n
     print(f"[build] flash_attention_bwd SASS: HGMMA instructions in the bf16 kernels "
           f"{dict(sorted(bwd_hgmma.items()))}; in the fp32 kernels "
-          f"{sum(n for f, n in bwd_sass.items() if '_tc_kernel' not in f)}")
-    # D=256 runs the CUDA-core wide kernels in bf16 too: HGMMA is held at the
-    # tensor-core widths, HEAD_DIMS_BWD_TC
-    want_bwd = {f"{k}<{D}>" for k in BWD_KERNELS if "_tc_" in k
-                for D in flash_mod.HEAD_DIMS_BWD_TC}
+          f"{sum(n for f, n in bwd_sass.items() if not re.search('_(tc|wg2)_kernel', f))}")
+    # one warpgroup a block at D <= 64, two (D split between them) above
+    want_bwd = {f"bwd_{k}_{'wg2' if D > 64 else 'tc'}_kernel<{D}>"
+                for D in flash_mod.HEAD_DIMS_BWD_TC for k in ("dq", "dkdv")}
     check(set(bwd_hgmma) == want_bwd and all(bwd_hgmma.values()),
           f"the bf16 flash backward lacks HGMMA at some head width: {bwd_hgmma}")
     results["flash_bwd_tc_hgmma"] = bwd_hgmma
@@ -2970,11 +2978,17 @@ def main() -> int:
                   f"flash backward {label}: {B * H * -(-S // 64)} blocks on {sms} SMs")
             bwd_case(label, B, S, H, Hk, D, dtype, window=window)
         # D=256 (RecurrentGemma's local attention, 16 heads on one KV head):
-        # the wide CUDA-core kernels, at G in {1, 16}, and past a window
+        # bf16 the two-warpgroup wgmma kernels, fp32 the wide CUDA-core
+        # kernels, at G in {1, 16}, past a window and one ending mid-tile
         for G in (1, 16):
             for S in (1, 37, 256):
                 bwd_case(f"d256-G={G}", 2, S, 16, 16 // G, 256, dtype)
             bwd_case(f"d256-G={G}-window", 2, 300, 16, 16 // G, 256, dtype, window=64)
+            bwd_case(f"d256-G={G}-mid-tile", 2, 130, 16, 16 // G, 256, dtype, window=50)
+        # G = 3: the dkdv grid's group split (GS = 2) takes heads 1 + 2
+        bwd_case("d256-G=3", 2, 300, 12, 4, 256, dtype, window=100)
+    # path o's shape (RecurrentGemma-9B's local attention, 2 x 3,072 tokens)
+    bwd_case("d256-path-o", 2, 3072, 16, 1, 256, torch.bfloat16, window=2048)
 
     def paged_inputs(dtype, B=8, ps=16, H=16, Hk=16, D=64, max_len=512):
         """Pools and a table with a shared prefix of up to 8 pages (rows 0-3), a CoW
@@ -5047,6 +5061,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     results["kernels"] = entries
+    results["stamps"] = STAMPS
     (out_dir / "chip_smoke_results.json").write_text(json.dumps(results, indent=1))
     # |kernel − plain| ≤ atol + rtol·|plain| is the check each entry passed, with
     # |plain| taken element by element, or (scale "row") as the max of the

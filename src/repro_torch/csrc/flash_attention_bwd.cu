@@ -78,9 +78,14 @@
 // the H100 it beat 32 on the tiny pool's training shapes taken together and
 // at 1,024 blocks, though 32 won at 144-160 blocks
 // (benchmarks/torch_flash_bwd_tiles.py).
-// D = 256 (RecurrentGemma's local attention), both dtypes: bwd_dq_wide_kernel
-// and bwd_dkdv_wide_kernel, the same two launches on the CUDA cores with
-// tiles of 32 rows by 256 columns (see their section below).
+// D = 256 (RecurrentGemma's local attention): in bf16 bwd_dq_wg2_kernel and
+// bwd_dkdv_wg2_kernel, the tensor-core design above with two warpgroups a
+// block, D split between them, and the dkdv kernel's GQA group split over a
+// cluster of blocks that sums its partials in shared memory; in fp32
+// bwd_dq_wide_kernel and bwd_dkdv_wide_kernel, the same two launches on the
+// CUDA cores with tiles of 32 rows by 256 columns (see their sections below).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -458,21 +463,489 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout, voi
       !encode_bf16_4d(&tv, v, D, Hk, S, B, 64, 1, TC_T, 1) ||
       !encode_bf16_4d(&tdo, dout, D, H, S, B, 64, 1, TC_T, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool smem_set = false;   // once per width and process
-  if (!smem_set) {
-    cudaError_t err = allow_smem(bwd_dq_tc_kernel<D>, TC_SMEM);
-    if (err == cudaSuccess) err = allow_smem(bwd_dkdv_tc_kernel<D>, TC_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
+  // on every launch: the attribute belongs to the current device
+  cudaError_t err = allow_smem(bwd_dq_tc_kernel<D>, TC_SMEM);
+  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_tc_kernel<D>, TC_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int nt = (S + TC_T - 1) / TC_T;
   bwd_dq_tc_kernel<D><<<dim3(nt, H, B), TC_THREADS, TC_SMEM, stream>>>(
       tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), lse, delta, s, scale_log2);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkdv_tc_kernel<D><<<dim3(nt, Hk, B), TC_THREADS, TC_SMEM, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), s, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bf16 at D = 256: two warpgroups a block, D split between them -------
+// RecurrentGemma's local attention (16 heads on one KV head, D = 256, window
+// 2048).  A 64 x 256 fp32 accumulator is 128 floats a thread in one
+// warpgroup: dK and dV together would not fit, dQ beside S and dP would sit
+// at the register cap.  So a block has two warpgroups (256 threads), and
+// warpgroup w owns gradient columns [w·D/2, (w+1)·D/2): 64 floats a thread
+// for dQ (A), 128 for dK and dV (B).  S and dP need the whole of D: each
+// warpgroup forms both itself, as m64n64 products over D/16 steps, so the
+// two never wait on each other inside a tile pair and nothing is exchanged
+// through shared memory; the price is that S and dP are formed twice (15
+// products of 2·64·64·D a tile pair over the two kernels, not 9).  A
+// variant that formed each once (warpgroup 0 S, warpgroup 1 dP, the fp32
+// dP and the bf16 P and dS traded through 32 KB of shared memory behind
+// named barriers) gave the same bits and was slower on the H100: the
+// kernels wait on latency more than on the tensor cores' rate (PERF.md §6,
+// benchmarks/torch_flash_bwd_d256.py).
+//  * Tiles of 64 rows x D arrive by TMA as D/64 atom columns of 64 x 64
+//    (128-byte swizzle, 8 KB each, ATOM apart).  A loads Q and dO once and
+//    streams K/V through a ring of two stages; B loads K and V once and
+//    streams Q/dO.  Six tiles: 192 KB of the 227 KB a block may take.
+//  * S, dP (A) and Sᵀ, dPᵀ (B): wgmma m64n64k16, both operands K-major, the
+//    k-th step at atom kk / 4, offset 32·(kk % 4), as the forward's S.
+//    dQ, dV, dK: wgmma m64n(D/2)k16 with A from registers (dS, P, packed
+//    to bf16) and B the warpgroup's D/64 / 2 atom columns read MN-major (LBO
+//    = ATOM between atom columns), as the forward's P·V.
+//  * B splits the G query heads of a KV head over GS blocks, which form one
+//    cluster (1, GS, 1): block g walks heads [G·g/GS, G·(g+1)/GS) of the
+//    group.  Each block leaves its fp32 partial dK and dV in its own shared
+//    memory (the Q/dO ring, free once the walk ends); after a cluster
+//    barrier block g sums its share of the rows over the GS partials in rank
+//    order 0 .. GS-1, reading its peers' shared memory, and rounds each
+//    gradient once.  No scratch in device memory and no atomics: the same
+//    bits on every launch.  GS (group_split) doubles from 1 up to min(G, 4)
+//    while the grid has fewer than two blocks an SM.  At RecurrentGemma's
+//    training shape (B = 2, S = 3,072) that is GS = 4: 384 blocks instead
+//    of 96 blocks of 16 heads x ~33 Q tiles each.
+//  * B's per-query LSE and δ go through shared memory (two buffers of 64
+//    each): threads 0-63 load those of the next tile pair while this one
+//    is computed and store them before the refill barrier.
+// Masks, rounding points and the log2 domain are those of the one-warpgroup
+// kernels above.  D is a template parameter: D = 128 is the same design
+// (one atom column a warpgroup); D = 192 would need an m64n96 split.
+template <int D>
+struct Wg2 {
+  static_assert(D % 128 == 0, "each warpgroup takes whole atom columns");
+  static constexpr int THREADS = 256;
+  static constexpr int NA = D / 64;             // atom columns across a row
+  static constexpr int DW = D / 2;              // gradient columns a warpgroup
+  static constexpr int ATOM = TC_T * 128;       // bytes of one 64 x 64 atom column
+  static constexpr int TILE_B = NA * ATOM;      // one 64 x D tile
+  // 1024 bytes of alignment, six tiles, three barriers, B's LSE/δ buffers
+  static constexpr int SMEM = 1024 + 6 * TILE_B + 8 * 3 + 4 * 4 * TC_T;
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, b);
+  else wgmma_rs_m64n128k16(d, a, b);
+}
+
+// d = zero, then += A·Bᵀ over D/16 steps, both 64 x D tiles K-major
+template <int D>
+__device__ __forceinline__ void issue_ss_wide(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * Wg2<D>::ATOM + (kk % 4) * 32;
+    wgmma_ss_m64n64k16(d, sw128_desc(a + off, 16, 1024), sw128_desc(b + off, 16, 1024));
+  }
+}
+// d += A·B: A the 64 x 64 bf16 fragment in f, B the D/2 columns of a tile
+// starting at atom column `cols`, read MN-major
+template <int D>
+__device__ __forceinline__ void issue_rs_wide(float (&d)[D / 4], const uint32_t (&f)[16],
+                                              uint32_t cols) {
+#pragma unroll
+  for (int kk = 0; kk < TC_T / 16; ++kk)
+    wgmma_rs<D / 2>(d, f + 4 * kk, sw128_desc(cols + kk * 16 * 128, Wg2<D>::ATOM, 1024));
+}
+
+// One 64-row tile (NA boxes of 64 columns) of a 4-d tensor map
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int head, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < Wg2<D>::NA; ++c)
+    tma_load_4d(dst + c * Wg2<D>::ATOM, map, bar, 64 * c, head, row0, b);
+}
+
+// A: dQ of one (Q tile, head, batch row), and the rows' LSE·log2(e) and δ,
+// the columns of dQ split between the warpgroups.
+template <int D>
+__global__ void __launch_bounds__(Wg2<D>::THREADS, 1)
+bwd_dq_wg2_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  __nv_bfloat16* __restrict__ dq, float* __restrict__ lse,
+                  float* __restrict__ delta, Shape s, float scale_log2) {
+  using W = Wg2<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t dos = qs + W::TILE_B;
+  const uint32_t ks = dos + W::TILE_B;     // stage st at ks + st·TILE_B
+  const uint32_t vs = ks + 2 * W::TILE_B;
+  const uint32_t bar_q = vs + 2 * W::TILE_B;
+  const uint32_t bar_kv = bar_q + 8;       // K and V of stage st at bar_kv + 8·st
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int nt = (s.S + TC_T - 1) / TC_T;
+  const int q0 = (nt - 1 - static_cast<int>(blockIdx.x)) * TC_T;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const int lo = key_lo(q0, s) / TC_T;
+  const int n = (key_hi(q0, TC_T, s) + TC_T - 1) / TC_T - lo;   // at least 1
+
+  // iteration it of the two passes reads KV tile lo + it % n from stage it % 2
+  auto load_kv = [&](int it) {
+    const int st = it % 2, k0 = (lo + it % n) * TC_T;
+    const uint32_t bar = bar_kv + 8 * st;
+    mbar_expect_tx(bar, 2 * W::TILE_B);
+    load_tile<D>(ks + st * W::TILE_B, &tk, bar, hk, k0, b);
+    load_tile<D>(vs + st * W::TILE_B, &tv, bar, hk, k0, b);
+  };
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    prefetch_tensormap(&tdo);
+    for (int i = 0; i < 3; ++i) mbar_init(bar_q + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * W::TILE_B);
+    load_tile<D>(qs, &tq, bar_q, h, q0, b);
+    load_tile<D>(dos, &tdo, bar_q, h, q0, b);
+    load_kv(0);
+    load_kv(1);                            // 2n >= 2 iterations
+  }
+  auto release = [&](int it) {
+    __syncthreads();
+    if (tid == 0 && it + 2 < 2 * n) load_kv(it + 2);
+  };
+
+  const int r0 = 16 * warp + lane / 4;
+  const int pos[2] = {q0 + r0, q0 + r0 + 8};
+  float sc[32], dp[32];
+  // S = Q·Kᵀ and dP = dO·Vᵀ of the tiles in stage st, over the whole of D
+  auto scores = [&](int st) {
+    zero(sc);
+    zero(dp);
+    wgmma_fence();
+    issue_ss_wide<D>(sc, qs, ks + st * W::TILE_B);
+    issue_ss_wide<D>(dp, dos, vs + st * W::TILE_B);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+  };
+  auto key_of = [&](int k0, int i) { return k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2; };
+
+  mbar_wait(bar_q, 0);
+  // pass 1: online max, sum and Σ e·dP of this thread's two rows
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, ds_sum[2] = {0.f, 0.f};
+  for (int it = 0; it < n; ++it) {
+    mbar_wait(bar_kv + 8 * (it % 2), (it / 2) & 1);
+    scores(it % 2);
+    release(it);
+    const int k0 = (lo + it) * TC_T;
+    const bool edge = edge_tile(q0, k0, TC_T, s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float x = sc[i] * scale_log2;
+      if (edge && !visible(pos[r], key_of(k0, i), s)) x = -INFINITY;
+      sc[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[r] - mu[r]);
+      l[r] *= corr;
+      ds_sum[r] *= corr;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      const float e = exp2f(sc[i] - mu[r]);
+      l[r] += e;
+      ds_sum[r] = fmaf(e, dp[i], ds_sum[r]);
+    }
+  }
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 1);
+    ds_sum[r] += __shfl_xor_sync(0xffffffffu, ds_sum[r], 2);
+    lse2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
+    dl[r] = l[r] > 0.f ? ds_sum[r] / l[r] : 0.f;
+    // both warpgroups hold the same values; the first writes them
+    if (wg == 0 && lane % 4 == 0 && pos[r] < s.S) {
+      const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + pos[r];
+      lse[row] = lse2[r];
+      delta[row] = dl[r];
+    }
+  }
+
+  // pass 2: dS of each tile, dQ[:, this warpgroup's columns] += dS·K
+  float acc[D / 4];
+  zero(acc);
+  uint32_t dsf[16];
+  const uint32_t cols = wg * (W::NA / 2) * W::ATOM;
+  for (int it = n; it < 2 * n; ++it) {
+    const int st = it % 2;
+    mbar_wait(bar_kv + 8 * st, (it / 2) & 1);
+    scores(st);
+    const int k0 = (lo + it - n) * TC_T;
+    const bool edge = edge_tile(q0, k0, TC_T, s);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      float d2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = !edge || visible(pos[r], key_of(k0, i + e), s);
+        const float p = ok ? exp2f(sc[i + e] * scale_log2 - lse2[r]) : 0.f;
+        d2[e] = p * (dp[i + e] - dl[r]);
+      }
+      dsf[i / 2] = pack_bf16(d2[0], d2[1]);
+    }
+    wgmma_fence();
+    issue_rs_wide<D>(acc, dsf, ks + st * W::TILE_B + cols);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(it);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (pos[r] >= s.S) continue;
+    __nv_bfloat16* out = dq + ((static_cast<size_t>(b) * s.S + pos[r]) * s.H + h) * D +
+                         wg * W::DW + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < W::DW / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * r] * s.scale, acc[4 * c + 2 * r + 1] * s.scale);
+  }
+}
+
+// B: dK and dV of one (KV tile, KV head, batch row) over heads
+// [G·g/GS, G·(g+1)/GS) of the group, g the block's rank in its cluster of
+// GS; the cluster sums its partials.  In the Sᵀ accumulator rows are keys
+// and columns queries.
+template <int D>
+__global__ void __launch_bounds__(Wg2<D>::THREADS, 1)
+bwd_dkdv_wg2_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, Shape s, float scale_log2, int GS) {
+  using W = Wg2<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ks = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t vs = ks + W::TILE_B;
+  const uint32_t qs = vs + W::TILE_B;      // stage st at qs + st·TILE_B
+  const uint32_t dos = qs + 2 * W::TILE_B;
+  const uint32_t bar_kv = dos + 2 * W::TILE_B;   // K and V
+  const uint32_t bar_s = bar_kv + 8;       // Q and dO of stage st at bar_s + 8·st
+  // LSE·log2(e) and δ of the Q tile of stage st: [st][64] each
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (bar_s + 16 - smem_u32(smem_raw)));
+  float* dl_s = lse_s + 2 * TC_T;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * TC_T, hk = blockIdx.y / GS, g = blockIdx.y % GS, b = blockIdx.z;
+  const int h_lo = hk * s.G + s.G * g / GS;
+  const int nh = hk * s.G + s.G * (g + 1) / GS - h_lo;   // at least 1: GS <= G
+  const int qlo = query_lo(k0, s) / TC_T;
+  const int nq = (query_hi(k0, TC_T, s) + TC_T - 1) / TC_T - qlo;   // at least 1
+  const int n = nh * nq;
+
+  // iteration it reads Q tile qlo + it % nq of head h_lo + it / nq from stage it % 2
+  auto load_q = [&](int it) {
+    const int st = it % 2, q0 = (qlo + it % nq) * TC_T, h = h_lo + it / nq;
+    const uint32_t bar = bar_s + 8 * st;
+    mbar_expect_tx(bar, 2 * W::TILE_B);
+    load_tile<D>(qs + st * W::TILE_B, &tq, bar, h, q0, b);
+    load_tile<D>(dos + st * W::TILE_B, &tdo, bar, h, q0, b);
+  };
+  // threads 0-63: the LSE·log2(e) and δ of query q0 + tid of iteration it
+  // (rows past S: +inf and 0, so their P and dS are 0)
+  auto fetch_ld = [&](int it, float& ls, float& dl) {
+    const int q = (qlo + it % nq) * TC_T + tid, h = h_lo + it / nq;
+    const size_t row = (static_cast<size_t>(b) * s.H + h) * s.S + q;
+    ls = q < s.S ? __ldg(lse + row) : INFINITY;
+    dl = q < s.S ? __ldg(delta + row) : 0.f;
+  };
+  if (tid == 0) {
+    prefetch_tensormap(&tq);
+    prefetch_tensormap(&tk);
+    prefetch_tensormap(&tv);
+    prefetch_tensormap(&tdo);
+    for (int i = 0; i < 3; ++i) mbar_init(bar_kv + 8 * i, 1);
+    mbar_fence_init();
+  }
+  if (tid < TC_T) fetch_ld(0, lse_s[tid], dl_s[tid]);
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * W::TILE_B);
+    load_tile<D>(ks, &tk, bar_kv, hk, k0, b);
+    load_tile<D>(vs, &tv, bar_kv, hk, k0, b);
+    load_q(0);
+    if (n > 1) load_q(1);
+  }
+
+  const int r0 = 16 * warp + lane / 4;
+  const int key[2] = {k0 + r0, k0 + r0 + 8};
+  const uint32_t cols = wg * (W::NA / 2) * W::ATOM;
+  float dka[D / 4], dva[D / 4], st_[32], dpt[32];
+  zero(dka);
+  zero(dva);
+  uint32_t pf[16], dsf[16];
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % 2, q0 = (qlo + it % nq) * TC_T;
+    float next_ls = 0.f, next_dl = 0.f;
+    if (tid < TC_T && it + 1 < n) fetch_ld(it + 1, next_ls, next_dl);
+    mbar_wait(bar_s + 8 * st, (it / 2) & 1);
+    zero(st_);
+    zero(dpt);
+    wgmma_fence();
+    issue_ss_wide<D>(st_, ks, qs + st * W::TILE_B);
+    issue_ss_wide<D>(dpt, vs, dos + st * W::TILE_B);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st_);
+    fence_regs(dpt);
+    const bool edge = edge_tile(q0, k0, TC_T, s);
+    const float* ls = lse_s + st * TC_T;
+    const float* dl = dl_s + st * TC_T;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      float p2[2], d2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * (i / 4) + 2 * (lane % 4) + e;   // this column's query in the tile
+        const bool ok = !edge || visible(q0 + c, key[r], s);
+        p2[e] = ok ? exp2f(st_[i + e] * scale_log2 - ls[c]) : 0.f;
+        d2[e] = p2[e] * (dpt[i + e] - dl[c]);
+      }
+      pf[i / 2] = pack_bf16(p2[0], p2[1]);
+      dsf[i / 2] = pack_bf16(d2[0], d2[1]);
+    }
+    wgmma_fence();
+    issue_rs_wide<D>(dva, pf, dos + st * W::TILE_B + cols);
+    issue_rs_wide<D>(dka, dsf, qs + st * W::TILE_B + cols);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+    // buffer (it + 1) % 2 was last read in iteration it - 1, before its barrier
+    if (tid < TC_T && it + 1 < n) {
+      lse_s[((it + 1) % 2) * TC_T + tid] = next_ls;
+      dl_s[((it + 1) % 2) * TC_T + tid] = next_dl;
+    }
+    __syncthreads();                       // stage st is read by every warp
+    if (tid == 0 && it + 2 < n) load_q(it + 2);
+  }
+
+  // The Q/dO ring is free (every copy issued was waited on): this block's
+  // fp32 partials there, dK then dV, [2][64][D].
+  float* part = reinterpret_cast<float*>(smem_raw + (qs - smem_u32(smem_raw)));
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* pk = part + (r0 + 8 * r) * D + wg * W::DW + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < W::DW / 8; ++c) {
+      *reinterpret_cast<float2*>(pk + 8 * c) = make_float2(dka[4 * c + 2 * r], dka[4 * c + 2 * r + 1]);
+      *reinterpret_cast<float2*>(pk + TC_T * D + 8 * c) =
+          make_float2(dva[4 * c + 2 * r], dva[4 * c + 2 * r + 1]);
+    }
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                          // every partial of the cluster is written
+  // block g: rows [128·g/GS, 128·(g+1)/GS) of the 128 (dK and dV) rows,
+  // summed over the cluster's blocks in rank order, in 16-byte pieces
+  const int row_lo = 2 * TC_T * g / GS, rows = 2 * TC_T * (g + 1) / GS - row_lo;
+  for (int p = tid; p < rows * (D / 4); p += W::THREADS) {
+    const int tr = row_lo + p / (D / 4), c = 4 * (p % (D / 4));
+    float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0) + tr * D + c);
+    for (int j = 1; j < GS; ++j) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, j) + tr * D + c);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    const int kr = k0 + tr % TC_T;
+    if (kr >= s.S) continue;
+    const bool is_k = tr < TC_T;
+    const float mul = is_k ? s.scale : 1.f;
+    __nv_bfloat16* out = (is_k ? dk : dv) + ((static_cast<size_t>(b) * s.S + kr) * s.Hk + hk) * D + c;
+    reinterpret_cast<__nv_bfloat162*>(out)[0] = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+    reinterpret_cast<__nv_bfloat162*>(out)[1] = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
+  }
+  cluster.sync();                          // no block leaves while its partial may be read
+}
+
+// Blocks of the dkdv kernel a KV head's group is split over: doubled from 1
+// up to min(G, 4) while the grid has fewer than two blocks an SM.
+int group_split(int blocks, int G, int sms) {
+  int gs = 1;
+  while (2 * gs <= G && 2 * gs <= 4 && blocks * gs < 2 * sms) gs *= 2;
+  return gs;
+}
+
+template <int D>
+int launch_wg2(const void* q, const void* k, const void* v, const void* dout, void* dq,
+               void* dk, void* dv, float* lse, float* delta, int B, int S, int H, int Hk,
+               int causal, int window, cudaStream_t stream) {
+  using W = Wg2<D>;
+  const Shape s{S, H, Hk, H / Hk, causal, window, static_cast<float>(1.0 / std::sqrt(double(D)))};
+  const float scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(D)));
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_bf16_4d(&tq, q, D, H, S, B, 64, 1, TC_T, 1) ||
+      !encode_bf16_4d(&tk, k, D, Hk, S, B, 64, 1, TC_T, 1) ||
+      !encode_bf16_4d(&tv, v, D, Hk, S, B, 64, 1, TC_T, 1) ||
+      !encode_bf16_4d(&tdo, dout, D, H, S, B, 64, 1, TC_T, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // on every launch: the attribute belongs to the current device
+  cudaError_t err = allow_smem(bwd_dq_wg2_kernel<D>, W::SMEM);
+  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_wg2_kernel<D>, W::SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (S + TC_T - 1) / TC_T;
+  bwd_dq_wg2_kernel<D><<<dim3(nt, H, B), W::THREADS, W::SMEM, stream>>>(
+      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dq), lse, delta, s, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int gs = group_split(nt * Hk * B, s.G, sms);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nt, Hk * gs, B);
+  cfg.blockDim = dim3(W::THREADS);
+  cfg.dynamicSmemBytes = W::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = gs;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bwd_dkdv_wg2_kernel<D>, tq, tk, tv, tdo,
+                           static_cast<const float*>(lse), static_cast<const float*>(delta),
+                           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), s,
+                           scale_log2, gs);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -822,33 +1295,27 @@ int launch_fp32(const void* q, const void* k, const void* v, const void* dout, v
   const size_t score = BT * Grid<BT>::PS * sizeof(float);
   const size_t sm_dq = 4 * tile + score + 2 * BT * sizeof(float);
   const size_t sm_dkdv = 4 * tile + 2 * score + 2 * BT * sizeof(float);
-  static bool smem_set = false;   // once per width and process
-  if (!smem_set) {
-    cudaError_t err = allow_smem(bwd_dq_kernel<D, BT>, sm_dq);
-    if (err == cudaSuccess) err = allow_smem(bwd_dkdv_kernel<D, BT>, sm_dkdv);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
+  // on every launch: the attribute belongs to the current device
+  cudaError_t err = allow_smem(bwd_dq_kernel<D, BT>, sm_dq);
+  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_kernel<D, BT>, sm_dkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* df = static_cast<const float*>(dout);
   bwd_dq_kernel<D, BT><<<dim3(nt, H, B), Grid<BT>::THREADS, sm_dq, stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dq), s);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkdv_kernel<D, BT><<<dim3(nt, Hk, B), Grid<BT>::THREADS, sm_dkdv, stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- D = 256, both dtypes: CUDA cores, tiles of 32 rows -------------------
-// RecurrentGemma's local attention (16 heads on one KV head, D = 256, window
-// 2048).  Four 64 x 256 fp32 accumulators would not fit one warpgroup's
-// registers, so these kernels keep to the CUDA cores and fp32 products in
-// both dtypes (bf16 inputs are widened when they land in shared memory, the
-// gradients rounded once), with narrower tiles: 32 rows (queries in A, keys
-// in B) by all 256 columns, rows padded by four floats so that a row starts
+// ---- fp32 at D = 256: CUDA cores, tiles of 32 rows ------------------------
+// The fp32 gate (1e-4 row-relative) needs full-fp32 products, so these
+// kernels keep to the CUDA cores, with narrower tiles: 32 rows (queries in
+// A, keys in B) by all 256 columns, rows padded by four floats so that a row starts
 // on 16 bytes and a quarter-warp's float4 reads of eight rows fall on
 // distinct banks.  A block's 256 threads form a 16 x 16 grid: thread
 // (ty, tx) owns score rows ty + 16a and columns tx + 16c (a, c < 2) of a
@@ -1122,20 +1589,17 @@ int launch_wide(const void* q, const void* k, const void* v, const void* dout, v
   const size_t tile = WT * WP * sizeof(float), score = WT * WSP * sizeof(float);
   const size_t sm_dq = 4 * tile + score + 2 * WT * sizeof(float);
   const size_t sm_dkdv = 4 * tile + 2 * score + 2 * WT * sizeof(float);
-  static bool smem_set = false;   // once per dtype and process
-  if (!smem_set) {
-    cudaError_t err = allow_smem(bwd_dq_wide_kernel<T>, sm_dq);
-    if (err == cudaSuccess) err = allow_smem(bwd_dkdv_wide_kernel<T>, sm_dkdv);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
+  // on every launch: the attribute belongs to the current device
+  cudaError_t err = allow_smem(bwd_dq_wide_kernel<T>, sm_dq);
+  if (err == cudaSuccess) err = allow_smem(bwd_dkdv_wide_kernel<T>, sm_dkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto* qt = static_cast<const T*>(q);
   const auto* kt = static_cast<const T*>(k);
   const auto* vt = static_cast<const T*>(v);
   const auto* dt = static_cast<const T*>(dout);
   bwd_dq_wide_kernel<T><<<dim3(nt, H, B), W_THREADS, sm_dq, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), s);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkdv_wide_kernel<T><<<dim3(nt, Hk, B), W_THREADS, sm_dkdv, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s);
@@ -1179,8 +1643,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                     st);
       case 64: return launch_tc<64>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal, window,
                                     st);
-      case 256: return launch_wide<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk,
-                                                  causal, window, st);
+      case 256: return launch_wg2<256>(q, k, v, dout, dq, dk, dv, l, d, B, S, H, Hk, causal,
+                                       window, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -21,10 +21,13 @@ pass computes the rows' log-sum-exp and δ, a second dQ) and a dkdv kernel a
 KV tile.  bf16 runs ``bwd_dq_tc_kernel`` and ``bwd_dkdv_tc_kernel`` on the
 tensor cores (``wgmma`` over TMA tiles, P and dS rounded to bf16 before
 their products), fp32 ``bwd_dq_kernel`` and ``bwd_dkdv_kernel`` on the CUDA
-cores.  At D = 256 (RecurrentGemma's local attention) both dtypes run
-``bwd_dq_wide_kernel`` and ``bwd_dkdv_wide_kernel``: CUDA cores, fp32
-products, tiles of 32 rows, since four 64 × 256 fp32 accumulators do not
-fit one warpgroup's registers.  ``flash_attention_backward_plain`` is the same arithmetic tiled in
+cores.  At D = 256 (RecurrentGemma's local attention) bf16 runs
+``bwd_dq_wg2_kernel`` and ``bwd_dkdv_wg2_kernel``: the same tensor-core
+design with two warpgroups a block, each owning half of D's gradient
+columns, and the dkdv kernel's group of query heads split over a cluster of
+blocks that sums its fp32 partials in shared memory in rank order; fp32
+runs ``bwd_dq_wide_kernel`` and ``bwd_dkdv_wide_kernel`` on the CUDA cores
+(tiles of 32 rows).  ``flash_attention_backward_plain`` is the same arithmetic tiled in
 plain PyTorch, and :class:`FlashAttention` joins the forward and the
 backward for autograd, each picked by the tensors' device.
 """
@@ -45,7 +48,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_plain", "HEAD_DIMS",
 
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # the kernel's compiled head widths
 HEAD_DIMS_BWD = (16, 32, 64, 256)         # the backward kernels'
-HEAD_DIMS_BWD_TC = (16, 32, 64)           # of those, the widths bf16 takes on the tensor cores
+HEAD_DIMS_BWD_TC = (16, 32, 64, 256)      # of those, the widths bf16 takes on the tensor cores
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -309,12 +312,13 @@ def flash_attention_backward_cuda(q, k, v, d_out, *, causal: bool = True,
 
     Two launches on the current stream, the second reading the (B, H, S)
     fp32 log-sum-exp and δ the first writes: bf16 at D in
-    ``HEAD_DIMS_BWD_TC`` runs the tensor-core kernels (one warpgroup a
-    64-row tile; S, dP, dQ, dV and dK through ``wgmma`` from
-    128-byte-swizzled TMA tiles, D = 16 and 32 padded to 64 by TMA's zero
-    fill), fp32 the CUDA-core kernels (tiles of 64 rows); D = 256 takes the
-    wide CUDA-core kernels in both dtypes (tiles of 32 rows, fp32
-    products).  The head width is checked first, wherever the tensors lie."""
+    ``HEAD_DIMS_BWD_TC`` runs the tensor-core kernels (a 64-row tile a
+    block; S, dP, dQ, dV and dK through ``wgmma`` from 128-byte-swizzled
+    TMA tiles, D = 16 and 32 padded to 64 by TMA's zero fill; at D = 256
+    two warpgroups a block, D's gradient columns split between them, and a
+    KV head's query heads split over a cluster of dkdv blocks), fp32 the
+    CUDA-core kernels (tiles of 64 rows, 32 at D = 256).  The head width is
+    checked first, wherever the tensors lie."""
     if q.dim() == 4 and q.shape[3] not in HEAD_DIMS_BWD:
         raise ValueError(f"flash_attention_backward_cuda: head_dim {q.shape[3]} not in "
                          f"{HEAD_DIMS_BWD}")

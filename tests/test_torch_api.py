@@ -20,6 +20,16 @@ from repro_torch.data import make_simulated_pool, make_workload
 from repro_torch.serving.semcache import EpsilonModel, SemanticCache, SemanticCacheConfig
 from test_torch_core import same
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POOL = dict(task="agnews", n_train=192, n_val=48, n_test=96, seed=0)
 PARAMS = {"routellm": dict(tau=0.5, b=8), "frugalgpt": dict(tau=0.5, b=8),
           "batcher-sim": dict(tau=0.5, b=8), "batcher-div": dict(tau=0.5, b=8),

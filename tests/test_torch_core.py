@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import pareto as jpareto
 from repro.core import problem as jproblem
@@ -26,6 +27,16 @@ from repro.data import make_workload as jmake_workload
 from repro_torch.core import pareto, problem, robatch, scheduler
 from repro_torch.core.coreset import select_coreset
 from repro_torch.data import make_simulated_pool, make_workload
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 N = dict(n_train=192, n_val=48, n_test=96)
 

@@ -31,6 +31,16 @@ from repro_torch.models.transformer import Model
 from repro_torch.serving import engine, graphs, kvpool
 from repro_torch.serving.generation import GenerationConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOK = ByteTokenizer()
 MAX_LEN = 160
 SYS = "system: you are a terse assistant; answer every query in order. "

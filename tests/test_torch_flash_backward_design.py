@@ -17,6 +17,14 @@ compute and where they round:
   dV += Pᵀ·dO and dK += dSᵀ·Q in fp32;
 * the gradients rounded to bf16 once, at the end.
 
+At D = 256 the same arithmetic runs in ``bwd_dq_wg2_kernel`` and
+``bwd_dkdv_wg2_kernel`` (two warpgroups a block, D's gradient columns split
+between them, which moves no rounding point), and the dkdv kernel splits a
+KV head's G query heads over a cluster of GS blocks (``_group_split``, the
+kernel's ``group_split``): block g sums heads [G·g/GS, G·(g+1)/GS) into an
+fp32 partial, the cluster adds the GS partials in rank order, and each
+gradient is rounded once.  ``_design_bf16`` takes GS and repeats that sum.
+
 The model is held within ``ROW_TOL`` = 2e-2 of each gradient row's largest
 value (the card's check of the kernel) against ``jax.grad`` of the JAX
 package's ``_flash_jnp`` (as ``tests/test_torch_flash_backward.py`` runs it)
@@ -69,10 +77,22 @@ def _f32(x):
     return torch.tensor(x, dtype=torch.float32)
 
 
-def _design_bf16(q, k, v, do, *, causal=True, window=None, delta_from=None):
+def _group_split(blocks, G, sms=132):
+    """GS of ``csrc/flash_attention_bwd.cu``'s ``group_split``: doubled from
+    1 up to min(G, 4) while the dkdv grid (``blocks`` = KV tiles x KV heads x
+    batch rows) has fewer than two blocks an SM of the H100."""
+    gs = 1
+    while 2 * gs <= min(G, 4) and blocks * gs < 2 * sms:
+        gs *= 2
+    return gs
+
+
+def _design_bf16(q, k, v, do, *, causal=True, window=None, delta_from=None, gs=1):
     """(dq, dk, dv) in bf16 as the tensor-core kernels compute them from bf16
     q, do (B, S, H, D) and k, v (B, S, Hk, D).  ``delta_from``, if given, is
-    the output whose rows' dO·O replace the kernel's δ."""
+    the output whose rows' dO·O replace the kernel's δ.  ``gs``: the blocks a
+    KV head's group is split over, each summing its heads into an fp32
+    partial, the partials added in rank order."""
     B, S, H, D = q.shape
     G = H // k.shape[2]
     qf, dof = q.float(), do.float()
@@ -143,9 +163,16 @@ def _design_bf16(q, k, v, do, *, causal=True, window=None, delta_from=None):
                 dv[:, c] += torch.einsum("bhqk,bqhd->bkhd", _bf16(p), dof[:, qt[0]:qt[1]])
                 dk[:, c] += torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), qf[:, qt[0]:qt[1]])
     Hk = k.shape[2]
-    dk = dk.reshape(B, S, Hk, G, D).sum(3)
-    dv = dv.reshape(B, S, Hk, G, D).sum(3)
-    return tuple(x.to(torch.bfloat16) for x in (dq * scale, dk * scale, dv))
+
+    def group_sum(x):
+        x = x.reshape(B, S, Hk, G, D)
+        parts = [x[:, :, :, G * g // gs:G * (g + 1) // gs].sum(3) for g in range(gs)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    return tuple(x.to(torch.bfloat16) for x in (dq * scale, group_sum(dk) * scale, group_sum(dv)))
 
 
 def _inputs(seed, B, S, H, Hk, D):
@@ -181,7 +208,8 @@ CASES.append((32, 2, 128, 40))
 @pytest.mark.parametrize("D,G,S,window", CASES)
 def test_design_matches_plain(D, G, S, window):
     q, k, v, do = _inputs(D * 131 + G * 7 + S, 2, S, 4, 4 // G, D)
-    got = _design_bf16(q, k, v, do, window=window)
+    gs = _group_split(-(-S // TILE) * (4 // G) * 2, G) if D == 256 else 1
+    got = _design_bf16(q, k, v, do, window=window, gs=gs)
     want = flash_attention_backward_plain(*(x.float() for x in (q, k, v, do)), window=window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.bfloat16
@@ -198,6 +226,30 @@ def test_design_matches_jax_grad(D, G, S, window):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         rel = _row_rel(g, w)
         assert rel <= ROW_TOL, f"{name}: row-relative {rel:.3g}"
+
+
+# D = 256 at RecurrentGemma's group (16 heads on one KV head) and at G = 1,
+# with and without a window shorter than S (ending inside a 64-key tile);
+# G = 3 is split 1 + 2 over GS = 2 blocks
+D256_CASES = [(G, S, w) for G in (1, 16)
+              for S, w in ((1, None), (37, None), (37, 20), (130, None), (130, 50))]
+D256_CASES.append((3, 130, 50))
+
+
+@pytest.mark.parametrize("G,S,window", D256_CASES)
+def test_d256_design_matches_plain_and_jax_grad(G, S, window):
+    H = 6 if G == 3 else 16
+    q, k, v, do = _inputs(G * 7 + S + (window or 0), 1, S, H, H // G, 256)
+    gs = _group_split(-(-S // TILE) * (H // G), G)
+    assert gs == {1: 1, 3: 2, 16: 4}[G]
+    got = _design_bf16(q, k, v, do, window=window, gs=gs)
+    plain = flash_attention_backward_plain(*(x.float() for x in (q, k, v, do)), window=window)
+    grads = _jax_grads(q, k, v, do.float().numpy(), window)
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, grads):
+        assert g.dtype == torch.bfloat16
+        for ref, want in (("plain", p), ("jax.grad", j)):
+            rel = _row_rel(g, want)
+            assert rel <= ROW_TOL, f"{name} against {ref}: row-relative {rel:.3g}"
 
 
 def test_delta_from_a_bf16_output_leaves_the_tolerance():
@@ -231,7 +283,7 @@ def test_chip_smoke_names_every_backward_kernel():
     kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
                          src)
     frags = _bwd_kernel_fragments()
-    assert len(kernels) == 6, kernels
+    assert len(kernels) == 8, kernels
     for name in kernels:
         assert any(f in name for f in frags), (name, frags)
     for f in frags:

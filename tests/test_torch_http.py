@@ -16,6 +16,7 @@ import re
 import urllib.request
 
 import pytest
+import torch
 
 import repro.api as japi
 import repro.http.protocol as jproto
@@ -25,6 +26,16 @@ from repro_torch import api
 from repro_torch.http import HttpFrontend, MetricsRegistry
 from repro_torch.http import protocol as proto
 from repro_torch.serving.online import OnlineConfig
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 POOL = dict(task="agnews", n_train=192, n_val=48, n_test=96, seed=0)
 WINDOW = 0.03

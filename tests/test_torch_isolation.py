@@ -9,6 +9,16 @@ from pathlib import Path
 import pytest
 import torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 IMPORT_OF_REPRO = re.compile(r"^\s*(from|import)\s+repro(\.|\s|$)", re.MULTILINE)

@@ -29,6 +29,16 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_atte
 from repro_torch.kernels.paged_attention import paged_attention_cuda, paged_attention_plain
 from repro_torch.kernels.rwkv6_scan import wkv6_cuda, wkv6_plain
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

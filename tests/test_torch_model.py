@@ -23,6 +23,16 @@ from repro_torch.models.bridge import load_npz, state_from_jax
 from repro_torch.models.transformer import Model
 from repro_torch.serving.graphs import RecurrentDecoder
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 
 ARCHS = [("tiny-s", False), ("qwen1.5-0.5b", True), ("rwkv6-3b", True)]  # (arch, reduced())

@@ -20,6 +20,8 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
 
 import repro.api as japi
 from repro.serving import fault as jfault
@@ -28,6 +30,16 @@ from repro.serving import semcache as jsemcache
 from repro_torch import api
 from repro_torch.serving import fault, online, semcache
 from test_torch_core import same
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = Path(__file__).resolve().parents[1]
 POOL = dict(task="agnews", n_train=192, n_val=48, n_test=96, seed=0)

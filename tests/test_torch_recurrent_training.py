@@ -369,7 +369,8 @@ def test_recurrent_train_launcher_prints_what_jax_prints():
     """``launch.train --arch rwkv6-3b --device cpu`` prints the JAX
     launcher's lines: the parameter count of JAX's reduced model and the
     start step, then a loss line at step 1 and every 10 steps."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # one torch thread, as this file's own tests: the suite's workers share the cores
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
                           "rwkv6-3b", "--steps", "12", "--batch", "2", "--seq", "40",
                           "--device", "cpu"],

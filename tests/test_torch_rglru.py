@@ -36,6 +36,16 @@ from repro_torch.models.rglru import causal_conv
 from repro_torch.models.transformer import Model, RGLRUBlock
 from repro_torch.serving.graphs import RecurrentDecoder
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 MODEL_TOL = 1e-4

@@ -48,6 +48,16 @@ from repro_torch.kernels.decode_attention import (WIDE_GROUP, WIDE_HEADS, WIDE_T
                                                   wide_pieces)
 from repro_torch.kernels.rglru_scan import CHUNK, rglru_plain
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PLAIN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 ORACLE_TOL = 1e-5
 # Over 3,072 steps of gates within 1e-6 of 0 each fp32 step a · h moves h by

@@ -36,6 +36,16 @@ from repro_torch.serving import engine
 from repro_torch.serving.generation import GenerationConfig
 from repro_torch.utils import prng
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOK = ByteTokenizer()
 MAX_LEN = 128
 SEEDS = [0, 1, 42, 2**31 + 7, 2**32 - 1, 2**40 + 3, -5]

@@ -43,6 +43,16 @@ from repro_torch.serving import engine
 from repro_torch.serving.generation import GenerationConfig
 from repro_torch.serving.speculative import SpeculativeEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOK = ByteTokenizer()
 MAX_LEN = 160
 SYS = "system: you are a terse assistant; answer every query in order. "

@@ -381,7 +381,8 @@ def test_tree_helpers():
 
 
 def test_train_launcher_prints_params_and_loss():
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # one torch thread, as this file's own tests: the suite's workers share the cores
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "tiny-s",
                           "--steps", "12", "--batch", "4", "--seq", "32", "--device", "cpu"],
                          capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)

@@ -33,6 +33,16 @@ from repro.kernels.rwkv6_scan import wkv6_pallas
 from repro_torch.kernels import ref
 from repro_torch.kernels.rwkv6_scan import CHUNK, wkv6_plain
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one torch thread: the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WKV_TOL = 2e-4
 PLAIN_TOL = 2e-5
 C = CHUNK
