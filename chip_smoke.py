@@ -2096,6 +2096,12 @@ H_BUDGETS = (1.5, 4.0)                  # h3: submit budgets, times the initial 
 H_HTTP_QUERIES = (0, 5, 11, 23)         # h4: positions in the test set asked over HTTP
 H_WINDOW_S = 0.05                       # h4: the live server's admission window
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # backward kernel vs plain, row-relative
+# name fragments of the recurrences' backward kernels (every launch of one
+# call: the forward's chain of chunk states, the reverse chain, WKV6's ∂u)
+RECURRENT_BWD_KERNELS = {"wkv6_bwd": ("wkv6_bwd",), "rglru_bwd": ("rglru_bwd",)}
+# every __global__ kernel of the recurrences' backwards, each reported by ptxas
+RECURRENT_BWD_PTXAS = ("wkv6_bwd_states_kernel", "wkv6_bwd_kernel", "wkv6_bwd_du_kernel",
+                       "rglru_bwd_states_kernel", "rglru_bwd_kernel")
 BWD_KERNELS = ("bwd_dq_tc_kernel", "bwd_dkdv_tc_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel",
                "bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel", "bwd_dq_wg2_kernel",
                "bwd_dkdv_wg2_kernel")
@@ -2499,8 +2505,7 @@ def train_recurrent(label, dev, main_path, cfg, steps, batch, seq, ckpt_dir, per
     pipe.close()
     rows = device_rows(prof)
     dev_ms = device_total_ms(rows)
-    frags = {"wkv6_bwd": ("wkv6_bwd",), "rglru_bwd": ("rglru_bwd",),
-             "flash_attention_bwd": BWD_KERNELS}
+    frags = {**RECURRENT_BWD_KERNELS, "flash_attention_bwd": BWD_KERNELS}
     bwd_ms = {k: sum(e.self_device_time_total for e in rows
                      if any(f in e.key for f in frags[k])) / 1e3
               for k in per_step if k in frags}
@@ -2789,7 +2794,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(f'{n} {s:.1f}s' for n, s in took.items())}; "
           f"wall {build_s:.1f}s")
-    d128_seen, d192_seen, wide_bwd_seen = set(), set(), set()
+    d128_seen, d192_seen, wide_bwd_seen, rec_bwd_seen = set(), set(), set(), set()
     for name in build.SOURCES:
         log = Path(f"{build.library_path(name)}.log")
         if log.exists():
@@ -2813,6 +2818,8 @@ def main() -> int:
                     if (name == "flash_attention_bwd" and "wide_kernel" in entry
                             and "Used" in line):
                         wide_bwd_seen.add(entry)
+                    rec_bwd_seen.update(k for k in RECURRENT_BWD_PTXAS
+                                        if k in entry and "Used" in line)
                     redesigned = (name in ("rwkv6_scan", "rglru_scan", "flash_attention_bwd",
                                            "rwkv6_scan_bwd", "rglru_scan_bwd")
                                   or "decode_wide" in entry or paged128 or d192)
@@ -2822,6 +2829,9 @@ def main() -> int:
           f"ptxas reported no D=128 paged instantiation for some dtype: {d128_seen}")
     check(d192_seen == set(D192.values()),
           f"ptxas reported no D=192 instantiation of {set(D192.values()) - d192_seen}")
+    check(rec_bwd_seen == set(RECURRENT_BWD_PTXAS),
+          f"ptxas reported no {set(RECURRENT_BWD_PTXAS) - rec_bwd_seen} of the recurrences' "
+          f"backwards")
     # the fp32 D=256 backward's two CUDA-core kernels
     check(len(wide_bwd_seen) == 2 and all(any(k in e for e in wide_bwd_seen)
                                           for k in ("bwd_dq_wide", "bwd_dkdv_wide")),
@@ -3223,13 +3233,18 @@ def main() -> int:
         U(1e-12, 1) with a sixteenth set to 1e-12, where a chunk's log-decay
         sums run to hundreds, or (``wide``) exp(−exp(U(−6, 3.32))), from
         0.998 down to 1e-12 with as many near 1 as near 1e-12, so that decays
-        near 1 sit in a chunk beside sums of hundreds."""
+        near 1 sit in a chunk beside sums of hundreds, or (``wide12``) those
+        with every channel's decay 1e-12 at token 13 of each chunk, where ∂w
+        = ∂lw / w holds its relative precision only if every term of ∂lw
+        spans the token."""
         r, k, v = (randn(B, T, H, D, dtype=dtype) for _ in range(3))
         w_raw = torch.rand((B, T, H, D), generator=gen, device=dev)
         if decays == "rwkv":
             w = torch.exp(-torch.exp(w_raw - 0.5))
-        elif decays == "wide":
+        elif decays in ("wide", "wide12"):
             w = torch.exp(-torch.exp(-6.0 + 9.32 * w_raw))
+            if decays == "wide12":         # every channel's decay 1e-12 inside chunks
+                w[:, 13::32] = 1e-12
         else:
             w = w_raw.clamp(1e-12, 1.0)
             w[torch.rand((B, T, H, D), generator=gen, device=dev) < 1 / 16] = 1e-12
@@ -3339,6 +3354,18 @@ def main() -> int:
         for decays in ("rwkv", "wide"):
             for state in (False, True):
                 wkv6_bwd_case(4, 512, 40, 64, dtype, decays, state)
+        # the chunked backward's edges: chunk boundaries and short last
+        # chunks, 1e-12 inside chunks (∂w held row by row), and B·H = 3,
+        # where the 12 chunk blocks of T = 97 leave the chain alone on the card
+        for D in wkv6_mod.HEAD_DIMS:
+            for T in (63, 64, 65, 97):
+                for state in (False, True):
+                    wkv6_bwd_case(2, T, 3, D, dtype, "wide", state)
+        for T in (70, 97):
+            for state in (False, True):
+                wkv6_bwd_case(2, T, 3, 64, dtype, "wide12", state)
+        for decays in ("rwkv", "wide"):
+            wkv6_bwd_case(1, 97, 3, 64, dtype, decays, True)
 
     def rglru_inputs(B, T, W, dtype, gates):
         """x ~ N(0, 1), a carried state ~ N(0, 1), and log-gates ``mild``
@@ -3406,8 +3433,10 @@ def main() -> int:
 
     # a chunk of the forward ± 1 and RecurrentGemma-9B's training length, with
     # gates within 1e-6 of 0 (where 1 − exp(2a) keeps a few bits) among them
+    # and the chunk blocks' edges, up to three chunks: at B = 3, W = 200 a
+    # chunk is 6 blocks, far fewer than the SMs, so each chain runs alone
     for dtype in (torch.bfloat16, torch.float32):
-        for T in (1, C - 1, C, C + 1):
+        for T in (1, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1, 3 * C):
             for gates in ("mild", "strong", "near0"):
                 rglru_bwd_case(3, T, 200, dtype, gates)
         for gates in ("mild", "near0"):
@@ -4655,9 +4684,11 @@ def main() -> int:
     # ``traced_ms`` is the kernel's time a call in its path's traced step
     new_bwd = {}
     for name, key, frag, source, replaces in (
-            ("wkv6_bwd", "wkv6_bwd", ("wkv6_bwd",), "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+            ("wkv6_bwd", "wkv6_bwd", RECURRENT_BWD_KERNELS["wkv6_bwd"],
+             "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
              "src/repro/kernels/ops.py:271 (jax.grad of _wkv6_jnp; no pallas_call)"),
-            ("rglru_bwd", "rglru_bwd", ("rglru_bwd",), "src/repro_torch/csrc/rglru_scan_bwd.cu",
+            ("rglru_bwd", "rglru_bwd", RECURRENT_BWD_KERNELS["rglru_bwd"],
+             "src/repro_torch/csrc/rglru_scan_bwd.cu",
              "src/repro/kernels/ops.py:329 (jax.grad of _rglru_jnp; no pallas_call)"),
             ("flash_attention_bwd_d256", "flash_attention_bwd", BWD_KERNELS,
              "src/repro_torch/csrc/flash_attention_bwd.cu",

@@ -4,6 +4,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 
 // The TPU kernels mask with this finite value instead of -inf, so a row whose
@@ -74,4 +75,23 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
 // needs a __syncthreads before reading what other threads copied).
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Raise a kernel's cap of dynamic shared memory to `bytes` on the current
+// device, once a device.  The attribute belongs to a device: a flag kept
+// once a process would leave it unset on a second card, whose launch is
+// then refused.  `done`, one a kernel instantiation, holds a bit a device
+// (a device past the 64th sets it on every launch).  The first launch on
+// a device sets it, before any CUDA graph captures that launch.
+template <typename Kernel>
+inline cudaError_t allow_smem_per_device(Kernel kernel, int bytes,
+                                         std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }

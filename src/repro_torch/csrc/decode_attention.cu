@@ -603,12 +603,11 @@ int launch_wide(const void* q, const void* k, const void* v, const int* lengths,
                 float* scratch, int B, int Hk, int G, int S, long long bs, long long ss,
                 cudaStream_t stream) {
   constexpr size_t smem = sizeof(WideSmem<T, D>);
-  static bool smem_set = false;   // once per instantiation and process, before any capture
-  if (smem > 48 * 1024 && !smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_wide_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_devices{0};   // once per instantiation and device
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_smem_per_device(decode_wide_kernel<T, D>, (int)smem,
+                                                  smem_devices);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
   }
   const int n_gs = (G + WG - 1) / WG;
   const dim3 grid(wide_pieces(S), Hk * n_gs, B);

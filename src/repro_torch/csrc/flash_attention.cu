@@ -787,13 +787,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
       !encode_bf16_4d(&tv, v, D, Hk, Skv, B, 64, 1, TC_BK, 1))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = TcTile<D>::SMEM;
-  static bool smem_set = false;   // once per width and process
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  static std::atomic<unsigned long long> smem_devices{0};   // once per width and device
+  const cudaError_t err = allow_smem_per_device(flash_tc_kernel<D>, smem, smem_devices);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + bqp - 1) / bqp, H / GH, B);
   flash_tc_kernel<D><<<grid, TcTile<D>::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, G, GH, causal, window,

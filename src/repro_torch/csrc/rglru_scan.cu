@@ -71,115 +71,16 @@
 // bf16, scaled by 1 + |h|) and, in fp32, to the token-by-token oracle
 // ref.rglru_ref at 1e-5.
 #include "common.cuh"
+#include "rglru_chain.cuh"
 
 namespace {
 
-constexpr int NT = 128;               // threads (channels) a block
-constexpr int C = 16;                 // tokens a chunk
-constexpr float FP64_BAND = -0.5f;    // 2a above this: exp(2a) in fp64
-constexpr long long WAIT_LIMIT = 1ll << 32;   // cycles, ~2.4 s
-constexpr unsigned long long READY = 1ull << 32;
-
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-  unsigned long long x;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(x) : "l"(p) : "memory");
-  return x;
-}
-__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long x) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(x) : "memory");
-}
-
-// The state entering this thread's chunk from its predecessor's word, which
-// is then zeroed for the next launch.
-__device__ __forceinline__ float take_state(unsigned long long* word) {
-  unsigned long long v = ld_relaxed(word);
-  if (!(v & READY)) {
-    const long long t0 = clock64();
-    do {
-      __nanosleep(64);
-      if (clock64() - t0 > WAIT_LIMIT) __trap();
-      v = ld_relaxed(word);
-    } while (!(v & READY));
-  }
-  st_relaxed(word, 0ull);
-  return __uint_as_float(static_cast<unsigned>(v));
-}
-
-// scratch (chains of more than one chunk): word 0 holds the ticket counter;
-// then one word a (chunk c < n_chunks − 1, row, channel), the state leaving
-// chunk c, all zero between launches.
 template <typename T>
 __global__ void __launch_bounds__(NT, 8)
 rglru_kernel(const T* __restrict__ x, const float* __restrict__ a_log,
              const float* __restrict__ h0, T* __restrict__ out, float* __restrict__ hT,
              unsigned long long* scratch, int B, int T_len, int W, int n_chunks) {
-  const int tid = threadIdx.x;
-  const int n_wb = (W + NT - 1) / NT;
-  const int n_chain = B * n_wb;
-  int ticket = blockIdx.x;
-  if (n_chunks > 1) {
-    __shared__ unsigned s_ticket;
-    if (tid == 0) {
-      s_ticket = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
-      if (s_ticket == gridDim.x - 1) *reinterpret_cast<unsigned*>(scratch) = 0u;
-    }
-    __syncthreads();
-    ticket = s_ticket;
-  }
-  const int c = ticket / n_chain, chain = ticket % n_chain;
-  const int b = chain / n_wb, w = (chain % n_wb) * NT + tid;
-  if (w >= W) return;
-  const int n = min(C, T_len - c * C);
-  const size_t base = ((size_t)b * T_len + (size_t)c * C) * W + w;
-  const size_t bw = (size_t)b * W + w;
-
-  // every load of the chunk in flight before the first use; a loop stops
-  // at the chunk's end by a branch, so a short chunk (the decode step's one
-  // token) runs only its own iterations of the unrolled code
-  T xs[C];
-  float as[C];
-#pragma unroll
-  for (int u = 0; u < C; ++u) {
-    if (u == n) break;
-    xs[u] = x[base + (size_t)u * W];
-    as[u] = a_log[base + (size_t)u * W];
-  }
-  const float h_first = c == 0 ? h0[bw] : 0.f;
-
-  // the gates: nothing here needs another block
-  float gs[C];
-#pragma unroll
-  for (int u = 0; u < C; ++u) {
-    if (u == n) break;
-    const float al = as[u];
-    const float a = expf(al);
-    const float e2 = 2.f * al > FP64_BAND ? (float)exp(2.0 * (double)al)   // correctly rounded
-                                          : __fmul_rn(a, a);
-    gs[u] = __fmul_rn(sqrtf(fmaxf(1.f - e2, 1e-12f)), to_float(xs[u]));
-    as[u] = a;
-  }
-
-  // the chain: take the incoming state, walk the chunk, publish its end
-  unsigned long long* words = scratch + 1;
-  const size_t stride = (size_t)B * W;
-  float h = c == 0 ? h_first : take_state(words + (size_t)(c - 1) * stride + bw);
-#pragma unroll
-  for (int u = 0; u < C; ++u) {
-    if (u == n) break;
-    h = __fadd_rn(__fmul_rn(as[u], h), gs[u]);
-    gs[u] = h;
-  }
-  if (c + 1 < n_chunks)
-    st_relaxed(words + (size_t)c * stride + bw, READY | __float_as_uint(h));
-  else
-    hT[bw] = h;
-
-  // the outputs
-#pragma unroll
-  for (int u = 0; u < C; ++u) {
-    if (u == n) break;
-    out[base + (size_t)u * W] = from_float<T>(gs[u]);
-  }
+  chain_body<T, false>(x, a_log, h0, out, hT, scratch, B, T_len, W, n_chunks);
 }
 
 template <typename T>

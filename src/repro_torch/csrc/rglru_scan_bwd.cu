@@ -26,109 +26,132 @@
 // What bounds it on the H100: memory.  Each token and channel reads x, ∂h
 // (2 or 4 bytes each) and a_log (4) and writes ∂x (2 or 4) and ∂a_log (4);
 // at RecurrentGemma-9B's training shape (B = 2, T = 3072, W = 4096, bf16)
-// ~360 MB, 0.11 ms at 3.35 TB/s.  This design is a simple serial one: one
-// thread a channel, adjacent threads on adjacent channels (every load and
-// store of a warp one contiguous run), two sweeps over the tokens:
-//  A. forward, from h_0: each token's incoming state is written to an fp32
-//     scratch (B, T, W), the state stepped as the forward kernel steps it;
-//  B. reverse, from ∂h_T: δ, ∂x, ∂a_log and the carry a_t·δ_t.
-// Each sweep issues a group of C tokens' loads before it uses any.  It
-// runs B·W threads (8,192 at the training shape), so its time is the
-// tokens' serial latency, not the bytes.
+// ~360 MB, 0.11 ms at 3.35 TB/s.  The design splits the tokens over blocks
+// as the forward does (rglru_scan.cu), so that enough loads are in flight
+// to fill the card: a block is (row b, NT = 128 channels, a chunk of C = 16
+// tokens), one thread a channel, adjacent threads on adjacent channels;
+// 12,288 blocks at the training shape.  Two launches, each a chain of its
+// chunk blocks in ticket order through tagged 64-bit words
+// (rglru_chain.cuh), the scratch left zero:
+//  1. rglru_bwd_states_kernel, the forward's chain (chunk-major tickets):
+//     each chunk but the last walks its tokens from the state its
+//     predecessor's walk ended in and writes where it ends, the state
+//     entering the next chunk, to an fp32 (B, n_chunks, W) scratch (6.3 MB
+//     at the training shape).
+//  2. rglru_bwd_kernel, the reverse chain (reverse chunk-major tickets):
+//     each thread loads its chunk, takes its gates (a, g and ∂g, kept in
+//     registers), rebuilds h_{t−1} across it by the forward's own walk from
+//     the saved start, waits for δ's carry from chunk c + 1, walks δ back
+//     (δ = ∂h + carry, carry = a·δ: two operations a token on the chain),
+//     publishes the carry for chunk c − 1 (∂h_0 for the first chunk), and
+//     only then takes ∂x and ∂a_log from δ.
+//  In both, everything that does not need the other block comes before the
+//  wait: a gate takes an exp, an fp64 exp in the band, a square root and a
+//  division, none of which belongs on the chain, and each is taken once (at
+//  path o's shape, taking the gates again for the outputs doubled the
+//  reverse chain's time).
+// The same steps in the same order as the token-by-token sweeps, so the
+// result is bit for bit that of a serial walk.
 #include "common.cuh"
+#include "rglru_chain.cuh"
 
 namespace {
 
-constexpr int NT = 128;               // threads (channels) a block
-constexpr int C = 16;                 // tokens whose loads are issued together
-constexpr float FP64_BAND = -0.5f;    // 2a above this: exp(2a) in fp64, as the forward
-
-struct Gate {
-  float a, g, dg;                     // exp(a), the input gate, ∂g/∂a
-};
-
-__device__ __forceinline__ Gate gate(float al) {
-  const float a = expf(al);
-  const float e2 = 2.f * al > FP64_BAND ? (float)exp(2.0 * (double)al)   // correctly rounded
-                                        : __fmul_rn(a, a);
-  const float one_m = __fsub_rn(1.f, e2);
-  const float g = sqrtf(fmaxf(one_m, 1e-12f));
-  return {a, g, one_m >= 1e-12f ? -__fdiv_rn(e2, g) : 0.f};
+// Launch 1: the forward's chain over chunks 0 .. n_launched − 1 (all but
+// the last), chunk-major tickets.  h_start[(b, c + 1, w)] = the state
+// leaving chunk c.  Words: one a (chunk c < n_launched − 1, row, channel).
+template <typename T>
+__global__ void __launch_bounds__(NT, 8)
+rglru_bwd_states_kernel(const T* __restrict__ x, const float* __restrict__ a_log,
+                        const float* __restrict__ h0, float* __restrict__ h_start,
+                        unsigned long long* scratch, int B, int T_len, int W, int n_launched) {
+  chain_body<T, true>(x, a_log, h0, nullptr, h_start, scratch, B, T_len, W, n_launched);
 }
 
+// Launch 2: every chunk, reverse chunk-major tickets.  Words: one a (chunk
+// c ≥ 1, row, channel), the carry chunk c hands to chunk c − 1, at c − 1.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 rglru_bwd_kernel(const T* __restrict__ x, const float* __restrict__ a_log,
                  const float* __restrict__ h0, const T* __restrict__ dh,
-                 const float* __restrict__ dhT, T* __restrict__ dx, float* __restrict__ da,
-                 float* __restrict__ dh0, float* __restrict__ h_in, int B, int T_len, int W) {
-  const int n_wb = (W + NT - 1) / NT;
-  const int b = blockIdx.x / n_wb, w = (blockIdx.x % n_wb) * NT + threadIdx.x;
+                 const float* __restrict__ dhT, const float* __restrict__ h_start,
+                 T* __restrict__ dx, float* __restrict__ da, float* __restrict__ dh0,
+                 unsigned long long* scratch, int B, int T_len, int W, int n_chunks) {
+  const int n_wb = (W + NT - 1) / NT, n_chain = B * n_wb;
+  const int ticket = take_ticket(scratch, n_chunks > 1);
+  const int c = n_chunks - 1 - ticket / n_chain, chain = ticket % n_chain;
+  const int b = chain / n_wb, w = (chain % n_wb) * NT + threadIdx.x;
   if (w >= W) return;
+  const int n = min(C, T_len - c * C);
+  const size_t base = ((size_t)b * T_len + (size_t)c * C) * W + w;
   const size_t bw = (size_t)b * W + w;
-  const size_t base = (size_t)b * T_len * W + w;
 
-  // A. forward: every token's incoming state
-  float h = h0 == nullptr ? 0.f : h0[bw];
-  for (int t0 = 0; t0 < T_len; t0 += C) {
-    const int n = min(C, T_len - t0);
-    T xs[C];
-    float as[C];
+  // every load of the chunk in flight before the first use
+  T xs[C];
+  float ds[C], as[C], hs[C];
+  Gate gs[C];
 #pragma unroll
-    for (int u = 0; u < C; ++u) {
-      if (u == n) break;
-      xs[u] = x[base + (size_t)(t0 + u) * W];
-      as[u] = a_log[base + (size_t)(t0 + u) * W];
-    }
-#pragma unroll
-    for (int u = 0; u < C; ++u) {
-      if (u == n) break;
-      const Gate gt = gate(as[u]);
-      h_in[base + (size_t)(t0 + u) * W] = h;
-      h = __fadd_rn(__fmul_rn(gt.a, h), __fmul_rn(gt.g, to_float(xs[u])));
-    }
+  for (int u = 0; u < C; ++u) {
+    if (u == n) break;
+    const size_t o = base + (size_t)u * W;
+    xs[u] = x[o];
+    ds[u] = to_float(dh[o]);
+    as[u] = a_log[o];
   }
-
-  // B. reverse
-  float carry = dhT == nullptr ? 0.f : dhT[bw];
-  const int n_groups = (T_len + C - 1) / C;
-  for (int grp = n_groups - 1; grp >= 0; --grp) {
-    const int t0 = grp * C, n = min(C, T_len - t0);
-    T xs[C], ds[C];
-    float as[C], hs[C];
+  float h = c > 0 ? h_start[((size_t)b * n_chunks + c) * W + w]
+                  : h0 == nullptr ? 0.f : h0[bw];
+  // before the chain: the gates, and h_{t−1} across the chunk by the
+  // forward's own steps
 #pragma unroll
-    for (int u = 0; u < C; ++u) {
-      if (u == n) break;
-      const size_t o = base + (size_t)(t0 + u) * W;
-      xs[u] = x[o];
-      ds[u] = dh[o];
-      as[u] = a_log[o];
-      hs[u] = h_in[o];
-    }
-#pragma unroll
-    for (int u = C - 1; u >= 0; --u) {
-      if (u >= n) continue;
-      const Gate gt = gate(as[u]);
-      const float xf = to_float(xs[u]);
-      const float d = __fadd_rn(to_float(ds[u]), carry);
-      const size_t o = base + (size_t)(t0 + u) * W;
-      dx[o] = from_float<T>(__fmul_rn(gt.g, d));
-      da[o] = __fadd_rn(__fmul_rn(d, __fmul_rn(gt.a, hs[u])),
-                        __fmul_rn(__fmul_rn(d, xf), gt.dg));
-      carry = __fmul_rn(gt.a, d);
-    }
+  for (int u = 0; u < C; ++u) {
+    if (u == n) break;
+    gs[u] = gate(as[u]);
+    hs[u] = h;
+    h = __fadd_rn(__fmul_rn(gs[u].a, h), __fmul_rn(gs[u].g, to_float(xs[u])));
   }
-  dh0[bw] = carry;
+  // the chain: the carry from chunk c + 1, δ walked back across the chunk
+  // (kept in ds), the carry handed on to chunk c − 1
+  unsigned long long* words = scratch + 1;
+  const size_t stride = (size_t)B * W;
+  float carry = c + 1 < n_chunks ? take_state(words + (size_t)c * stride + bw)
+                                 : dhT == nullptr ? 0.f : dhT[bw];
+#pragma unroll
+  for (int u = C - 1; u >= 0; --u) {
+    if (u >= n) continue;
+    ds[u] = __fadd_rn(ds[u], carry);
+    carry = __fmul_rn(gs[u].a, ds[u]);
+  }
+  if (c > 0)
+    give_state(words + (size_t)(c - 1) * stride + bw, carry);
+  else
+    dh0[bw] = carry;
+  // the outputs
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    if (u == n) break;
+    const Gate gt = gs[u];
+    const float d = ds[u], xf = to_float(xs[u]);
+    const size_t o = base + (size_t)u * W;
+    dx[o] = from_float<T>(__fmul_rn(gt.g, d));
+    da[o] = __fadd_rn(__fmul_rn(d, __fmul_rn(gt.a, hs[u])), __fmul_rn(__fmul_rn(d, xf), gt.dg));
+  }
 }
 
 template <typename T>
 int launch(const void* x, const float* a_log, const float* h0, const void* dh, const float* dhT,
-           void* dx, float* da, float* dh0, float* h_in, int B, int T_len, int W,
-           cudaStream_t stream) {
-  const unsigned grid = (unsigned)B * ((W + NT - 1) / NT);
-  rglru_bwd_kernel<T><<<grid, NT, 0, stream>>>(static_cast<const T*>(x), a_log, h0,
-                                               static_cast<const T*>(dh), dhT,
-                                               static_cast<T*>(dx), da, dh0, h_in, B, T_len, W);
+           void* dx, float* da, float* dh0, float* h_start, unsigned long long* scratch, int B,
+           int T_len, int W, cudaStream_t stream) {
+  const int n_chunks = (T_len + C - 1) / C, n_wb = (W + NT - 1) / NT;
+  const T* xt = static_cast<const T*>(x);
+  if (n_chunks > 1) {
+    rglru_bwd_states_kernel<T><<<(unsigned)(n_chunks - 1) * B * n_wb, NT, 0, stream>>>(
+        xt, a_log, h0, h_start, scratch, B, T_len, W, n_chunks - 1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  rglru_bwd_kernel<T><<<(unsigned)n_chunks * B * n_wb, NT, 0, stream>>>(
+      xt, a_log, h0, static_cast<const T*>(dh), dhT, h_start, static_cast<T*>(dx), da, dh0,
+      scratch, B, T_len, W, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -136,22 +159,30 @@ int launch(const void* x, const float* a_log, const float* h0, const void* dh, c
 
 // x, dh, dx: (B, T, W) of dtype (0 float32, 1 bfloat16); a_log, da: (B, T,
 // W) float32; state, d_state, d_state0: (B, W) float32 (state and d_state
-// may be null: zeros); h_in: (B, T, W) float32 scratch.  All contiguous.
-// One launch on `stream`; returns cudaGetLastError() after it (0 on success).
+// may be null: zeros).  h_start: for T > C, B·ceil(T / C)·W floats of
+// scratch (the state entering each chunk); scratch: for T > C, 1 +
+// (ceil(T / C) − 1)·B·W words of 8 bytes, all zero before the call (the
+// kernels leave them zero); both unused, and may be null, at T ≤ C.  All
+// contiguous.  Up to two launches on `stream`; returns cudaGetLastError()
+// after them (0 on success).
 extern "C" int repro_rglru_scan_bwd(const void* x, const void* a_log, const void* state,
                                     const void* dh, const void* d_state, void* dx, void* da,
-                                    void* d_state0, void* h_in, int B, int T_len, int W,
-                                    int dtype, void* stream) {
-  if (B <= 0 || T_len <= 0 || W <= 0 || h_in == nullptr) return (int)cudaErrorInvalidValue;
+                                    void* d_state0, void* h_start, void* scratch, int B,
+                                    int T_len, int W, int dtype, void* stream) {
+  if (B <= 0 || T_len <= 0 || W <= 0 ||
+      (T_len > C && (h_start == nullptr || scratch == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const float* al = static_cast<const float*>(a_log);
   const float* h0 = static_cast<const float*>(state);
   const float* dhT = static_cast<const float*>(d_state);
   float* daf = static_cast<float*>(da);
   float* d0 = static_cast<float*>(d_state0);
-  float* hi = static_cast<float*>(h_in);
+  float* hs = static_cast<float*>(h_start);
+  auto* sc = static_cast<unsigned long long*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(x, al, h0, dh, dhT, dx, daf, d0, hi, B, T_len, W, st);
+  if (dtype == kFloat32)
+    return launch<float>(x, al, h0, dh, dhT, dx, daf, d0, hs, sc, B, T_len, W, st);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, al, h0, dh, dhT, dx, daf, d0, hi, B, T_len, W, st);
+    return launch<__nv_bfloat16>(x, al, h0, dh, dhT, dx, daf, d0, hs, sc, B, T_len, W, st);
   return (int)cudaErrorInvalidValue;
 }

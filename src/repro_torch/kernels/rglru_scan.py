@@ -30,7 +30,7 @@ chains them in one launch: each chunk walks its tokens from the state its
 predecessor's walk ended in, so it steps the plain version's recurrence;
 it is bit-identical to the plain version wherever every ``2a > −0.5`` and
 within a few units of the gates elsewhere.  The chain's scratch is held
-here across calls, one a device, and the kernel leaves it zeroed.
+across calls, one a device and stream, and the kernel leaves it zeroed.
 
 Training adds the backward, which the JAX package takes as ``jax.grad`` of
 ``_rglru_jnp``: with g_t = sqrt(max(1 − exp(2a_t), 1e-12)) and δ_t the
@@ -43,11 +43,13 @@ gradient reaching h_t (from the output and from h_{t+1})::
 
 and ∂state = exp(a_0) · δ_0.  h_{t−1} is the fp32 state, rebuilt from
 the inputs by the forward's own steps, never the rounded output.
-``rglru_backward_cuda`` launches ``csrc/rglru_scan_bwd.cu`` (one thread a
-channel: a forward sweep saving each token's incoming state in fp32, then
-the reverse sweep), ``rglru_backward_plain`` is the same arithmetic in
-plain fp32 PyTorch, each product and sum rounded apart in the order above,
-and :class:`RGLRU` joins forward and backward for autograd.
+``rglru_backward_cuda`` launches ``csrc/rglru_scan_bwd.cu`` (chunk blocks of
+``CHUNK`` tokens as the forward's, chained twice: forward, saving the state
+entering each chunk, then in reverse, each chunk rebuilding its states from
+the saved start and handing δ's carry to the chunk before),
+``rglru_backward_plain`` is the same arithmetic in plain fp32 PyTorch, each
+product and sum rounded apart in the order above, and :class:`RGLRU` joins
+forward and backward for autograd.
 """
 from __future__ import annotations
 
@@ -56,13 +58,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, launches
+from repro_torch.kernels.scratch import held_zeros
 
 __all__ = ["rglru_cuda", "rglru_plain", "CHUNK", "rglru_backward_cuda", "rglru_backward_plain",
            "RGLRU"]
 
 CHUNK = 16                   # tokens a chunk block of the kernel (csrc/rglru_scan.cu)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_scratch: dict[torch.device, torch.Tensor] = {}
 
 
 def rglru_plain(x, a_log, state=None):
@@ -100,21 +102,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _chain_scratch(device, n_words):
-    """The chain's scratch on ``device``: at least ``n_words`` words of 8 bytes,
-    zero before the first launch and left zero by every launch, so it is
-    allocated once (and again only to grow) and held across calls.  A CUDA
-    graph bakes its address in, so growing it while the stream is captured
-    raises: run the shape once eagerly first."""
-    buf = _scratch.get(device)
-    if buf is None or buf.numel() < n_words:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"rglru_cuda: the chain scratch on {device} must grow to "
-                               f"{n_words} words while the stream is captured; run this shape "
-                               f"once eagerly before capturing it")
-        buf = torch.zeros(n_words, dtype=torch.int64, device=device)
-        _scratch[device] = buf
-    return buf
+def _chain_words(device, stream, B, W, n_chunks):
+    """The chain's scratch for launches on ``stream``, the forward's and the
+    backward's: word 0 the ticket counter, then one 8-byte word a (chunk
+    but the last, row, channel), held zero across calls, one set a device
+    and stream (``scratch.held_zeros``)."""
+    return held_zeros("rglru_cuda: the chain scratch", device, stream,
+                      1 + (n_chunks - 1) * B * W, torch.int64)
 
 
 def rglru_cuda(x, a_log, state=None):
@@ -124,8 +118,9 @@ def rglru_cuda(x, a_log, state=None):
     None for zeros.  All on one CUDA device.  Returns ``(h (B, T, W) in x's
     dtype, final state (B, W) float32)`` as new tensors.  Raises on anything
     else, and counts each launch in ``rglru_cuda.launches``.  At T > CHUNK
-    the launch uses the device's chain scratch (``_chain_scratch``): one
-    8-byte word a (chunk but the last, row, channel), plus a counter."""
+    the launch uses the chain scratch of the device and the current stream
+    (``_chain_words``): one 8-byte word a (chunk but the last, row,
+    channel), plus a counter."""
     B, T, W = x.shape
     if state is None:
         state = torch.zeros((B, W), dtype=torch.float32, device=x.device)
@@ -153,11 +148,10 @@ def rglru_cuda(x, a_log, state=None):
         return out, h_out
     lib = _lib()
     n_chunks = -(-T // CHUNK)
-    scratch = (None if n_chunks == 1
-               else _chain_scratch(x.device, 1 + (n_chunks - 1) * B * W).data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    words = None if n_chunks == 1 else _chain_words(x.device, stream, B, W, n_chunks).data_ptr()
     err = lib.repro_rglru_scan(x.data_ptr(), a_log.data_ptr(), state.data_ptr(),
-                               out.data_ptr(), h_out.data_ptr(), scratch, B, T, W,
+                               out.data_ptr(), h_out.data_ptr(), words, B, T, W,
                                _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rglru_cuda: launch failed with CUDA error {err}")
@@ -210,7 +204,7 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = build.load("rglru_scan_bwd")
     fn = lib.repro_rglru_scan_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -221,8 +215,11 @@ def rglru_backward_cuda(x, a_log, d_h, state=None, d_state=None):
     state and d_state: (B, W) contiguous float32, or None for zeros.  All on
     one CUDA device.  Returns ``(dx, da_log, d_state0)`` as
     :func:`rglru_backward_plain` does.  Raises on anything else, and counts
-    each launch in ``rglru_backward_cuda.launches``.  The forward sweep's
-    fp32 states (B·T·W floats) take a scratch from the caching allocator.
+    each call in ``rglru_backward_cuda.launches``.  At T > CHUNK the state
+    entering each chunk (B·ceil(T / CHUNK)·W floats) takes a scratch from
+    the caching allocator, and the chains use the chain scratch of the
+    device and the current stream (``_chain_words``, shared with the
+    forward and left zero).
     Shapes and dtypes are checked before the device."""
     B, T, W = x.shape
     named = [("x", x), ("a_log", a_log), ("d_h", d_h)]
@@ -252,13 +249,18 @@ def rglru_backward_cuda(x, a_log, d_h, state=None, d_state=None):
     if T == 0:
         return dx, da, (d_state0.zero_() if d_state is None else d_state0.copy_(d_state))
     lib = _lib_bwd()
-    h_in = torch.empty((B, T, W), dtype=torch.float32, device=x.device)
+    n_chunks = -(-T // CHUNK)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.repro_rglru_scan_bwd(x.data_ptr(), a_log.data_ptr(),
-                                   None if state is None else state.data_ptr(),
-                                   d_h.data_ptr(), None if d_state is None else d_state.data_ptr(),
+    h_start = words = None
+    if n_chunks > 1:      # freed on return: the allocator reuses it only after this stream's work
+        h_start = torch.empty((B, n_chunks, W), dtype=torch.float32, device=x.device)
+        words = _chain_words(x.device, stream, B, W, n_chunks)
+    ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
+    err = lib.repro_rglru_scan_bwd(x.data_ptr(), a_log.data_ptr(), ptr(state),
+                                   d_h.data_ptr(), ptr(d_state),
                                    dx.data_ptr(), da.data_ptr(), d_state0.data_ptr(),
-                                   h_in.data_ptr(), B, T, W, _DTYPE_CODE[x.dtype], stream)
+                                   ptr(h_start), ptr(words), B, T, W, _DTYPE_CODE[x.dtype],
+                                   stream)
     if err != 0:
         raise RuntimeError(f"rglru_backward_cuda: launch failed with CUDA error {err}")
     launches.count(rglru_backward_cuda)

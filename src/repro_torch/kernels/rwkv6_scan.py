@@ -28,10 +28,11 @@ cumulative log-decay falls under −30; the port does not copy that.
 
 Training adds the backward, which the JAX package takes as ``jax.grad`` of
 ``_wkv6_jnp``: ``wkv6_backward_cuda`` launches ``csrc/rwkv6_scan_bwd.cu``
-(one block a (row, head): a forward sweep that rebuilds the states, saving
-one every ``BWD_SUB`` tokens, and a reverse sweep that carries the state's
-gradient G), ``wkv6_backward_plain`` is the same recurrences token by token
-in float64, and :class:`WKV6` joins forward and backward for autograd.
+(the forward's chain writing the state entering every chunk, then one
+block per (chunk, head, row) in reverse ticket order carrying the state's
+gradient G from chunk to chunk, then ∂u), ``wkv6_backward_plain`` is the
+same recurrences token by token in float64, and :class:`WKV6` joins forward
+and backward for autograd.
 With G_t the gradient of the state before token t:
 
     ∂r_t = S_t · do_t + u ⊙ k_t (v_t · do_t)
@@ -54,13 +55,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build, launches
+from repro_torch.kernels.scratch import held_zeros
 
 __all__ = ["wkv6_cuda", "wkv6_plain", "HEAD_DIMS", "CHUNK", "wkv6_backward_cuda",
-           "wkv6_backward_plain", "WKV6", "BWD_SUB"]
+           "wkv6_backward_plain", "WKV6"]
 
 HEAD_DIMS = (16, 32, 64)                  # the kernel's compiled head widths
-CHUNK = 32                                # tokens per chunk, both versions
-BWD_SUB = 8                               # tokens between the backward's saved states
+CHUNK = 32                                # tokens per chunk, both versions and the backward
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -239,11 +240,11 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = build.load("rwkv6_scan_bwd")
     fn = lib.repro_wkv6_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
-        if lib.repro_wkv6_bwd_sub() != BWD_SUB:
-            raise RuntimeError(f"rwkv6_scan_bwd: the library saves a state every "
-                               f"{lib.repro_wkv6_bwd_sub()} tokens, not BWD_SUB = {BWD_SUB}")
+        if lib.repro_wkv6_bwd_chunk() != CHUNK:
+            raise RuntimeError(f"rwkv6_scan_bwd: the library's chunk "
+                               f"{lib.repro_wkv6_bwd_chunk()} is not CHUNK = {CHUNK}")
     return lib
 
 
@@ -256,14 +257,18 @@ def wkv6_backward_cuda(r, k, v, w, u, d_out, state=None, d_state=None):
     :func:`wkv6_backward_plain` does.  Raises on anything else, and counts
     each call in ``wkv6_backward_cuda.launches``.
 
-    Two launches on the current stream: the sweeps, one block a (row,
-    head), writing ∂lw and each row's share of ∂u, then the sum of those
-    shares over the rows in a fixed order (no atomics, so two calls give
-    the same bits).  The states the forward sweep saves (one every
-    ``BWD_SUB`` tokens, D² floats each) take a scratch from the caching
-    allocator.  ∂w = ∂lw / w inside the clip, zero outside.  Shapes, dtypes
-    and the head width are checked before the device, so a width the
-    kernel does not take raises as such wherever the tensors lie."""
+    Up to three launches on the current stream: the forward's chain
+    writing the state entering every chunk (at T > ``CHUNK``), one block
+    per (chunk, head, row) carrying G back in reverse ticket order and
+    writing ∂lw and each (row, chunk)'s share of ∂u, then the sum of those
+    shares in a fixed order (no atomics, so two calls give the same bits).
+    The chunk states (B·H·ceil(T / CHUNK)·D² floats) and G's two slots a
+    (row, head) take scratch from the caching allocator; the flags and the
+    ticket counter (B·H + 1 words) are held across calls, one set a device
+    and stream (``scratch.held_zeros``), and left zero.  ∂w = ∂lw / w inside the
+    clip, zero outside.  Shapes, dtypes and the head width are checked
+    before the device, so a width the kernel does not take raises as such
+    wherever the tensors lie."""
     B, T, H, D = r.shape
     named = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("d_out", d_out)]
     named += [(n, t) for n, t in (("state", state), ("d_state", d_state)) if t is not None]
@@ -287,8 +292,9 @@ def wkv6_backward_cuda(r, k, v, w, u, d_out, state=None, d_state=None):
             raise ValueError(f"wkv6_backward_cuda: {name} is on {t.device}, not a CUDA device")
         if t.device != r.device:
             raise ValueError(f"wkv6_backward_cuda: {name} is on {t.device}, r on {r.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"wkv6_backward_cuda: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"wkv6_backward_cuda: {name} must be contiguous, on a 16-byte "
+                             f"boundary")
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dlw = torch.empty_like(w)
     d_state0 = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
@@ -300,16 +306,20 @@ def wkv6_backward_cuda(r, k, v, w, u, d_out, state=None, d_state=None):
             return dr, dk, dv, dlw, du.to(u.dtype), d_state0.zero_()
         return dr, dk, dv, dlw, du.to(u.dtype), d_state0.copy_(d_state)
     lib = _lib_bwd()
-    n_sub = -(-T // BWD_SUB)
-    saved = torch.empty(B * H * n_sub * D * D, dtype=torch.float32, device=r.device)
-    du_rows = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    n_chunks = -(-T // CHUNK)
+    states = torch.empty(B * H * n_chunks * D * D, dtype=torch.float32, device=r.device)
+    slots = torch.empty(B * H * 2 * D * D, dtype=torch.float32, device=r.device)
+    du_rows = torch.empty((B, n_chunks, H, D), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
+    sync = held_zeros("wkv6_backward_cuda: the sync scratch", r.device, stream, B * H + 1,
+                      torch.int32)
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
     err = lib.repro_wkv6_bwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                              u.data_ptr(), ptr(state), d_out.data_ptr(), ptr(d_state),
                              dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
                              du_rows.data_ptr(), du.data_ptr(), d_state0.data_ptr(),
-                             B, T, H, D, _DTYPE_CODE[r.dtype], saved.data_ptr(), stream)
+                             B, T, H, D, _DTYPE_CODE[r.dtype], states.data_ptr(),
+                             slots.data_ptr(), sync.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"wkv6_backward_cuda: launch failed with CUDA error {err}")
     launches.count(wkv6_backward_cuda)

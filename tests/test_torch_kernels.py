@@ -11,6 +11,7 @@ outputs run to tens, and the chunked and token-by-token forms round
 differently.
 """
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -535,3 +536,53 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.load(name)
     assert not (tmp_path / "build").exists()
+
+
+def test_no_launcher_sets_a_shared_memory_attribute_once_a_process():
+    """``cudaFuncAttributeMaxDynamicSharedMemorySize`` belongs to a device: a
+    launcher that sets it behind a flag kept once a process (a ``static
+    bool``) finds it unset on a second card, whose launch is then refused.
+    No source keeps such a flag; the flash, wide-decode and WKV6 backward
+    launchers set it once a device (``allow_smem_per_device``), the others on
+    every launch."""
+    for path in sorted(build.CSRC.glob("*.cu*")):
+        assert not re.search(r"static\s+bool", path.read_text()), path.name
+    for name in ("flash_attention.cu", "decode_attention.cu", "rwkv6_scan_bwd.cu"):
+        assert "allow_smem_per_device(" in (build.CSRC / name).read_text(), name
+
+
+def test_held_zeros_is_one_buffer_an_owner_device_and_stream_grown_only_when_short():
+    """``scratch.held_zeros`` hands each owner its own zeroed scratch a
+    device and stream, the same tensor again while it is long enough (a
+    CUDA graph keeps its address) and a larger zeroed one when it is not;
+    the RG-LRU chain's words are 8 bytes, a counter and one a (chunk but
+    the last, row, channel)."""
+    from repro_torch.kernels.rglru_scan import _chain_words
+    from repro_torch.kernels.scratch import held_zeros
+
+    cpu = torch.device("cpu")
+    a = held_zeros("test: a", cpu, 0, 5, torch.int32)
+    assert a.dtype == torch.int32 and a.numel() == 5 and not a.any()
+    assert held_zeros("test: a", cpu, 0, 3, torch.int32) is a
+    assert held_zeros("test: b", cpu, 0, 3, torch.int32) is not a
+    grown = held_zeros("test: a", cpu, 0, 9, torch.int32)
+    assert grown is not a and grown.numel() == 9 and not grown.any()
+    words = _chain_words(cpu, 0, 2, 3, 4)
+    assert words.dtype == torch.int64 and words.numel() == 1 + 3 * 2 * 3 and not words.any()
+    assert _chain_words(cpu, 0, 2, 3, 2) is words
+
+
+def test_held_zeros_gives_two_streams_two_buffers():
+    """Two chained launches in flight on two streams of one device must not
+    share a ticket counter or flags (one grid's last ticket would reset the
+    counter under the other), so each stream holds its own scratch, and
+    each keeps it across calls."""
+    from repro_torch.kernels.rglru_scan import _chain_words
+    from repro_torch.kernels.scratch import held_zeros
+
+    cpu = torch.device("cpu")
+    one, two = (held_zeros("test: streams", cpu, s, 4, torch.int32) for s in (0x11, 0x22))
+    assert one is not two and one.data_ptr() != two.data_ptr()
+    assert held_zeros("test: streams", cpu, 0x11, 4, torch.int32) is one
+    assert held_zeros("test: streams", cpu, 0x22, 2, torch.int32) is two
+    assert _chain_words(cpu, 0x11, 2, 3, 4) is not _chain_words(cpu, 0x22, 2, 3, 4)

@@ -23,6 +23,21 @@ well, except at 3,072 tokens of gates within 1e-6 of 0 (``JAX_DRIFT_TOL``,
 below).  A test pins why the chunks chain the walk's own state and not a
 composed ``P · h_in + L``.
 
+RG-LRU backward.  ``_bwd_design`` repeats ``csrc/rglru_scan_bwd.cu``'s two
+chains of the same chunk blocks: first forward in chunk-major ticket order,
+each chunk but the last walking its tokens from the state its
+predecessor's walk ended in and saving where it ends (the state entering
+the next chunk); then in reverse chunk-major order, each chunk rebuilding
+h_{t−1} across its tokens by the forward's steps from its saved start,
+taking δ's carry from the chunk after it, walking back (δ = ∂h + carry,
+∂x = g·δ, ∂a = δ·(a·h_{t−1}) + (δ·x)·∂g, carry = a·δ) and handing the
+carry to the chunk before.  Every step is the serial sweeps' own, in their
+order, so with the plain version's gates (exp(2a) correctly rounded for
+every token) the design equals ``rglru_backward_plain`` bit for bit; with
+the kernel's gates it does wherever every 2a > −0.5 (``near0``, ``mild``
+clipped to the band), and elsewhere, where the kernel takes exp(2a) as
+a · a, it stays within the card's fp32 check of 1e-4 row-relative.
+
 Ring decode (D in {128, 256}).  ``_ring_design`` repeats the wide-head
 kernel: the sequence in ``wide_pieces`` pieces of ``wide_piece_len``
 positions (at least two 16-position tiles each, whole clusters of 8), a
@@ -46,7 +61,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (WIDE_GROUP, WIDE_HEADS, WIDE_TILE,
                                                   decode_attention_plain, wide_piece_len,
                                                   wide_pieces)
-from repro_torch.kernels.rglru_scan import CHUNK, rglru_plain
+from repro_torch.kernels.rglru_scan import CHUNK, rglru_backward_plain, rglru_plain
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -202,6 +217,128 @@ def test_rglru_composed_chunk_state_drifts_where_the_walk_does_not(decay):
     assert max(_scaled(h, want_h), _scaled(h_T, want_s)) > ORACLE_TOL
     h, h_T = _rglru_design(x, a_log, s0)
     assert max(_scaled(h, want_h), _scaled(h_T, want_s)) <= ORACLE_TOL
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU backward
+# ---------------------------------------------------------------------------
+
+def _bwd_gates(a_log, plain):
+    """a = exp(a_log), the input gate g and ∂g/∂a (0 where the clamp holds),
+    with exp(2a) correctly rounded for every token (``plain``) or, as the
+    kernel, only where 2a > −0.5 and a · a below."""
+    al = a_log.float()
+    a = torch.exp(al)
+    e2 = torch.exp(2.0 * al.double()).float()
+    if not plain:
+        e2 = torch.where(2.0 * al > FP64_BAND, e2, a * a)
+    one_m = 1.0 - e2
+    g = torch.sqrt(torch.clamp_min(one_m, 1e-12))
+    return a, g, torch.where(one_m >= 1e-12, -(e2 / g), 0.0)
+
+
+def _bwd_design(x, a_log, d_h, state=None, d_state=None, plain_gates=False):
+    """The backward kernel's two chains; returns ``(dx in x's dtype, da_log,
+    d_state0)`` and checks that every handed-on word was read (the kernels
+    leave their scratch zeroed)."""
+    B, T, W = x.shape
+    a, g, dg = _bwd_gates(a_log, plain_gates)
+    xf, dh = x.float(), d_h.float()
+    n = -(-T // C)
+    h0 = torch.zeros(B, W) if state is None else state.float()
+    starts, words = {0: h0}, {}
+    for c in range(n - 1):                      # launch 1: chunk-major tickets
+        h = h0 if c == 0 else words.pop(c - 1)
+        for t in range(c * C, (c + 1) * C):
+            h = a[:, t] * h + g[:, t] * xf[:, t]
+        if c + 2 < n:
+            words[c] = h
+        starts[c + 1] = h
+    assert not words
+    dx, da, d0 = torch.empty(B, T, W), torch.empty(B, T, W), None
+    for c in reversed(range(n)):                # launch 2: reverse chunk-major tickets
+        ts = range(c * C, min(T, (c + 1) * C))
+        h, h_in = starts[c], {}
+        for t in ts:
+            h_in[t] = h
+            h = a[:, t] * h + g[:, t] * xf[:, t]
+        if c + 1 < n:
+            carry = words.pop(c)
+        else:
+            carry = torch.zeros(B, W) if d_state is None else d_state.float()
+        for t in reversed(ts):
+            d = dh[:, t] + carry
+            dx[:, t] = g[:, t] * d
+            da[:, t] = d * (a[:, t] * h_in[t]) + (d * xf[:, t]) * dg[:, t]
+            carry = a[:, t] * d
+        if c > 0:
+            words[c - 1] = carry
+        else:
+            d0 = carry
+    assert not words
+    return dx.to(x.dtype), da, d0
+
+
+def _bwd_args(rng, T, gates, W=40):
+    x, a_log, s0 = _inputs(rng, 2, T, W, gates)
+    dh = rng.normal(size=(2, T, W)).astype(np.float32)
+    dsT = rng.normal(size=(2, W)).astype(np.float32)
+    return [torch.from_numpy(v) for v in (x, a_log, dh, s0, dsT)]
+
+
+BWD_T = [1, C - 1, C, C + 1, 2 * C + 1, 3 * C]
+
+
+@pytest.mark.parametrize("gates", ["mild", "strong", "near0"])
+@pytest.mark.parametrize("T", BWD_T)
+def test_rglru_bwd_design_with_the_plain_gates_is_the_plain_backward(T, gates):
+    """fp32: with the plain version's gates the chunk chains give the serial
+    sweeps' bits, the state gradient included, and with no carried state or
+    final-state gradient too."""
+    args = _bwd_args(np.random.default_rng(31 * T + len(gates)), T, gates)
+    for call in (args, args[:3]):
+        for got, want in zip(_bwd_design(*call, plain_gates=True), rglru_backward_plain(*call)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("gates", ["mild", "strong", "near0"])
+@pytest.mark.parametrize("T", BWD_T)
+def test_rglru_bwd_design_with_the_kernel_gates(T, gates):
+    """fp32, the kernel's gates: bit for bit the plain backward where every
+    2a > −0.5 (``near0``); elsewhere (exp(2a) as a · a below the band)
+    within 1e-4 row-relative, the card's check of the kernel."""
+    args = _bwd_args(np.random.default_rng(17 * T + len(gates)), T, gates)
+    got, want = _bwd_design(*args), rglru_backward_plain(*args)
+    inside = bool((2.0 * args[1] > FP64_BAND).all())
+    assert inside == (gates == "near0")
+    for g, w in zip(got, want):
+        if inside:
+            assert torch.equal(g, w)
+        else:
+            d = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp(min=1e-6)
+            assert d.max().item() <= 1e-4
+
+
+def test_rglru_bwd_design_inside_the_band_is_the_plain_backward():
+    """mild gates clipped into the band: every gate is the plain version's,
+    and the design equals the plain backward bit for bit over many chunks."""
+    x, a_log, dh, s0, dsT = _bwd_args(np.random.default_rng(8), 5 * C + 3, "mild")
+    a_log = torch.clamp_min(a_log, -0.24)
+    for got, want in zip(_bwd_design(x, a_log, dh, s0, dsT),
+                         rglru_backward_plain(x, a_log, dh, s0, dsT)):
+        assert torch.equal(got, want)
+
+
+def test_rglru_bwd_design_bfloat16_rounds_dx_once():
+    """bf16 x and ∂h: ∂x is the fp32 δ · g rounded once, so equal to the plain
+    backward's with the same gates; ∂a and the state gradient stay fp32."""
+    x, a_log, dh, s0, dsT = _bwd_args(np.random.default_rng(9), 2 * C + 5, "strong")
+    xb, dhb = x.to(torch.bfloat16), dh.to(torch.bfloat16)
+    got = _bwd_design(xb, a_log, dhb, s0, dsT, plain_gates=True)
+    want = rglru_backward_plain(xb, a_log, dhb, s0, dsT)
+    assert got[0].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
